@@ -1,0 +1,835 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (``src/repro_torch``).
+
+    python3 chip_smoke.py            # one NVIDIA GPU; builds the kernels
+
+What it does, in order:
+
+1. prints the card (``nvidia-smi`` name and power limit) and builds the
+   hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. kernel phase: every kernel (stencil5, block-ELL SpMV, the 8 fused
+   solve-step bodies) against its plain PyTorch version on the card, in f32
+   and f64, at the main-path shapes and one ragged small shape, with its
+   time, the plain version's time, its bound and — where one PyTorch call
+   computes the same function — that call's time (``library_ms``);
+3. stencil path: ``poisson2d_vc(κ)`` at ng=2048 (4.19M unknowns, f64),
+   ``sla.solve`` (auto → stencil backend, CG, Jacobi, fused steps) and
+   ∂Σu²/∂κ, checked against the same run on the plain COO path;
+4. block-ELL path: ``poisson2d(1024)`` with ``backend="pallas"``, solve and
+   ∂/∂val, checked the same way;
+5. default general path: ``poisson2d(1024)`` with ``backend="jnp"``, CG and
+   BiCGStab (the kernel plan keeps COO: block-ELL fill is below the gate);
+6. solver-level path: ``cg_fused`` with a fused Chebyshev preconditioner,
+   the caller of the halfstep and cheb_step bodies;
+7. transposed paths: non-symmetric operators at ng=256 (a drift term
+   scales the N/S couplings unequally), BiCGStab, whose adjoint solves run
+   the stencil kernel on transposed planes and block-ELL on Aᵀ's layout
+   (``t_bell``); solved to tol 1e-10, ∂Σu²/∂(κ, val) checked against the
+   plain COO path;
+
+then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+...}``.  Every failed check raises (exit code 1).  Without a CUDA device it
+exits with code 2 and prints no result.  Details (build log, all numbers)
+go to ``chiprun_out/chip_smoke/``.  It takes no arguments: the sizes,
+tolerance and seed below are those of the main path.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
+# H100 SXM peak rates outside the tensor cores (NVIDIA data sheet)
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+TOL_KERNEL = {"float32": 1e-5, "float64": 1e-12}
+TOL_GRAD = 1e-6                      # gradient vs the plain path, relative
+
+NG_STENCIL = 2048                    # stencil path: 4.19M unknowns
+NG_BELL = 1024                       # block-ELL / general paths: 1.05M
+NG_TRANSPOSE = 256                   # non-symmetric (transposed) paths
+# 1e-8: at ng=2048 (cond(A) ~ 1e7) the f64 recurrences' residual gap
+# reaches ~3e-9, so 1e-10 is below what f64 CG attains in true residual
+TOL = 1e-8
+# On the drift operator of the transposed paths, the κ-gradients of two
+# BiCGStab runs that differ only in arithmetic order part by an amount that
+# grows with the grid and not with the tolerance: 7e-11 at ng=256 and
+# 1.6e-7 at ng=512 with the plain versions on both sides (CPU, tol 1e-10),
+# 4.3e-6 at ng=1024 at tol 1e-8 and 1e-10 alike (H100).  So these paths
+# run at ng=256, where TOL_GRAD has room.
+TOL_TRANSPOSE = 1e-10
+MAXITER = 30000
+SEED = 0
+OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
+
+KERNEL_SOURCES = {
+    "stencil5": ("src/repro_torch/kernels/csrc/stencil5.cu",
+                 "src/repro/kernels/stencil5.py:77"),
+    "bell_spmv": ("src/repro_torch/kernels/csrc/spmv_bell.cu",
+                  "src/repro/kernels/spmv_bell.py:66"),
+}
+FUSED = ("fused_cg_update", "fused_cg_direction", "fused_cg_halfstep",
+         "fused_cheb_step", "fused_dots2", "fused_bicg_p", "fused_bicg_s",
+         "fused_bicg_tail")
+# flops per element of each fused body (for the operations bound)
+FUSED_FLOPS = {"fused_cg_update": 9, "fused_cg_direction": 6,
+               "fused_cg_halfstep": 6, "fused_cheb_step": 4,
+               "fused_dots2": 4, "fused_bicg_p": 5, "fused_bicg_s": 3,
+               "fused_bicg_tail": 10}
+for _f in FUSED:
+    KERNEL_SOURCES[_f] = ("src/repro_torch/kernels/csrc/solve_step.cu",
+                          "src/repro/kernels/solve_step.py:92")
+
+
+class CheckFailed(AssertionError):
+    pass
+
+
+def check(cond, what):
+    if not cond:
+        raise CheckFailed(what)
+    print(f"  ok: {what}", flush=True)
+
+
+def say(msg):
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# measurement helpers
+# ---------------------------------------------------------------------------
+
+def cuda_ms(fn, reps, warmup=2):
+    """Mean device time of ``fn`` over ``reps`` back-to-back launches.
+
+    The launches are queued behind a spin kernel (``torch.cuda._sleep``), so
+    the host's time to enqueue them stays off the clock: the events measure
+    the device work alone, not Python overhead between launches."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(reps * 2_000_000))     # ≈1 ms of spinning per rep
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def wall_ms(fn, reps):
+    """Mean host wall time per call, synchronized (enqueue + device)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def bound_ms(nbytes, flops, dtype_name):
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def rel_err(outs, refs, scales):
+    """max |kernel − plain| over max of the plain version on |inputs| (the
+    floating-point error scale of a sum of products)."""
+    worst, worst_abs = 0.0, 0.0
+    for a, b, s in zip(outs, refs, scales):
+        d = float((a.double() - b.double()).abs().max())
+        sc = max(float(s.double().abs().max()), 1e-300)
+        worst_abs = max(worst_abs, d)
+        worst = max(worst, d / sc)
+    return worst, worst_abs
+
+
+def smooth_kappa(ng, seed):
+    """Smooth random conductivity in roughly [0.4, 2.5] (numpy seed)."""
+    rng = np.random.default_rng(seed)
+    t = (np.arange(ng) + 0.5) / ng
+    X, Y = np.meshgrid(t, t, indexing="ij")
+    field = np.zeros((ng, ng))
+    for _ in range(8):
+        kx, ky = rng.integers(1, 6, 2)
+        a = rng.normal() / (kx + ky)
+        px, py = rng.uniform(0, 2 * np.pi, 2)
+        field += a * np.sin(np.pi * kx * X + px) * np.sin(np.pi * ky * Y + py)
+    return np.exp(field / max(np.abs(field).max(), 1e-12) * 0.9)
+
+
+def csr_of(A):
+    """torch.sparse CSR of a port SparseTensor (the library yardstick)."""
+    import warnings
+    import torch
+    idx = torch.stack([A.row, A.col])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # "beta" notices
+        coo = torch.sparse_coo_tensor(idx, A.val.detach(), A.shape,
+                                      check_invariants=False).coalesce()
+        return coo.to_sparse_csr()
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def kernel_phase(dev, ng_stencil, ng_bell, seed, out):
+    import torch
+    from repro_torch.core.sparse import bell_to_device, build_bell
+    from repro_torch.data.poisson import (poisson2d_arrays, vc_coefficients,
+                                          vc_pattern)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import solve_step as fk
+    from repro_torch.kernels.stencil5 import Stencil5Meta, stencil5
+    from repro_torch.kernels.spmv_bell import bell_spmv
+
+    rng = np.random.default_rng(seed)
+    res = {}
+
+    # -- stencil5: the main path's planes (poisson2d_vc(κ) at ng) ----------
+    ng = ng_stencil
+    kap = torch.tensor(smooth_kappa(ng, seed), device=dev)
+    v5 = vc_coefficients(kap).reshape(5, ng, ng)
+    x = torch.tensor(rng.normal(size=(ng, ng)), device=dev)
+    meta = Stencil5Meta(nx=ng, ny=ng)
+    errs = []
+    for dt in (torch.float64, torch.float32):
+        cases = [(meta, v5.to(dt), x.to(dt))]
+        nx, ny = 37, 300
+        vr = torch.tensor(rng.normal(size=(5, nx, ny)), device=dev, dtype=dt)
+        vr[1, 0] = 0; vr[2, -1] = 0; vr[3, :, 0] = 0; vr[4, :, -1] = 0
+        cases.append((Stencil5Meta(nx=nx, ny=ny), vr,
+                      torch.tensor(rng.normal(size=(nx, ny)), device=dev,
+                                   dtype=dt)))
+        for m_, vv, xx in cases:
+            y = stencil5(m_, vv, xx)
+            torch.cuda.synchronize()
+            e, ea = rel_err([y], [ref.stencil5_ref(vv, xx)],
+                            [ref.stencil5_ref(vv.abs(), xx.abs())])
+            errs.append((str(dt)[6:], m_.nx, m_.ny, e, ea))
+    n = ng * ng
+    ms = cuda_ms(lambda: stencil5(meta, v5, x), 50)
+    wall = wall_ms(lambda: stencil5(meta, v5, x), 20)
+    plain = cuda_ms(lambda: ref.stencil5_ref(v5, x), 20)
+    rows, cols, _ = vc_pattern(ng)
+    from repro_torch.core.sparse import SparseTensor
+    A = SparseTensor(v5.reshape(-1), rows, cols, (n, n), props={},
+                     validate=False, device=dev)
+    csr = csr_of(A)
+    xf = x.reshape(-1)
+    lib = cuda_ms(lambda: csr @ xf, 20)
+    del A, csr
+    res["stencil5"] = dict(errs=errs, ms=ms, wall_ms=wall, plain_ms=plain,
+                           library_ms=lib,
+                           bytes=7 * n * 8, flops=9 * n, dtype="float64",
+                           shape=f"(5,{ng},{ng})")
+
+    # -- bell_spmv: the block-ELL layout of poisson2d(ng_bell) --------------
+    ngb = ng_bell
+    val, row, col = poisson2d_arrays(ngb)
+    nb = ngb * ngb
+    bell = bell_to_device(build_bell(row, col, (nb, nb)), dev)
+    bmeta, bcols, bperm = bell
+    vt = torch.tensor(val, device=dev)
+    tiles = ops.bell_assemble(bmeta, bperm, vt)
+    xb = torch.tensor(rng.normal(size=nb), device=dev)
+    errs = []
+    for dt in (torch.float64, torch.float32):
+        tt, xx = tiles.to(dt), xb.to(dt)
+        y = bell_spmv(bmeta, bcols, tt, xx, nb)
+        torch.cuda.synchronize()
+        xp = torch.nn.functional.pad(xx, (0, bmeta.m_pad - nb))
+        e, ea = rel_err([y], [ref.bell_matvec_ref(tt, bcols, xp, nb)],
+                        [ref.bell_matvec_ref(tt.abs(), bcols, xp.abs(), nb)])
+        errs.append((str(dt)[6:], bmeta.n_rb, bmeta.k, e, ea))
+        del tt, xx, xp
+        # ragged small case: 1000 × 700 random pattern
+        n_s, m_s = 1000, 700
+        keys = np.unique(rng.integers(0, n_s * m_s, 9000))
+        r_s, c_s = keys // m_s, keys % m_s
+        sm, sc, sp = bell_to_device(build_bell(r_s, c_s, (n_s, m_s)), dev)
+        vs = torch.tensor(rng.normal(size=len(keys)), device=dev, dtype=dt)
+        ts = ops.bell_assemble(sm, sp, vs)
+        xs = torch.tensor(rng.normal(size=m_s), device=dev, dtype=dt)
+        y = bell_spmv(sm, sc, ts, xs, n_s)
+        torch.cuda.synchronize()
+        xsp = torch.nn.functional.pad(xs, (0, sm.m_pad - m_s))
+        e, ea = rel_err([y], [ref.bell_matvec_ref(ts, sc, xsp, n_s)],
+                        [ref.bell_matvec_ref(ts.abs(), sc, xsp.abs(), n_s)])
+        errs.append((str(dt)[6:], n_s, m_s, e, ea))
+    ms = cuda_ms(lambda: bell_spmv(bmeta, bcols, tiles, xb, nb), 20)
+    wall = wall_ms(lambda: bell_spmv(bmeta, bcols, tiles, xb, nb), 10)
+    xpad = torch.nn.functional.pad(xb, (0, bmeta.m_pad - nb))
+    plain = cuda_ms(lambda: ref.bell_matvec_ref(tiles, bcols, xpad, nb), 5)
+    from repro_torch.core.sparse import SparseTensor
+    A = SparseTensor(vt, row, col, (nb, nb), props={}, device=dev)
+    csr = csr_of(A)
+    lib = cuda_ms(lambda: csr @ xb, 20)
+    tile_words = bmeta.n_rb * bmeta.k * bmeta.bm * bmeta.bn
+    res["bell_spmv"] = dict(
+        errs=errs, ms=ms, wall_ms=wall, plain_ms=plain, library_ms=lib,
+        bytes=tile_words * 8 + bcols.numel() * 4 + 2 * nb * 8,
+        flops=2 * tile_words, dtype="float64",
+        shape=f"({bmeta.n_rb},{bmeta.k},{bmeta.bm},{bmeta.bn})",
+        fill=bmeta.fill)
+    del A, csr, tiles, xpad
+    torch.cuda.empty_cache()
+
+    # -- the 8 fused bodies: n = ng_stencil² (the stencil path's vectors) ---
+    n = ng_stencil * ng_stencil
+    for name in FUSED:
+        bid, n_in, n_sc, n_out, n_dot = fk.BODIES[name]
+        errs = []
+        for dt in (torch.float64, torch.float32):
+            for nn in (n, 1000):
+                vecs = [torch.tensor(rng.normal(size=nn), device=dev, dtype=dt)
+                        for _ in range(n_in)]
+                scs = [torch.tensor(rng.normal(), device=dev, dtype=dt)
+                       for _ in range(n_sc)]
+                if name == "fused_bicg_p":
+                    scs[2] = torch.zeros((), device=dev, dtype=dt)
+                got = getattr(fk, name)(*vecs, *scs)
+                torch.cuda.synchronize()
+                plain_f = getattr(ref, name + "_ref")
+                want = plain_f(*vecs, *scs)
+                scale = plain_f(*[v.abs() for v in vecs],
+                                *[s.abs() for s in scs])
+                e, ea = rel_err(got, want, scale)
+                errs.append((str(dt)[6:], nn, 0, e, ea))
+        vecs = [torch.tensor(rng.normal(size=n), device=dev)
+                for _ in range(n_in)]
+        scs = [torch.tensor(rng.normal(), device=dev) for _ in range(n_sc)]
+        if name == "fused_bicg_p":
+            # restart = 0, the loop's common case: p' needs r, p, v and dinv
+            # (with restart set the kernel reads only r and dinv)
+            scs[2] = torch.zeros((), device=dev)
+        outs = [torch.empty_like(vecs[0]) for _ in range(n_out)]
+        fn = getattr(fk, name)
+        if name == "fused_dots2":
+            call = lambda: fn(*vecs)
+        else:
+            call = lambda: fn(*vecs, *scs, out=outs)
+        ms = cuda_ms(call, 50)
+        wall = wall_ms(call, 20)
+        plain = cuda_ms(lambda: getattr(ref, name + "_ref")(*vecs, *scs), 20)
+        reads, writes = fn.passes
+        res[name] = dict(errs=errs, ms=ms, wall_ms=wall, plain_ms=plain,
+                         library_ms=None,
+                         bytes=(reads + writes) * n * 8,
+                         flops=FUSED_FLOPS[name] * n, dtype="float64",
+                         shape=f"({n},)")
+        del vecs, outs
+    torch.cuda.empty_cache()
+
+    for name, r in res.items():
+        worst = max(e for (_, _, _, e, _) in r["errs"])
+        worst_by_dtype = {}
+        for (dt, _, _, e, _) in r["errs"]:
+            worst_by_dtype[dt] = max(worst_by_dtype.get(dt, 0.0), e)
+        r["max_rel_err"] = worst
+        r["max_abs_err"] = max(ea for (dt, _, _, _, ea) in r["errs"]
+                               if dt == "float64")
+        b_ms, b_by = bound_ms(r["bytes"], r["flops"], r["dtype"])
+        r["bound_ms"], r["bound_by"] = b_ms, b_by
+        say(f"  {name:20s} {r['shape']:>22s} f64: {r['ms']:.4f} ms "
+            f"(host wall {r['wall_ms']:.4f} ms/call, plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+            f"library {'-' if r['library_ms'] is None else '%.4f ms' % r['library_ms']}); "
+            + "; ".join(f"{dt} rel err {e:.2e} (limit {TOL_KERNEL[dt]:.0e})"
+                        for dt, e in worst_by_dtype.items()))
+        for dt, e in worst_by_dtype.items():
+            check(e <= TOL_KERNEL[dt],
+                  f"{name} {dt} matches its plain version "
+                  f"({e:.2e} <= {TOL_KERNEL[dt]:.0e})")
+    out["kernel_phase"] = res
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 3–6: the port's paths through its entry points
+# ---------------------------------------------------------------------------
+
+def _counts_reset():
+    from repro_torch import kernels
+    from repro_torch.core.dispatch import reset_plan_stats
+    kernels.reset_launch_counts()
+    reset_plan_stats()
+
+
+def _counts():
+    from repro_torch import kernels
+    from repro_torch.core.dispatch import PLAN_STATS
+    return kernels.launch_counts(), dict(PLAN_STATS)
+
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_reset(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        return torch.cuda.max_memory_allocated() / 1e9
+    return 0.0
+
+
+def _grad_rel(g, g_plain):
+    return float((g - g_plain).abs().max()) / max(
+        float(g_plain.abs().max()), 1e-300)
+
+
+def stencil_path(dev, ng, tol, maxiter, seed, out):
+    import torch
+    from repro_torch import sla
+    from repro_torch.data.poisson import poisson2d_vc
+    from repro_torch.kernels import ref
+
+    kap_np = smooth_kappa(ng, seed)
+    n = ng * ng
+    f = torch.ones(n, dtype=torch.float64, device=dev)
+    kappa = torch.tensor(kap_np, device=dev, requires_grad=True)
+    _sync(dev)
+    _peak_reset(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    A = poisson2d_vc(kappa, use_stencil_kernel=True, device=dev)
+    u = sla.solve(A, f, tol=tol, maxiter=maxiter)
+    _sync(dev)
+    t1 = time.perf_counter()
+    (u * u).sum().backward()
+    _sync(dev)
+    t2 = time.perf_counter()
+    launches, stats = _counts()
+    peak = _peak(dev)
+    plan = A.plan(tol=tol, maxiter=maxiter)
+    say(f"  stencil path ng={ng} (n={n}): backend={plan.cfg.backend} "
+        f"method={plan.cfg.method} precond={plan.cfg.precond} kernel="
+        f"{plan.artifacts['kernel'].choice}; forward {t1 - t0:.3f} s, "
+        f"backward {t2 - t1:.3f} s")
+    t3 = time.perf_counter()
+    info = sla.solve_with_info(A, f, tol=tol, maxiter=maxiter)
+    _sync(dev)
+    t4 = time.perf_counter()
+    with torch.no_grad():
+        v5 = A.val.detach().reshape(5, ng, ng)
+        r = f - ref.stencil5_ref(v5, info.x.reshape(ng, ng)).reshape(-1)
+        relres = float(r.norm() / f.norm())
+    say(f"  iterations {int(info.iterations)}, true residual {relres:.3e} "
+        f"(solve_with_info {t4 - t3:.3f} s)")
+    say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}")
+    g = kappa.grad.detach().clone()
+
+    # the same run on the plain path: COO segment-sum, plain CG loop
+    kappa2 = torch.tensor(kap_np, device=dev, requires_grad=True)
+    t5 = time.perf_counter()
+    with sla.options(fused_step="off"):
+        A2 = poisson2d_vc(kappa2, device=dev)
+        u2 = sla.solve(A2, f, backend="jnp", method="cg", tol=tol,
+                       maxiter=maxiter)
+        (u2 * u2).sum().backward()
+    _sync(dev)
+    t6 = time.perf_counter()
+    gerr = _grad_rel(g, kappa2.grad)
+    say(f"  plain path (COO, fused_step=off): {t6 - t5:.3f} s; "
+        f"κ-gradient max rel diff {gerr:.3e}")
+    check(bool(torch.isfinite(u).all()) and u.shape == (n,),
+          "stencil path: finite solution of shape (n,)")
+    check(relres <= 10 * tol, f"stencil path: true residual {relres:.2e} "
+          f"<= 10·tol")
+    check(bool(torch.isfinite(g).all()) and gerr <= TOL_GRAD,
+          f"stencil path: κ.grad matches the plain run ({gerr:.2e} <= "
+          f"{TOL_GRAD:.0e})")
+    check(stats["analyze"] == 1 and stats["transpose_shared"] == 1,
+          "stencil path: analyze == 1, transpose_shared == 1")
+    for k in ("stencil5", "fused_cg_update", "fused_cg_direction"):
+        check(launches[k] > 0, f"stencil path launched {k} "
+              f"({launches[k]} times)")
+    out["stencil_path"] = dict(
+        ng=ng, n=n, tol=tol, iterations=int(info.iterations),
+        forward_s=t1 - t0, backward_s=t2 - t1, info_solve_s=t4 - t3,
+        plain_run_s=t6 - t5, true_residual=relres, grad_rel_diff=gerr,
+        peak_gb=peak, launches=launches, plan_stats=stats)
+    say(f"  peak device memory {peak:.2f} GB; forward "
+        f"{(t1 - t0) / max(int(info.iterations), 1) * 1e3:.3f} ms/iteration")
+    del A, A2, u, u2, info, kappa, kappa2
+    return launches
+
+
+def bell_path(dev, ng, tol, maxiter, out):
+    import torch
+    from repro_torch import sla
+    from repro_torch.core.sparse import coo_matvec
+    from repro_torch.data.poisson import poisson2d
+
+    A0 = poisson2d(ng, device=dev)
+    n = ng * ng
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    val = A0.val.clone().requires_grad_(True)
+    _sync(dev)
+    _peak_reset(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    A = A0.with_values(val)
+    u = sla.solve(A, b, backend="pallas", tol=tol, maxiter=maxiter)
+    _sync(dev)
+    t1 = time.perf_counter()
+    (u * u).sum().backward()
+    _sync(dev)
+    t2 = time.perf_counter()
+    launches, stats = _counts()
+    peak = _peak(dev)
+    kp = A.plan(backend="pallas", tol=tol).artifacts["kernel"]
+    say(f"  block-ELL path poisson2d({ng}) (n={n}): KernelPlan choice="
+        f"{kp.choice} reason='{kp.reason}' fill={kp.bell[0].fill:.5f} "
+        f"k={kp.bell[0].k}; forward {t1 - t0:.3f} s, backward {t2 - t1:.3f} s")
+    t3 = time.perf_counter()
+    info = sla.solve_with_info(A, b, backend="pallas", tol=tol,
+                               maxiter=maxiter)
+    _sync(dev)
+    t4 = time.perf_counter()
+    with torch.no_grad():
+        r = b - coo_matvec(A0.val, A0.row, A0.col, info.x, n)
+        relres = float(r.norm() / b.norm())
+    say(f"  iterations {int(info.iterations)}, true residual {relres:.3e} "
+        f"(solve_with_info {t4 - t3:.3f} s)")
+    say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}")
+    g = val.grad.detach().clone()
+    val2 = A0.val.clone().requires_grad_(True)
+    t5 = time.perf_counter()
+    with sla.options(fused_step="off"):
+        u2 = sla.solve(A0.with_values(val2), b, backend="jnp", method="cg",
+                       tol=tol, maxiter=maxiter)
+        (u2 * u2).sum().backward()
+    _sync(dev)
+    t6 = time.perf_counter()
+    gerr = _grad_rel(g, val2.grad)
+    say(f"  plain path (COO, fused_step=off): {t6 - t5:.3f} s; "
+        f"val-gradient max rel diff {gerr:.3e}")
+    check(kp.choice == "bell", "block-ELL path: kernel plan adopted BELL")
+    check(bool(torch.isfinite(u).all()) and u.shape == (n,),
+          "block-ELL path: finite solution of shape (n,)")
+    check(relres <= 10 * tol,
+          f"block-ELL path: true residual {relres:.2e} <= 10·tol")
+    check(bool(torch.isfinite(g).all()) and gerr <= TOL_GRAD,
+          f"block-ELL path: val.grad matches the plain run ({gerr:.2e} <= "
+          f"{TOL_GRAD:.0e})")
+    check(stats["analyze"] == 1 and stats["transpose_shared"] == 1,
+          "block-ELL path: analyze == 1, transpose_shared == 1")
+    for k in ("bell_spmv", "fused_cg_update", "fused_cg_direction"):
+        check(launches[k] > 0, f"block-ELL path launched {k} "
+              f"({launches[k]} times)")
+    out["bell_path"] = dict(
+        ng=ng, n=n, tol=tol, iterations=int(info.iterations),
+        forward_s=t1 - t0, backward_s=t2 - t1, info_solve_s=t4 - t3,
+        plain_run_s=t6 - t5, true_residual=relres, grad_rel_diff=gerr,
+        fill=kp.bell[0].fill, reason=kp.reason, peak_gb=peak,
+        launches=launches, plan_stats=stats)
+    say(f"  peak device memory {peak:.2f} GB; forward "
+        f"{(t1 - t0) / max(int(info.iterations), 1) * 1e3:.3f} ms/iteration")
+    del A, A0, u, u2, info, val, val2
+    return launches
+
+
+def general_path(dev, ng, tol, maxiter, out):
+    import torch
+    from repro_torch import sla
+    from repro_torch.core.sparse import coo_matvec
+    from repro_torch.data.poisson import poisson2d
+
+    A = poisson2d(ng, device=dev)
+    n = ng * ng
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    total = {}
+    res = {}
+    for method, bodies in (("cg", ("fused_cg_update", "fused_cg_direction")),
+                           ("bicgstab", ("fused_bicg_p", "fused_bicg_s",
+                                         "fused_dots2", "fused_bicg_tail"))):
+        _sync(dev)
+        _counts_reset()
+        t0 = time.perf_counter()
+        info = sla.solve_with_info(A, b, backend="jnp", method=method,
+                                   tol=tol, maxiter=maxiter)
+        _sync(dev)
+        t1 = time.perf_counter()
+        launches, stats = _counts()
+        kp = A.plan(backend="jnp", method=method).artifacts["kernel"]
+        with torch.no_grad():
+            relres = float((b - coo_matvec(A.val, A.row, A.col, info.x, n))
+                           .norm() / b.norm())
+        say(f"  general path poisson2d({ng}) jnp/{method}: KernelPlan "
+            f"choice={kp.choice} reason='{kp.reason}'; {t1 - t0:.3f} s, "
+            f"iterations {int(info.iterations)}, true residual {relres:.3e}")
+        say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        check(kp.choice == "coo" and kp.reason.startswith("bell fill"),
+              f"general path ({method}): kernel plan kept COO below the "
+              f"fill gate")
+        check(info.reason == "converged" and relres <= 10 * tol,
+              f"general path ({method}): converged, true residual "
+              f"{relres:.2e} <= 10·tol")
+        check(stats["analyze"] == 1, f"general path ({method}): analyze == 1")
+        for k in bodies:
+            check(launches[k] > 0, f"general path ({method}) launched "
+                  f"{k} ({launches[k]} times)")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        res[method] = dict(seconds=t1 - t0, iterations=int(info.iterations),
+                           true_residual=relres, reason=kp.reason,
+                           launches=launches, plan_stats=stats)
+    out["general_path"] = dict(ng=ng, n=n, tol=tol, **res)
+    del A
+    return total
+
+
+def chebyshev_path(dev, ng, tol, maxiter, out):
+    import torch
+    from repro_torch.core import precond, solvers
+    from repro_torch.data.poisson import poisson2d
+
+    A = poisson2d(ng, device=dev)
+    n = ng * ng
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    mv = lambda x: A @ x
+    lmin = 8 * math.sin(math.pi / (2 * (ng + 1))) ** 2
+    lmax = 8 * math.cos(math.pi / (2 * (ng + 1))) ** 2
+    _sync(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    M = precond.chebyshev(mv, lmin, lmax, degree=8, fused=True)
+    x, info = solvers.cg_fused(mv, b, M=M, tol=tol, maxiter=maxiter)
+    _sync(dev)
+    t1 = time.perf_counter()
+    launches, _ = _counts()
+    with torch.no_grad():
+        relres = float((b - mv(x)).norm() / b.norm())
+    say(f"  solver-level path poisson2d({ng}): cg_fused + fused Chebyshev "
+        f"(degree 8): {t1 - t0:.3f} s, iterations {int(info.iters)}, "
+        f"true residual {relres:.3e}")
+    say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    check(bool(info.converged) and relres <= 10 * tol,
+          f"solver-level path: converged, true residual {relres:.2e} <= 10·tol")
+    for k in ("fused_cg_halfstep", "fused_cheb_step"):
+        check(launches[k] > 0, f"solver-level path launched {k} "
+              f"({launches[k]} times)")
+    out["chebyshev_path"] = dict(ng=ng, n=n, tol=tol, seconds=t1 - t0,
+                                 iterations=int(info.iters),
+                                 true_residual=relres, launches=launches)
+    del A, x
+    return launches
+
+
+def transpose_path(dev, ng, tol, maxiter, seed, out):
+    """Non-symmetric operators: the backward's adjoint solve runs on the
+    backend's own transpose plan (``transpose_shared`` with ``analyze ==
+    1``), launching the stencil kernel on transposed planes and the
+    block-ELL kernel on Aᵀ's layout."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.core.sparse import SparseTensor
+    from repro_torch.data.poisson import poisson2d, vc_coefficients, vc_pattern
+    from repro_torch.kernels import launch_counts
+
+    n = ng * ng
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    props = {"symmetric": False, "spd_hint": False, "sorted_rows": False}
+    rows, cols, meta = vc_pattern(ng)
+    drift = torch.tensor([1.0, 1.3, 0.7, 1.0, 1.0], dtype=torch.float64,
+                         device=dev).reshape(5, 1)
+
+    def stencil_op(kappa, stencil):
+        v = (vc_coefficients(kappa).reshape(5, -1) * drift).reshape(-1)
+        return SparseTensor(v, rows, cols, (n, n), props=props,
+                            stencil=meta if stencil else None,
+                            validate=False, device=dev)
+
+    A0 = poisson2d(ng, device=dev)
+    v0 = A0.val.clone()
+    v0[A0.col == A0.row - 1] = -1.4
+    v0[A0.col == A0.row + 1] = -0.6
+    B = SparseTensor(v0, A0.row, A0.col, A0.shape, props=props, device=dev)
+    kap_np = smooth_kappa(ng, seed)
+    kernel_of = {"stencil": "stencil5", "pallas": "bell_spmv"}
+    res = {}
+    total = {}
+    for backend in ("stencil", "pallas"):
+        if backend == "stencil":
+            leaf = torch.tensor(kap_np, device=dev, requires_grad=True)
+            make = lambda w: stencil_op(w, True)
+            make_plain = lambda w: stencil_op(w, False)
+        else:
+            leaf = v0.clone().requires_grad_(True)
+            make = make_plain = B.with_values
+        kern = kernel_of[backend]
+        _sync(dev)
+        _counts_reset()
+        t0 = time.perf_counter()
+        A = make(leaf)
+        u = sla.solve(A, b, backend=backend, tol=tol, maxiter=maxiter)
+        _sync(dev)
+        fwd = launch_counts()[kern]
+        t1 = time.perf_counter()
+        (u * u).sum().backward()
+        _sync(dev)
+        t2 = time.perf_counter()
+        launches, stats = _counts()
+        plan = A.plan(backend=backend, tol=tol, maxiter=maxiter)
+        info = sla.solve_with_info(A, b, backend=backend, tol=tol,
+                                   maxiter=maxiter)
+        g = leaf.grad.detach().clone()
+        leaf2 = leaf.detach().clone().requires_grad_(True)
+        t3 = time.perf_counter()
+        with sla.options(fused_step="off"):
+            u2 = sla.solve(make_plain(leaf2), b, backend="jnp",
+                           method="bicgstab", tol=tol, maxiter=maxiter)
+            (u2 * u2).sum().backward()
+        _sync(dev)
+        t4 = time.perf_counter()
+        gerr = _grad_rel(g, leaf2.grad)
+        what = "κ" if backend == "stencil" else "val"
+        say(f"  transposed path {backend} ng={ng} (n={n}): method="
+            f"{plan.cfg.method} kernel={plan.artifacts['kernel'].choice}; "
+            f"forward {t1 - t0:.3f} s, backward {t2 - t1:.3f} s, iterations "
+            f"{int(info.iterations)}; plain path {t4 - t3:.3f} s; "
+            f"{what}-gradient max rel diff {gerr:.3e}")
+        say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}")
+        check(plan.cfg.method == "bicgstab" and info.reason == "converged"
+              and bool(torch.isfinite(u).all()),
+              f"transposed path ({backend}): BiCGStab converged, finite")
+        check(stats["analyze"] == 1 and stats["transpose_shared"] == 1,
+              f"transposed path ({backend}): analyze == 1, transpose_shared "
+              f"== 1 (the backend's own transpose plan)")
+        check(launches[kern] > fwd > 0,
+              f"transposed path ({backend}): {kern} launched in the forward "
+              f"({fwd}) and the adjoint solve ({launches[kern] - fwd})")
+        check(bool(torch.isfinite(g).all()) and gerr <= TOL_GRAD,
+              f"transposed path ({backend}): {what}.grad matches the plain "
+              f"run ({gerr:.2e} <= {TOL_GRAD:.0e})")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        res[backend] = dict(forward_s=t1 - t0, backward_s=t2 - t1,
+                            plain_run_s=t4 - t3,
+                            iterations=int(info.iterations),
+                            grad_rel_diff=gerr, launches=launches,
+                            forward_launches=fwd, plan_stats=stats)
+        del A, u, u2, info, leaf, leaf2, g
+        torch.cuda.empty_cache()
+    out["transpose_path"] = dict(ng=ng, n=n, tol=tol, **res)
+    return total
+
+
+# ---------------------------------------------------------------------------
+
+def card_line():
+    q = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return q.stdout.strip().splitlines()[0]
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this run needs one "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    os.makedirs(OUT, exist_ok=True)
+    t_start = time.perf_counter()
+    card = card_line()
+    say(card)
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    _build.lib()
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(OUT, "build.log"), "w") as fh:
+        fh.write(_build.BUILD_LOG)
+    say(f"kernel build: {build_s:.2f} s (nvcc: "
+        f"{_build.LAST_BUILD_SECONDS if _build.LAST_BUILD_SECONDS is not None else 'cached'})")
+    out = dict(card=card, build_s=build_s,
+               config=dict(ng_stencil=NG_STENCIL, ng_bell=NG_BELL,
+                           ng_transpose=NG_TRANSPOSE, tol=TOL,
+                           tol_transpose=TOL_TRANSPOSE,
+                           maxiter=MAXITER, seed=SEED))
+
+    phases = []
+
+    def phase(name, fn, *a):
+        say(f"[{name}]")
+        t = time.perf_counter()
+        r = fn(*a)
+        dt = time.perf_counter() - t
+        phases.append((name, dt))
+        say(f"[{name}] {dt:.2f} s")
+        return r
+
+    kres = phase("kernels", kernel_phase, dev, NG_STENCIL, NG_BELL, SEED, out)
+    path_launches = {}
+    for name, fn, a in (
+            ("stencil path", stencil_path,
+             (dev, NG_STENCIL, TOL, MAXITER, SEED, out)),
+            ("block-ELL path", bell_path, (dev, NG_BELL, TOL, MAXITER, out)),
+            ("general path", general_path, (dev, NG_BELL, TOL, MAXITER, out)),
+            ("solver-level path", chebyshev_path,
+             (dev, NG_BELL, TOL, MAXITER, out)),
+            ("transposed paths", transpose_path,
+             (dev, NG_TRANSPOSE, TOL_TRANSPOSE, MAXITER, SEED, out))):
+        counts = phase(name, fn, *a)
+        torch.cuda.empty_cache()
+        for k, v in counts.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+    for k, v in path_launches.items():
+        check(v > 0, f"{k} launched on the paths ({v} times)")
+
+    kernels = []
+    for name, r in kres.items():
+        src, replaces = KERNEL_SOURCES[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=path_launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            max_rel_err=r["max_rel_err"], wall_ms=r["wall_ms"],
+            dtype=r["dtype"], shape=r["shape"]))
+    out["kernels"] = kernels
+    out["phases_s"] = dict(phases)
+    out["total_s"] = time.perf_counter() - t_start
+    with open(os.path.join(OUT, "results.json"), "w") as fh:
+        json.dump(out, fh, indent=1, default=str)
+    say("phases: " + ", ".join(f"{n} {s:.1f} s" for n, s in phases)
+        + f"; total {out['total_s']:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,325 @@
+"""Typed sparse tensors (PyTorch port of ``repro.core.sparse``).
+
+``SparseTensor`` — one matrix in COO form ``(val, row, col)``.  Auxiliary
+kernel layouts (block-ELL for the BELL SpMV kernel, 5-point stencil metadata)
+are attached at construction time when asked for.  The numpy symbolic helpers
+(:func:`build_bell`, :func:`detect_properties`, :func:`has_full_diagonal`)
+are kept as copies of the reference's so analyze artifacts compare array for
+array.  Leading batch dimensions on ``val`` are accepted by the COO products;
+batched *solves* come with a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ._device import resolve_device, to_numpy
+
+__all__ = [
+    "SparseTensor",
+    "BellMeta",
+    "coo_matvec",
+    "coo_rmatvec",
+    "coo_to_dense",
+    "coo_diagonal",
+    "detect_properties",
+    "has_full_diagonal",
+    "build_bell",
+]
+
+
+def has_full_diagonal(row, col, n: int) -> bool:
+    """True when every diagonal position is structurally present."""
+    r = to_numpy(row)
+    c = to_numpy(col)
+    return bool(np.unique(r[r == c]).size == n)
+
+
+# ---------------------------------------------------------------------------
+# COO products (plain torch: the reference computes these outside any kernel)
+# ---------------------------------------------------------------------------
+
+def coo_matvec(val: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+               x: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """y = A @ x for COO A, as one ``index_add_`` segment sum.  Leading batch
+    dims on ``val``/``x`` broadcast.  On CUDA ``index_add_`` accumulates with
+    atomics, so the summation order (and the last bits) can vary per run."""
+    prod = val * x[..., col]
+    y = torch.zeros(prod.shape[:-1] + (n_rows,), dtype=prod.dtype,
+                    device=prod.device)
+    return y.index_add_(-1, row, prod)
+
+
+def coo_rmatvec(val, row, col, y, n_cols):
+    """x = Aᵀ @ y — transpose is a row/col swap."""
+    return coo_matvec(val, col, row, y, n_cols)
+
+
+def coo_to_dense(val, row, col, shape):
+    n, m = shape
+    out = torch.zeros(val.shape[:-1] + (n * m,), dtype=val.dtype,
+                      device=val.device)
+    return out.index_add_(-1, row * m + col, val).reshape(
+        val.shape[:-1] + (n, m))
+
+
+def coo_diagonal(val, row, col, n):
+    mask = row == col
+    d = torch.zeros(val.shape[:-1] + (n,), dtype=val.dtype, device=val.device)
+    return d.index_add_(-1, row, torch.where(mask, val, torch.zeros_like(val)))
+
+
+# ---------------------------------------------------------------------------
+# pattern analysis (numpy — runs once at construction)
+# ---------------------------------------------------------------------------
+
+def detect_properties(val, row, col, shape, check_values: bool = True) -> dict:
+    """Detect structural symmetry / SPD-likelihood (copy of the reference)."""
+    props = {"symmetric": False, "spd_hint": False, "sorted_rows": False}
+    if shape[0] != shape[1]:
+        return props
+    r = to_numpy(row)
+    c = to_numpy(col)
+    props["sorted_rows"] = bool(np.all(np.diff(r) >= 0))
+    props["struct_full_diag"] = has_full_diagonal(r, c, shape[0])
+    key_f = (r.astype(np.int64) * shape[1] + c)
+    key_t = (c.astype(np.int64) * shape[1] + r)
+    of, ot = np.argsort(key_f), np.argsort(key_t)
+    if not np.array_equal(key_f[of], key_t[ot]):
+        return props  # pattern not symmetric
+    sym = True
+    if check_values and val is not None:
+        v = to_numpy(val)
+        vf = v[..., of]
+        vt = v[..., ot]
+        sym = bool(np.allclose(vf, vt, rtol=1e-12, atol=1e-12))
+        if sym:
+            # cheap SPD hint: all diagonal entries present and positive
+            dmask = r == c
+            diag = np.zeros(v.shape[:-1] + (shape[0],), v.dtype)
+            flat = diag.reshape(-1, shape[0])
+            vflat = v.reshape(-1, v.shape[-1])
+            for b in range(flat.shape[0]):
+                np.add.at(flat[b], r[dmask], vflat[b][dmask])
+            props["spd_hint"] = bool(np.all(flat > 0))
+    props["symmetric"] = sym
+    return props
+
+
+# ---------------------------------------------------------------------------
+# block-ELL construction for the BELL SpMV kernel (numpy copy)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BellMeta:
+    """Static layout of a block-ELL matrix (see kernels/spmv_bell.py)."""
+    bm: int            # rows per row-band
+    bn: int            # cols per column block
+    n_rb: int          # number of row bands
+    n_cb: int          # number of column blocks
+    k: int             # blocks per row band (padded)
+    n_pad: int         # padded row count
+    m_pad: int         # padded col count
+    fill: float        # nnz / (n_rb*k*bm*bn) — padding efficiency
+
+
+def build_bell(row, col, shape, bm: int = 8, bn: int = 128,
+               max_k: Optional[int] = None):
+    """Block-ELLPACK layout: per row band, the list of non-empty column
+    blocks (padded to k) plus a scatter map from COO nnz → dense block slots.
+
+    Returns numpy ``(meta, block_cols[int32 (n_rb,k)], perm[int64 (nnz,)])``
+    where ``perm[e]`` is the flat index into the (n_rb,k,bm,bn) value tensor
+    for COO entry e (``-1`` for entries dropped by ``max_k``) — the same
+    arrays as the reference's ``build_bell``.
+    """
+    r = to_numpy(row).astype(np.int64)
+    c = to_numpy(col).astype(np.int64)
+    n, m = shape
+    n_rb = -(-n // bm)
+    n_cb = -(-m // bn)
+    rb = r // bm
+    cb = c // bn
+    key = rb * n_cb + cb
+    uniq, inv = np.unique(key, return_inverse=True)
+    inv = inv.reshape(-1)
+    u_rb = uniq // n_cb
+    u_cb = uniq % n_cb
+    counts = np.bincount(u_rb, minlength=n_rb)
+    k = int(counts.max()) if counts.size else 1
+    if max_k is not None:
+        k = min(k, max_k)
+    # slot index of each unique block within its row band: a running count
+    # per band (the reference's per-band arange, vectorized)
+    order = np.argsort(u_rb, kind="stable")
+    slot = np.zeros_like(u_rb)
+    starts = np.cumsum(counts) - counts
+    slot[order] = np.arange(len(u_rb), dtype=np.int64) - np.repeat(starts,
+                                                                   counts)
+    block_cols = np.zeros((n_rb, k), np.int32)
+    block_cols[u_rb, np.minimum(slot, k - 1)] = u_cb.astype(np.int32)
+    e_slot = slot[inv]
+    keep = e_slot < k
+    perm = ((rb * k + e_slot) * bm + r % bm) * bn + c % bn
+    perm = np.where(keep, perm, -1).astype(np.int64)
+    fill = float(len(r)) / float(max(n_rb * k * bm * bn, 1))
+    meta = BellMeta(bm=bm, bn=bn, n_rb=int(n_rb), n_cb=int(n_cb), k=int(k),
+                    n_pad=int(n_rb * bm), m_pad=int(n_cb * bn), fill=fill)
+    return meta, block_cols, perm
+
+
+def bell_to_device(bell, device) -> tuple:
+    """``(meta, block_cols, perm)`` with the index arrays as device tensors
+    (int32 slot table, int64 scatter map)."""
+    meta, block_cols, perm = bell
+    return (meta,
+            torch.as_tensor(to_numpy(block_cols), dtype=torch.int32,
+                            device=device),
+            torch.as_tensor(to_numpy(perm), dtype=torch.int64, device=device))
+
+
+# ---------------------------------------------------------------------------
+# SparseTensor
+# ---------------------------------------------------------------------------
+
+def _index_tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.array(a, dtype=np.int64), device=device)
+
+
+def _plan_cache():
+    """Fresh bounded-LRU plan cache (imported lazily: dispatch imports this
+    module at module level)."""
+    from .dispatch import PlanCache
+    return PlanCache()
+
+
+class SparseTensor:
+    """A sparse matrix in COO form with an autograd-aware solve.
+
+    Construction is eager w.r.t. the *pattern*; ``with_values`` swaps in new
+    (possibly grad-requiring) values and SHARES the plan cache, so one
+    analysis serves a training loop.  ``device`` defaults to ``"cuda"`` and
+    raises when no card is present — pass ``device="cpu"`` explicitly.
+    """
+
+    def __init__(self, val, row, col, shape: Sequence[int], *,
+                 props: Optional[dict] = None,
+                 bell: Optional[tuple] = None,
+                 stencil: Optional[Any] = None,
+                 build_kernel_layout: bool = False,
+                 validate: bool = True,
+                 device=None):
+        dev = resolve_device(device)
+        if isinstance(val, torch.Tensor):
+            val = val.to(dev)          # differentiable move
+        else:
+            val = torch.as_tensor(np.array(val), device=dev)
+        self.val = val
+        self.row = _index_tensor(row, dev)
+        self.col = _index_tensor(col, dev)
+        self.shape = tuple(int(s) for s in shape)
+        if validate and not (val.shape[-1] == self.row.shape[0]
+                             == self.col.shape[0]):
+            raise ValueError(
+                f"nnz mismatch: val {tuple(val.shape)}, row "
+                f"{tuple(self.row.shape)}, col {tuple(self.col.shape)}")
+        self.props = props if props is not None else detect_properties(
+            val, self.row, self.col, self.shape)
+        self.stencil = stencil
+        self._plans = _plan_cache()  # plan_key → SolverPlan (bounded LRU)
+        if bell is not None:
+            self.bell = bell_to_device(bell, dev)
+        elif build_kernel_layout:
+            self.bell = bell_to_device(
+                build_bell(self.row, self.col, self.shape), dev)
+        else:
+            self.bell = None
+
+    # -- basic ops ----------------------------------------------------------
+    @property
+    def nnz(self) -> int:
+        return self.row.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.shape[0]
+
+    @property
+    def batch_shape(self):
+        return tuple(self.val.shape[:-1])
+
+    @property
+    def dtype(self):
+        return self.val.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.row.device
+
+    @property
+    def T(self) -> "SparseTensor":
+        obj = SparseTensor.__new__(SparseTensor)
+        obj.val, obj.row, obj.col = self.val, self.col, self.row
+        obj.shape = (self.shape[1], self.shape[0])
+        obj.props = self.props
+        obj.bell, obj.stencil = None, None
+        obj._plans = _plan_cache()
+        return obj
+
+    def with_values(self, val) -> "SparseTensor":
+        """Same pattern, new values.  The plan cache is SHARED with the
+        parent — a training loop re-solves without re-analyzing."""
+        obj = SparseTensor.__new__(SparseTensor)
+        obj.val, obj.row, obj.col = val, self.row, self.col
+        obj.shape, obj.props = self.shape, dict(self.props)
+        obj.bell, obj.stencil = self.bell, self.stencil
+        obj._plans = self._plans
+        return obj
+
+    def matvec(self, x, *, backend: Optional[str] = None):
+        from . import dispatch
+        return dispatch.matvec(self, x, backend=backend)
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+    def rmatvec(self, y):
+        return coo_rmatvec(self.val, self.row, self.col, y, self.shape[1])
+
+    def todense(self):
+        return coo_to_dense(self.val, self.row, self.col, self.shape)
+
+    def diagonal(self):
+        return coo_diagonal(self.val, self.row, self.col, self.shape[0])
+
+    # -- solvers (autograd-aware; see core/adjoint.py) ----------------------
+    def plan(self, **solve_kwargs):
+        """Analyze (or fetch the cached) plan for this pattern + options."""
+        from . import dispatch
+        return dispatch.get_plan(self, dispatch.make_config(self, **solve_kwargs))
+
+    def solve(self, b, *, backend: Optional[str] = None,
+              method: Optional[str] = None, tol: float = 1e-6,
+              atol: float = 0.0, maxiter: Optional[int] = None,
+              precond: str = "jacobi", x0=None):
+        """Differentiable solve of ``A x = b`` through the plan engine.
+
+        ``backend`` ∈ {auto, dense, jnp, pallas, stencil} (``direct`` comes
+        with slice 2); ``precond`` ∈ {none, jacobi} on the iterative backends.
+        Gradients w.r.t. ``val`` and ``b`` come from ONE adjoint solve."""
+        from . import adjoint, dispatch
+        cfg = dispatch.make_config(self, backend=backend, method=method,
+                                   tol=tol, atol=atol, maxiter=maxiter,
+                                   precond=precond)
+        return adjoint.sparse_solve(cfg, self, b, x0)
+
+    def __repr__(self):
+        return (f"SparseTensor(shape={self.shape}, nnz={self.nnz}, "
+                f"batch={self.batch_shape}, dtype={self.dtype}, "
+                f"device={self.device}, sym={self.props.get('symmetric')}, "
+                f"bell={self.bell is not None})")

@@ -1,0 +1,60 @@
+"""repro_torch.sla — public surface of the PyTorch port (slice 1 subset).
+
+The names match the reference's ``repro.sla``::
+
+    import torch
+    from repro_torch import sla
+
+    A = sla.SparseTensor(val, row, col, (n, n), device="cuda")
+    x = sla.solve(A, b)                          # auto-dispatch + adjoint
+    res = sla.solve_with_info(A, b, tol=1e-10)   # typed SolveResult
+
+    with sla.options(fused_step="off"):          # scoped option override
+        x = sla.solve(A, b)
+
+This slice has the iterative route (``jnp``/``pallas``/``stencil`` backends,
+CG and BiCGStab with Jacobi) and the dense route; the rest of the
+reference's surface arrives with later slices.
+"""
+from __future__ import annotations
+
+from .core.dispatch import (PLAN_STATS, SolverConfig, SolverPlan, get_plan,
+                            make_config, reset_plan_stats, solve_impl)
+from .core.options import Options
+from .core.options import current as get_options
+from .core.options import options, set_options
+from .core.solvers import SolveResult, as_solve_result
+from .core.sparse import SparseTensor
+
+__all__ = [
+    "SparseTensor",
+    "SolverConfig",
+    "SolverPlan",
+    "SolveResult",
+    "Options",
+    "solve",
+    "solve_with_info",
+    "get_plan",
+    "set_options",
+    "options",
+    "get_options",
+    "PLAN_STATS",
+    "reset_plan_stats",
+]
+
+
+def solve(A, b, **kw):
+    """Solve ``A @ x = b`` with adjoint gradients.  Keyword options:
+    ``backend`` ("auto", "dense", "jnp", "pallas", "stencil"), ``method``
+    ("cg", "bicgstab"; "lu"/"cholesky" for dense), ``precond`` ("none",
+    "jacobi"), ``tol``, ``atol``, ``maxiter``, ``x0``."""
+    return A.solve(b, **kw)
+
+
+def solve_with_info(A, b, *, x0=None, **kw) -> SolveResult:
+    """Like :func:`solve`, returning a typed :class:`SolveResult` (``x``,
+    ``iterations``, ``residual``, ``converged``, ``reason``).
+    Un-differentiated."""
+    cfg = make_config(A, **kw)
+    x, info = solve_impl(cfg, A, b, x0)
+    return as_solve_result(x, info)
