@@ -26,6 +26,21 @@ What it does, in order:
    the stencil kernel on transposed planes and block-ELL on Aᵀ's layout
    (``t_bell``); solved to tol 1e-10, ∂Σu²/∂(κ, val) checked against the
    plain COO path;
+8. panel kernels: panel_factor, schur_update and block_trsv against their
+   plain versions on the gathered panels of ``poisson2d(316)``'s analysis
+   (its widest bucket, the bucket with the most lanes, a ragged bucket with
+   garbage in its pad slots), f32 and f64, pairs off and on, block_trsv in
+   its four modes with 1 and 64 right-hand sides; then their summed time
+   over one factorization (one sweep for block_trsv) against the bound;
+9. direct path (the slice's main path): ``poisson2d(316)`` (99,856
+   unknowns, f64), ``sla.solve`` auto-routed to the supernodal LDLᵀ, ∂Σu²/∂val
+   against a CG run at tol 1e-12, then a ``with_values`` refactorization;
+10. LU path: the non-symmetric drift ``poisson2d(128)``, auto → direct/LU,
+    solution and ∂/∂val against the dense backend (adjoint on ut/lt sweeps);
+11. indefinite path: a dense-block saddle point (n = 512) with static 2x2
+    pivot pairs, solve, transposed solve, ``slogdet`` and its gradient
+    against torch.linalg;
+12. ILU path: ``poisson2d(100)``, CG with ``precond="ilu"`` against Jacobi;
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Every failed check raises (exit code 1).  Without a CUDA device it
@@ -38,6 +53,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -64,6 +80,13 @@ TOL = 1e-8
 # 4.3e-6 at ng=1024 at tol 1e-8 and 1e-10 alike (H100).  So these paths
 # run at ng=256, where TOL_GRAD has room.
 TOL_TRANSPOSE = 1e-10
+NG_DIRECT = 316                      # direct path: 99,856 unknowns
+NG_LU = 128                          # non-symmetric LU path: 16,384
+SADDLE = (384, 128)                  # indefinite path: H 384², B 128×384
+NG_ILU = 100                         # ILU path: 10,000 unknowns
+TOL_DIRECT_RES = 1e-10               # direct solve: true relative residual
+TOL_CG_REF = 1e-12                   # the CG run the direct gradient meets
+TOL_DENSE = 1e-8                     # LU / saddle vs torch.linalg, relative
 MAXITER = 30000
 SEED = 0
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
@@ -85,6 +108,11 @@ FUSED_FLOPS = {"fused_cg_update": 9, "fused_cg_direction": 6,
 for _f in FUSED:
     KERNEL_SOURCES[_f] = ("src/repro_torch/kernels/csrc/solve_step.cu",
                           "src/repro/kernels/solve_step.py:92")
+for _f, _line in (("panel_factor", 73), ("schur_update", 123),
+                  ("block_trsv", 158)):
+    KERNEL_SOURCES[_f] = ("src/repro_torch/kernels/csrc/supernode.cu",
+                          f"src/repro/kernels/supernode.py:{_line}")
+PANEL_KERNELS = ("panel_factor", "schur_update", "block_trsv")
 
 
 class CheckFailed(AssertionError):
@@ -105,19 +133,21 @@ def say(msg):
 # measurement helpers
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, reps, warmup=2):
+def cuda_ms(fn, reps, warmup=2, spin_ms=1.0):
     """Mean device time of ``fn`` over ``reps`` back-to-back launches.
 
     The launches are queued behind a spin kernel (``torch.cuda._sleep``), so
     the host's time to enqueue them stays off the clock: the events measure
-    the device work alone, not Python overhead between launches."""
+    the device work alone, not Python overhead between launches.
+    ``spin_ms`` is the spin per rep; it must exceed one call's enqueue
+    time (``fn`` may launch many kernels)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(reps * 2_000_000))     # ≈1 ms of spinning per rep
+    torch.cuda._sleep(int(reps * spin_ms * 2_000_000))   # ≈1 ms per 2M
     t0.record()
     for _ in range(reps):
         fn()
@@ -740,6 +770,589 @@ def transpose_path(dev, ng, tol, maxiter, seed, out):
 
 
 # ---------------------------------------------------------------------------
+# phases 8–12: the sparse-direct route
+# ---------------------------------------------------------------------------
+
+def _enqueue_ms(fn):
+    """Host time to enqueue one call of ``fn`` (after a warm-up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt * 1e3
+
+
+def _sum_ms(fn, reps=5):
+    """Device time of ``fn`` (many launches), the spin covering enqueue."""
+    return cuda_ms(fn, reps, warmup=1, spin_ms=1.5 * _enqueue_ms(fn) + 1.0)
+
+
+def _panel_work(bk):
+    """(bytes, flops) per kernel that one bucket's true sizes need, f64:
+    inputs read at their true extent, outputs written at the padded shape
+    the kernel returns.  block_trsv: one mode-l solve, one right-hand
+    side."""
+    w = bk.wvec.double().cpu().numpy()
+    r = bk.rvec.double().cpu().numpy()
+    k, wb, rb = bk.pidx.shape[0], bk.wb, bk.rb
+    s1 = w * (w - 1) / 2                         # Σ_t (w-t-1)
+    s2 = (w - 1) * w * (2 * w - 1) / 6           # Σ_t (w-t-1)²
+    pf = (8 * float((w * w + 2 * r * w).sum())
+          + 8 * k * ((wb + rb) * wb + wb * rb),
+          float((2 * s2 + s1 + r * w + 4 * r * s1).sum()))
+    su = (8 * float((2 * r * w).sum()) + 8 * k * rb * rb,
+          float((2 * w * r * r).sum()))
+    bt = (8 * float((w * w + w).sum()) + 8 * k * wb, float((2 * s1).sum()))
+    return {"panel_factor": pf, "schur_update": su, "block_trsv": bt}
+
+
+def panel_kernel_phase(dev, ng, seed, out):
+    """panel_factor, schur_update and block_trsv against their plain versions
+    on the main path's panels (``poisson2d(ng)``'s analysis), and their
+    summed device time over one factorization."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import direct as td
+    from repro_torch.data.poisson import poisson2d_arrays
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import supernode as ksn
+
+    rng = np.random.default_rng(seed)
+    val, row, col = poisson2d_arrays(ng)
+    n = ng * ng
+    t0 = time.perf_counter()
+    art = td.to_device(td.symbolic_factor(row, col, n), dev)
+    analyze_s = time.perf_counter() - t0
+    buckets = [bk for lvl in art.snode.schedule for bk in lvl]
+    say(f"  analysis of poisson2d({ng}) for the panel shapes: {analyze_s:.2f} "
+        f"s, {len(buckets)} buckets in {len(art.snode.schedule)} levels")
+    vt = torch.tensor(val, device=dev)
+    C = torch.zeros(art.nnzF + 2, dtype=torch.float64, device=dev)
+    C.index_add_(0, art.a2f, vt)
+    C[art.nnzF + 1] = 1.0
+    C[art.nnzF] = 7.25                   # pad slots gather NaN-free garbage
+    tau64 = math.sqrt(np.finfo(np.float64).eps) * float(np.abs(val).max())
+
+    def ragged(bk):
+        w, r = bk.wvec.cpu(), bk.rvec.cpu()
+        live = w > 0
+        return bool((~live).any() and (w[live] < bk.wb).any()
+                    and (r[live] < bk.rb).any())
+
+    widest = max(buckets, key=lambda b: (b.wb * b.rb, b.pidx.shape[0]))
+    most = max(buckets, key=lambda b: (b.pidx.shape[0], b.wb * b.rb))
+    cands = [b for b in buckets if ragged(b)] or \
+        [b for b in buckets if bool((b.wvec == 0).any())]
+    rag = max(cands, key=lambda b: (b.wb * b.rb, b.pidx.shape[0]))
+    cases = (("widest", widest), ("most lanes", most), ("ragged", rag))
+    errs = {k: [] for k in PANEL_KERNELS}
+    abs_err = dict.fromkeys(PANEL_KERNELS, 0.0)
+    shapes = []
+    for label, bk in cases:
+        k, wb = bk.pidx.shape[0], bk.wb
+        aw = torch.arange(wb, device=dev)
+        pair_bkm = (aw[None, :] % 2 == 0) & (aw[None, :] + 1 < bk.wvec[:, None])
+        shapes.append(f"{label} (k={k}, wb={wb}, rb={bk.rb})")
+        for dt in (torch.float64, torch.float32):
+            tag = str(dt)[6:]
+            tau = torch.tensor(tau64, dtype=dt, device=dev)
+            P0, Q0 = C[bk.pidx].to(dt), C[bk.qidx].to(dt)
+            for pairs in (False, True):
+                bkm = pair_bkm if pairs else bk.bkm
+                Pk, Qk, nk = ksn.panel_factor(P0, Q0, bk.wvec, bk.rvec, tau,
+                                              bkm, pairs=pairs, guard=True)
+                torch.cuda.synchronize()
+                Pp, Qp, npl = ref.sn_panel_factor_ref(
+                    P0, Q0, bk.wvec, bk.rvec, tau, bkm, pairs=pairs,
+                    guard=True)
+                e, ea = rel_err([Pk, Qk], [Pp, Qp], [Pp, Qp])
+                check(float(nk) == float(npl),
+                      f"panel_factor {label} {tag} pairs={pairs}: clamp "
+                      f"count {float(nk):.0f} equals the plain version's")
+                errs["panel_factor"].append((tag, e))
+                if tag == "float64":
+                    abs_err["panel_factor"] = max(abs_err["panel_factor"], ea)
+                S = ksn.schur_update(Pk, Qk)
+                torch.cuda.synchronize()
+                e, ea = rel_err([S], [ref.sn_schur_ref(Pk, Qk)],
+                                [ref.sn_schur_ref(Pk.abs(), Qk.abs())])
+                errs["schur_update"].append((tag, e))
+                if tag == "float64":
+                    abs_err["schur_update"] = max(abs_err["schur_update"], ea)
+                D = Pk[:, :wb, :]
+                for mode in ("l", "lt", "u", "ut"):
+                    for m in (1, 64):
+                        y = torch.tensor(rng.normal(size=(k, wb, m)),
+                                         dtype=dt, device=dev)
+                        x = ksn.block_trsv(D, y, bk.wvec, bkm, mode=mode,
+                                           pairs=pairs)
+                        torch.cuda.synchronize()
+                        xp = ref.sn_trsv_ref(D, y, bk.wvec, bkm, mode=mode,
+                                             pairs=pairs)
+                        e, ea = rel_err([x], [xp], [xp])
+                        errs["block_trsv"].append((tag, e))
+                        if tag == "float64":
+                            abs_err["block_trsv"] = max(
+                                abs_err["block_trsv"], ea)
+    # -- time: one bucket of each case, and summed over one factorization --
+    acc = torch.zeros((), dtype=torch.float64, device=dev)
+    tau = torch.tensor(tau64, dtype=torch.float64, device=dev)
+    ins = [(C[bk.pidx], C[bk.qidx]) for bk in buckets]
+    facs = [ksn.panel_factor(P, Q, bk.wvec, bk.rvec, tau, bk.bkm, nbad=acc)
+            for (P, Q), bk in zip(ins, buckets)]
+    Ds = [P[:, :bk.wb, :] for (P, _, _), bk in zip(facs, buckets)]
+    Dm = [ref.sn_block_mask(D, bk.wvec) for D, bk in zip(Ds, buckets)]
+    ys = [torch.tensor(rng.normal(size=(bk.pidx.shape[0], bk.wb, 1)),
+                       device=dev) for bk in buckets]
+
+    def run(name, idx, impl):
+        def one(i):
+            bk = buckets[i]
+            if name == "panel_factor":
+                P, Q = ins[i]
+                if impl == "kernel":
+                    return ksn.panel_factor(P, Q, bk.wvec, bk.rvec, tau,
+                                            bk.bkm, nbad=acc)
+                return ref.sn_panel_factor_ref(P, Q, bk.wvec, bk.rvec, tau,
+                                               bk.bkm)
+            if name == "schur_update":
+                P, Q, _ = facs[i]
+                if impl == "kernel":
+                    return ksn.schur_update(P, Q)
+                if impl == "plain":
+                    return ref.sn_schur_ref(P, Q)
+                return torch.bmm(P[:, bk.wb:, :], Q)
+            if impl == "kernel":
+                return ksn.block_trsv(Ds[i], ys[i], bk.wvec, bk.bkm, mode="l")
+            if impl == "plain":
+                return ref.sn_trsv_ref(Ds[i], ys[i], bk.wvec, bk.bkm,
+                                       mode="l")
+            return torch.linalg.solve_triangular(Dm[i], ys[i], upper=False,
+                                                 unitriangular=True)
+        return lambda: [one(i) for i in idx]
+
+    res = {}
+    allidx = range(len(buckets))
+    for name in PANEL_KERNELS:
+        per_case = []
+        for label, bk in cases:
+            i = next(j for j, b in enumerate(buckets) if b is bk)
+            b_, f_ = _panel_work(bk)[name]
+            bms, bby = bound_ms(b_, f_, "float64")
+            lib = None if name == "panel_factor" else \
+                cuda_ms(run(name, [i], "library"), 20)
+            per_case.append(dict(
+                case=label, k=bk.pidx.shape[0], wb=bk.wb, rb=bk.rb,
+                ms=cuda_ms(run(name, [i], "kernel"), 20),
+                plain_ms=_sum_ms(run(name, [i], "plain"), reps=3),
+                library_ms=lib, bound_ms=bms, bound_by=bby))
+        work = [_panel_work(bk)[name] for bk in buckets]
+        tb = sum(w[0] for w in work)
+        tf = sum(w[1] for w in work)
+        bms, bby = bound_ms(tb, tf, "float64")
+        ms = _sum_ms(run(name, allidx, "kernel"))
+        plain = _sum_ms(run(name, allidx, "plain"), reps=2)
+        lib = None if name == "panel_factor" else \
+            _sum_ms(run(name, allidx, "library"))
+        wall = wall_ms(run(name, allidx, "kernel"), 3)
+        worst = {}
+        for tag, e in errs[name]:
+            worst[tag] = max(worst.get(tag, 0.0), e)
+        res[name] = dict(
+            ms=ms, wall_ms=wall, plain_ms=plain, library_ms=lib,
+            bytes=tb, flops=tf, dtype="float64", bound_ms=bms, bound_by=bby,
+            shape=(f"poisson2d({ng}): {len(buckets)} buckets"
+                   + (", 1 sweep (mode l, m=1)" if name == "block_trsv"
+                      else ", 1 factorization")),
+            cases=per_case, max_rel_err=max(worst.values()),
+            max_abs_err=abs_err[name])
+        say(f"  {name:13s} summed over {len(buckets)} buckets: {ms:.4f} ms "
+            f"(host wall {wall:.3f} ms, plain {plain:.3f} ms, bound "
+            f"{bms:.4f} ms by {bby}, library "
+            f"{'-' if lib is None else '%.4f ms' % lib}); "
+            + "; ".join(f"{t} rel err {e:.2e} (limit {TOL_KERNEL[t]:.0e})"
+                        for t, e in worst.items()))
+        for c in per_case:
+            lib_c = c["library_ms"]
+            say(f"    {c['case']:10s} (k={c['k']}, wb={c['wb']}, "
+                f"rb={c['rb']}): {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} "
+                f"ms, bound {c['bound_ms']:.4f} ms by {c['bound_by']}, "
+                f"library {'-' if lib_c is None else '%.4f ms' % lib_c}")
+        for t, e in worst.items():
+            check(e <= TOL_KERNEL[t], f"{name} {t} matches its plain version "
+                  f"at {', '.join(shapes)} ({e:.2e} <= {TOL_KERNEL[t]:.0e})")
+    out["panel_kernel_phase"] = dict(analyze_s=analyze_s,
+                                     n_buckets=len(buckets), kernels=res)
+    del ins, facs, Ds, Dm, ys, C
+    torch.cuda.empty_cache()
+    return res
+
+
+def _kernel_breakdown(fn, trace):
+    """Device kernels of one call of ``fn`` from a ``torch.profiler`` trace
+    (written to ``trace``): (count, summed kernel ms, [(ms, count, name)]
+    by name, largest first).  Kernel durations only; launch gaps between
+    them are not in the sum."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    with open(trace) as fh:
+        events = json.load(fh)
+    if isinstance(events, dict):
+        events = events.get("traceEvents", [])
+    agg = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("ph") == "X":
+            name = e["name"].replace("(anonymous namespace)::", "")
+            name = name[5:] if name.startswith("void ") else name
+            base = name.split("(")[0].split("<")[0].split("::")[-1]
+            func = re.search(r"(\w+Func(?:tor)?)\b", name)
+            key = base + (f"[{func.group(1)}]" if func else "")
+            agg[key][0] += e["dur"] / 1e3
+            agg[key][1] += 1
+    top = sorted(((ms, c, k) for k, (ms, c) in agg.items()), reverse=True)
+    return sum(c for _, c, _ in top), sum(ms for ms, _, _ in top), top
+
+
+def _trsv_modes():
+    from repro_torch.kernels import supernode as ksn
+    return dict(ksn.TRSV_MODE_LAUNCHES)
+
+
+def direct_path(dev, ng, seed, out):
+    """The slice's main path: auto-dispatch to the supernodal LDLᵀ, solve +
+    ∂Σu²/∂val through the shared factors, then a with_values refresh."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.core.sparse import coo_matvec
+    from repro_torch.data.poisson import poisson2d
+
+    A0 = poisson2d(ng, device=dev)
+    n = ng * ng
+    f = torch.tensor(np.random.default_rng(seed).normal(size=n), device=dev)
+    val = A0.val.clone().requires_grad_(True)
+    A = A0.with_values(val)
+    _sync(dev)
+    _peak_reset(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    plan = A.plan()                       # analyze (auto → direct)
+    _sync(dev)
+    t1 = time.perf_counter()
+    plan.setup(A)                         # the numeric factorization
+    _sync(dev)
+    t2 = time.perf_counter()
+    u = sla.solve(A, f)                   # factors reused: sweeps only
+    _sync(dev)
+    t3 = time.perf_counter()
+    (u * u).sum().backward()
+    _sync(dev)
+    t4 = time.perf_counter()
+    launches, stats = _counts()
+    modes = _trsv_modes()
+    peak = _peak(dev)
+    art = plan.artifacts["direct"]
+    nb = sum(len(lvl) for lvl in art.snode.schedule) \
+        if art.snode is not None else 0
+    nbytes = plan.nbytes()
+    info = sla.solve_with_info(A, f)      # pure solve: sweeps + residual
+    solve_ms = wall_ms(lambda: sla.solve_with_info(A, f), 3)
+    with torch.no_grad():
+        relres = float((f - coo_matvec(A0.val, A0.row, A0.col, info.x, n))
+                       .norm() / f.norm())
+    g = val.grad.detach().clone()
+    # refactorization: new values, same analysis
+    t5 = time.perf_counter()
+    u3 = sla.solve(A0.with_values(1.5 * val.detach()), f)
+    _sync(dev)
+    t6 = time.perf_counter()
+    stats2 = _counts()[1]
+    with torch.no_grad():
+        rel3 = float((f - coo_matvec(1.5 * A0.val, A0.row, A0.col, u3, n))
+                     .norm() / f.norm())
+    # device work inside the host loops: summed kernel time of one
+    # refactorization (fresh values) and of one solve, from profiler traces
+    fact = lambda: plan.setup(A0.with_values(2.0 * A0.val))
+    fact_wall = wall_ms(fact, 3)
+    kern = {"factorize": _kernel_breakdown(
+        fact, os.path.join(OUT, "direct_factorize_trace.json"))}
+    sla.solve_with_info(A, f)     # the memo holds one values tensor: refill
+    kern["solve"] = _kernel_breakdown(
+        lambda: sla.solve_with_info(A, f),
+        os.path.join(OUT, "direct_solve_trace.json"))
+    busy = {"factorize": kern["factorize"][1] / fact_wall,
+            "solve": kern["solve"][1] / solve_ms}
+    say(f"  direct path poisson2d({ng}) (n={n}): backend={plan.cfg.backend} "
+        f"method={plan.cfg.method} supernodal={art.snode is not None} "
+        f"buckets={nb} levels={len(art.snode.schedule)} "
+        f"nnz(L)={art.stats['nnz_L']}")
+    say(f"  analyze {t1 - t0:.3f} s, factorize {t2 - t1:.3f} s, first solve "
+        f"{t3 - t2:.3f} s, backward {t4 - t3:.3f} s, solve "
+        f"{solve_ms:.2f} ms (solve_with_info, wall), refactorize + solve "
+        f"{t6 - t5:.3f} s; plan.nbytes {nbytes / 1e9:.3f} GB; peak device "
+        f"memory {peak:.2f} GB")
+    say(f"  true residual {relres:.3e} (with_values run {rel3:.3e})")
+    for stage, (cnt, tot, top) in kern.items():
+        wall = fact_wall if stage == "factorize" else solve_ms
+        say(f"  {stage} trace: {cnt} kernels, {tot:.2f} ms of kernel time "
+            f"in {wall:.1f} ms of wall (device busy {busy[stage]:.0%}); "
+            + "; ".join(f"{name} {ms:.2f} ms ×{c}"
+                        for ms, c, name in top[:5]))
+    say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+        f"block_trsv by mode {json.dumps(modes)}")
+    say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}; "
+        "after with_values "
+        + json.dumps({k: v for k, v in stats2.items() if v}))
+    # the same gradient from CG on the iterative backend
+    val2 = A0.val.clone().requires_grad_(True)
+    t7 = time.perf_counter()
+    u2 = sla.solve(A0.with_values(val2), f, backend="jnp", tol=TOL_CG_REF,
+                   maxiter=MAXITER)
+    (u2 * u2).sum().backward()
+    _sync(dev)
+    t8 = time.perf_counter()
+    gerr = _grad_rel(g, val2.grad)
+    say(f"  CG (jnp, tol {TOL_CG_REF:.0e}) solve + backward {t8 - t7:.3f} s; "
+        f"val-gradient max rel diff {gerr:.3e}")
+    check(plan.cfg.backend == "direct" and plan.cfg.method == "ldlt"
+          and art.snode is not None,
+          "direct path: auto → direct / ldlt on the supernodal program")
+    check(art.factor is None and art.row_sweep is None,
+          "direct path: no scalar program placed on the device")
+    check(bool(torch.isfinite(u).all()) and relres <= TOL_DIRECT_RES,
+          f"direct path: true residual {relres:.2e} <= {TOL_DIRECT_RES:.0e}")
+    check(gerr <= TOL_GRAD, f"direct path: val.grad matches CG ({gerr:.2e} "
+          f"<= {TOL_GRAD:.0e})")
+    check(stats["analyze"] == 1 and stats["factorize"] == 1
+          and stats["transpose_shared"] == 1,
+          "direct path: analyze == 1, factorize == 1, transpose_shared == 1")
+    check(launches["panel_factor"] == launches["schur_update"] == nb,
+          f"direct path: panel_factor and schur_update launched once per "
+          f"bucket ({launches['panel_factor']}, {launches['schur_update']} "
+          f"== {nb})")
+    check(launches["block_trsv"] == 4 * nb,
+          f"direct path: block_trsv launched 4 × buckets "
+          f"({launches['block_trsv']} == {4 * nb})")
+    check(stats2["analyze"] == 1 and stats2["factorize"] == 2
+          and rel3 <= TOL_DIRECT_RES,
+          f"direct path: with_values refactorizes without re-analysis "
+          f"(analyze 1, factorize 2, residual {rel3:.2e})")
+    check(nbytes < 2e9,
+          f"direct path: plan.nbytes {nbytes / 1e9:.3f} GB < 2 GB")
+    out["direct_path"] = dict(
+        ng=ng, n=n, buckets=nb, levels=len(art.snode.schedule),
+        nnz_L=art.stats["nnz_L"], analyze_s=t1 - t0, factorize_s=t2 - t1,
+        first_solve_s=t3 - t2, backward_s=t4 - t3, solve_ms=solve_ms,
+        refactorize_solve_s=t6 - t5, cg_run_s=t8 - t7, true_residual=relres,
+        refactorize_wall_ms=fact_wall, device_busy=busy,
+        kernel_breakdown={k: dict(kernels=v[0], kernel_ms=v[1], top=v[2])
+                          for k, v in kern.items()},
+        grad_rel_diff=gerr, plan_nbytes=nbytes, peak_gb=peak,
+        launches=launches, trsv_modes=modes, plan_stats=stats,
+        plan_stats_after_with_values=stats2)
+    del A, A0, u, u2, u3, info, val, val2, plan, art
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lu_path(dev, ng, seed, out):
+    """Non-symmetric values on a symmetric pattern: auto → direct / LU; the
+    adjoint runs the Uᵀ/Lᵀ sweeps on the forward factors."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.core.sparse import SparseTensor
+    from repro_torch.data.poisson import poisson2d
+
+    A0 = poisson2d(ng, device=dev)
+    n = ng * ng
+    v0 = A0.val.clone()
+    v0[A0.col == A0.row - 1] = -1.4
+    v0[A0.col == A0.row + 1] = -0.6
+    props = {"symmetric": False, "spd_hint": False, "sorted_rows": False}
+    B = SparseTensor(v0, A0.row, A0.col, A0.shape, props=props, device=dev)
+    b = torch.tensor(np.random.default_rng(seed).normal(size=n), device=dev)
+    leaf = v0.clone().requires_grad_(True)
+    _sync(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    u = sla.solve(B.with_values(leaf), b)
+    _sync(dev)
+    t1 = time.perf_counter()
+    fwd = _trsv_modes()
+    (u * u).sum().backward()
+    _sync(dev)
+    t2 = time.perf_counter()
+    launches, stats = _counts()
+    modes = _trsv_modes()
+    plan = B.plan()
+    leaf2 = v0.clone().requires_grad_(True)
+    t3 = time.perf_counter()
+    u2 = sla.solve(B.with_values(leaf2), b, backend="dense")
+    (u2 * u2).sum().backward()
+    _sync(dev)
+    t4 = time.perf_counter()
+    uerr = _grad_rel(u.detach(), u2.detach())
+    gerr = _grad_rel(leaf.grad, leaf2.grad)
+    say(f"  LU path drift poisson2d({ng}) (n={n}): backend={plan.cfg.backend} "
+        f"method={plan.cfg.method}; forward {t1 - t0:.3f} s, backward "
+        f"{t2 - t1:.3f} s; dense backend {t4 - t3:.3f} s; solution rel diff "
+        f"{uerr:.3e}, val-gradient rel diff {gerr:.3e}")
+    say(f"  block_trsv by mode: forward {json.dumps(fwd)}, forward + "
+        f"backward {json.dumps(modes)}")
+    say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}")
+    check(plan.cfg.backend == "direct" and plan.cfg.method == "lu",
+          "LU path: auto → direct / lu")
+    check(uerr <= TOL_DENSE and gerr <= TOL_DENSE,
+          f"LU path: solution and val.grad match the dense backend "
+          f"({uerr:.2e}, {gerr:.2e} <= {TOL_DENSE:.0e})")
+    check(stats["analyze"] == 1 and stats["factorize"] == 1
+          and stats["transpose_shared"] == 1,
+          "LU path: analyze == 1, factorize == 1, transpose_shared == 1")
+    check(fwd["ut"] == fwd["lt"] == 0 and modes["ut"] > 0 and modes["lt"] > 0,
+          f"LU path: the backward ran block_trsv in modes ut ({modes['ut']}) "
+          f"and lt ({modes['lt']})")
+    out["lu_path"] = dict(ng=ng, n=n, forward_s=t1 - t0, backward_s=t2 - t1,
+                          dense_run_s=t4 - t3, solution_rel_diff=uerr,
+                          grad_rel_diff=gerr, launches=launches,
+                          trsv_modes_forward=fwd, trsv_modes=modes,
+                          plan_stats=stats)
+    del A0, B, u, u2, leaf, leaf2, plan
+    torch.cuda.empty_cache()
+    return launches
+
+
+def indefinite_path(dev, m, k, seed, out):
+    """A saddle point [[H, Bᵀ], [B, 0]] with static Bunch–Kaufman pairs:
+    no perturbation, solve / transposed solve / slogdet / its gradient
+    against torch.linalg."""
+    import warnings
+    import torch
+    from repro_torch import sla
+
+    rng = np.random.default_rng(seed)
+    H = rng.standard_normal((m, m))
+    H = H @ H.T + m * np.eye(m)
+    Bm = rng.standard_normal((k, m))
+    Ad = np.block([[H, Bm.T], [Bm, np.zeros((k, k))]])
+    n = m + k
+    row, col = np.nonzero((np.abs(Ad) > 1e-12) | np.eye(n, dtype=bool))
+    T = sla.SparseTensor(Ad[row, col], row, col, (n, n),
+                         props={"indefinite_hint": True}, device=dev)
+    Adt = torch.tensor(Ad, device=dev)
+    b = torch.tensor(rng.normal(size=n), device=dev)
+    g = torch.tensor(rng.normal(size=n), device=dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")            # a perturbation fails
+        bt = b.clone().requires_grad_(True)
+        x = sla.solve(T, bt, backend="direct", method="lu")
+        (x * g).sum().backward()                  # bt.grad = A⁻ᵀ g
+        vleaf = T.val.clone().requires_grad_(True)
+        sign, logabs = T.with_values(vleaf).slogdet()
+        logabs.backward()
+    _sync(dev)
+    t1 = time.perf_counter()
+    launches, stats = _counts()
+    plan = T.plan(backend="direct", method="lu")
+    npairs = plan.artifacts["direct"].snode.stats["n_pair_pivots"]
+    xd = torch.linalg.solve(Adt, b)
+    xtd = torch.linalg.solve(Adt.T, g)
+    sd, ld = torch.linalg.slogdet(Adt)
+    gd = torch.linalg.inv(Adt).T[T.row, T.col]
+    xerr = _grad_rel(x.detach(), xd)
+    xterr = _grad_rel(bt.grad, xtd)
+    lerr = abs(float(logabs.detach()) - float(ld)) / max(abs(float(ld)), 1.0)
+    gerr = _grad_rel(vleaf.grad, gd)
+    say(f"  indefinite path saddle H {m}², B {k}×{m} (n={n}): "
+        f"{npairs} pair pivots; {t1 - t0:.3f} s; solve rel diff {xerr:.3e}, "
+        f"transposed {xterr:.3e}; slogdet sign {float(sign):+.0f} "
+        f"(torch {float(sd):+.0f}), log|det| rel diff {lerr:.3e}, gradient "
+        f"rel diff {gerr:.3e}")
+    say(f"  PLAN_STATS {json.dumps({k2: v for k2, v in stats.items() if v})}")
+    check(npairs > 0, f"indefinite path: {npairs} static 2x2 pivots, no "
+          f"perturbation warning")
+    check(xerr <= TOL_DENSE and xterr <= TOL_DENSE,
+          f"indefinite path: solve and transposed solve match torch.linalg "
+          f"({xerr:.2e}, {xterr:.2e} <= {TOL_DENSE:.0e})")
+    check(float(sign) == float(sd) and lerr <= 1e-10,
+          f"indefinite path: slogdet sign and log|det| ({lerr:.2e} <= 1e-10)")
+    check(gerr <= TOL_DENSE, f"indefinite path: slogdet gradient matches "
+          f"A⁻ᵀ on the pattern ({gerr:.2e} <= {TOL_DENSE:.0e})")
+    out["indefinite_path"] = dict(
+        m=m, k=k, n=n, pair_pivots=npairs, seconds=t1 - t0,
+        solve_rel_diff=xerr, transposed_rel_diff=xterr,
+        logdet_rel_diff=lerr, grad_rel_diff=gerr, launches=launches,
+        plan_stats=stats)
+    del T, Adt, plan
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ilu_path(dev, ng, tol, maxiter, out):
+    """CG with ILU(0) (the scalar packed program) against Jacobi."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.data.poisson import poisson2d
+
+    A0 = poisson2d(ng, device=dev)
+    n = ng * ng
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    res, grads, total = {}, {}, {}
+    for pre in ("jacobi", "ilu"):
+        leaf = A0.val.clone().requires_grad_(True)
+        A = A0.with_values(leaf)
+        _sync(dev)
+        _counts_reset()
+        t0 = time.perf_counter()
+        u = sla.solve(A, b, backend="jnp", precond=pre, tol=tol,
+                      maxiter=maxiter)
+        _sync(dev)
+        t1 = time.perf_counter()
+        (u * u).sum().backward()
+        _sync(dev)
+        t2 = time.perf_counter()
+        launches, stats = _counts()
+        t3 = time.perf_counter()
+        info = sla.solve_with_info(A, b, backend="jnp", precond=pre, tol=tol,
+                                   maxiter=maxiter)
+        _sync(dev)
+        t4 = time.perf_counter()
+        it = int(info.iterations)
+        grads[pre] = leaf.grad.detach().clone()
+        res[pre] = dict(iterations=it, forward_s=t1 - t0, backward_s=t2 - t1,
+                        loop_s=t4 - t3, ms_per_iteration=(t4 - t3) / it * 1e3,
+                        converged=info.reason == "converged",
+                        launches=launches, plan_stats=stats)
+        for kk, v in launches.items():
+            total[kk] = total.get(kk, 0) + v
+        say(f"  ILU path poisson2d({ng}) jnp/cg precond={pre}: {it} "
+            f"iterations, forward {t1 - t0:.3f} s (setup included), "
+            f"backward {t2 - t1:.3f} s, re-solve {t4 - t3:.3f} s = "
+            f"{(t4 - t3) / it * 1e3:.2f} ms/iteration")
+    gerr = _grad_rel(grads["ilu"], grads["jacobi"])
+    say(f"  val-gradient ILU vs Jacobi max rel diff {gerr:.3e}")
+    check(res["ilu"]["converged"] and res["jacobi"]["converged"]
+          and res["ilu"]["iterations"] < res["jacobi"]["iterations"],
+          f"ILU path: ILU(0) converges in fewer iterations "
+          f"({res['ilu']['iterations']} < {res['jacobi']['iterations']})")
+    check(gerr <= TOL_GRAD, f"ILU path: gradient matches the Jacobi run "
+          f"({gerr:.2e} <= {TOL_GRAD:.0e})")
+    out["ilu_path"] = dict(ng=ng, n=n, tol=tol, grad_rel_diff=gerr, **res)
+    del A0
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def card_line():
     q = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -775,7 +1388,8 @@ def main():
     out = dict(card=card, build_s=build_s,
                config=dict(ng_stencil=NG_STENCIL, ng_bell=NG_BELL,
                            ng_transpose=NG_TRANSPOSE, tol=TOL,
-                           tol_transpose=TOL_TRANSPOSE,
+                           tol_transpose=TOL_TRANSPOSE, ng_direct=NG_DIRECT,
+                           ng_lu=NG_LU, saddle=SADDLE, ng_ilu=NG_ILU,
                            maxiter=MAXITER, seed=SEED))
 
     phases = []
@@ -799,7 +1413,16 @@ def main():
             ("solver-level path", chebyshev_path,
              (dev, NG_BELL, TOL, MAXITER, out)),
             ("transposed paths", transpose_path,
-             (dev, NG_TRANSPOSE, TOL_TRANSPOSE, MAXITER, SEED, out))):
+             (dev, NG_TRANSPOSE, TOL_TRANSPOSE, MAXITER, SEED, out)),
+            ("panel kernels", None, None),
+            ("direct path", direct_path, (dev, NG_DIRECT, SEED, out)),
+            ("LU path", lu_path, (dev, NG_LU, SEED, out)),
+            ("indefinite path", indefinite_path, (dev, *SADDLE, SEED, out)),
+            ("ILU path", ilu_path, (dev, NG_ILU, TOL, MAXITER, out))):
+        if fn is None:                 # kernel checks of this slice's path
+            kres.update(phase(name, panel_kernel_phase, dev, NG_DIRECT,
+                              SEED, out))
+            continue
         counts = phase(name, fn, *a)
         torch.cuda.empty_cache()
         for k, v in counts.items():

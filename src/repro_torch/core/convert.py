@@ -7,6 +7,11 @@ port's tensor from them::
 
     d = {"val": ..., "row": ..., "col": ..., "shape": (n, m),
          "props": {...}, "stencil": (nx, ny)}      # stencil optional
+
+``props`` crosses as it is, the routing hints included: ``illcond_hint``
+(auto-dispatch prefers the direct backend up to 4× ``direct_budget``) and
+``indefinite_hint`` (the direct backend's analysis places static 2x2 pivot
+blocks).  Without ``props`` the properties are detected from the arrays.
 """
 from __future__ import annotations
 

@@ -17,10 +17,10 @@ changed in place).  The adjoint layer solves Aᵀλ = g on ``plan.transpose()``:
 the same plan for symmetric patterns, a layout-sharing sibling for the
 block-ELL and stencil kernels, a once-analyzed transposed sibling otherwise.
 
-Backends of this slice: ``dense`` (torch.linalg), ``jnp`` (COO, or BELL
-where fill allows on CUDA), ``pallas`` (explicit block-ELL) and ``stencil``.
-``direct`` is chosen by the same rules as the reference but raises until
-slice 2 ports it; batched values or right-hand sides raise until slice 5.
+Backends: ``dense`` (torch.linalg), ``direct`` (sparse LDLᵀ/LU on the
+supernodal panel kernels, :mod:`repro_torch.core.direct`), ``jnp`` (COO,
+or BELL where fill allows on CUDA), ``pallas`` (explicit block-ELL) and
+``stencil``.  Batched values or right-hand sides raise until slice 5.
 """
 from __future__ import annotations
 
@@ -31,9 +31,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from . import direct as _direct
 from . import options as _options
 from . import precond as _precond
 from . import solvers as _solvers
+from ._device import to_numpy
 from .sparse import (SparseTensor, bell_to_device, build_bell, coo_matvec,
                      has_full_diagonal)
 
@@ -338,8 +340,16 @@ class DenseBackend(Backend):
 
 
 class DirectBackend(Backend):
-    """Sparse direct LDLᵀ/LU — selection rules only; the factorization is
-    slice 2 of the port, and choosing this backend raises until then."""
+    """Sparse direct LDLᵀ/LU with a cached symbolic factorization — the
+    cuDSS-analogue path.  ``analyze`` runs the numpy symbolic stage of
+    :mod:`repro_torch.core.direct` once per pattern and places its
+    artifacts on the pattern's device; ``setup`` is the numeric
+    refactorization on the supernodal panel kernels (memoized per values
+    tensor via ``cache_setup``); ``solve`` is two triangular sweeps plus a
+    residual check.  The adjoint reuses the forward factors: symmetric
+    patterns share the plan outright, non-symmetric ones get a
+    shared-artifact transpose plan whose solve runs the mirrored (Uᵀ, Lᵀ)
+    sweeps — zero refactorizations either way."""
     name = "direct"
     methods = ("ldlt", "lu")
     cache_setup = True
@@ -350,18 +360,56 @@ class DirectBackend(Backend):
             return False
         if "struct_full_diag" not in A.props:
             A.props["struct_full_diag"] = has_full_diagonal(A.row, A.col, n)
-        return A.props["struct_full_diag"]
+        return A.props["struct_full_diag"]   # no pivoting: pivots must exist
 
     def default_method(self, A):
         return "ldlt" if A.props.get("symmetric", False) else "lu"
 
     def analyze(self, cfg, pattern):
-        raise NotImplementedError(_DIRECT_LATER)
+        if cfg.method == "ldlt" and not pattern.props.get("symmetric", False):
+            raise ValueError(
+                "method='ldlt' needs symmetric values; use method='lu'")
+        art = _direct.symbolic_factor(
+            to_numpy(pattern.row), to_numpy(pattern.col), pattern.shape[0],
+            # indefinite-hinted systems get static Bunch–Kaufman 2x2 pivot
+            # blocks (chosen at analyze time) instead of relying on the
+            # zero-pivot perturbation stopgap at factor time
+            pivot_blocks=("auto" if pattern.props.get("indefinite_hint")
+                          else None))
+        return {"direct": _direct.to_device(art, pattern.device),
+                "transposed": False}
 
+    def setup(self, plan, A):
+        PLAN_STATS["factorize"] += 1
+        return _direct.numeric_factor(plan.artifacts["direct"], A.val)
 
-_DIRECT_LATER = ("backend='direct' (sparse LDLᵀ/LU) is not ported yet: it "
-                 "comes with slice 2 of the PyTorch port; pass "
-                 "backend='jnp', 'pallas', 'stencil' or 'dense'")
+    def solve(self, plan, C, A, b, x0, cfg):
+        x = _direct.factored_solve(plan.artifacts["direct"], C, b,
+                                   transposed=plan.artifacts["transposed"])
+        r = b - coo_matvec(A.val, A.row, A.col, x, A.shape[0])
+        rn = torch.linalg.norm(r)
+        target = torch.clamp_min(cfg.tol * torch.linalg.norm(b), cfg.atol)
+        return x, _solvers.SolveInfo(
+            iters=torch.ones((), dtype=torch.int64, device=b.device),
+            resnorm=rn, converged=rn <= target)
+
+    def transpose_plan(self, plan):
+        """Adjoint plan sharing THIS plan's symbolic artifacts and numeric
+        factors (the setup memo is shared): solving Aᵀλ = g runs the Uᵀ/Lᵀ
+        sweeps on the forward factorization."""
+        tp = SolverPlan.__new__(SolverPlan)
+        tp.cfg = plan.cfg
+        tp.backend = plan.backend
+        tp.row, tp.col = plan.col, plan.row
+        tp.shape = (plan.shape[1], plan.shape[0])
+        tp.props = dict(plan.props)
+        tp.bell, tp.stencil = None, None
+        tp._cache = {tp.cfg.plan_key(): tp}
+        tp._tplan = plan
+        tp._setup_memo = plan._setup_memo       # forward factors reused
+        tp.artifacts = dict(plan.artifacts,
+                            transposed=not plan.artifacts["transposed"])
+        return tp
 
 
 class IterativeBackend(Backend):
@@ -536,7 +584,7 @@ def select_backend(A: SparseTensor, backend: str, method: str):
     """Size- and device-aware auto-dispatch (the reference's rules, with its
     TPU test read as "the tensor lies on a CUDA device"): explicit overrides;
     stencil layouts; dense below ``dense_budget``; sparse-direct for
-    ill-conditioned hints and mid-size systems (raises until slice 2);
+    ill-conditioned hints and mid-size systems;
     block-ELL where a construction-time layout exists on CUDA; COO above."""
     n = A.shape[0]
     opts = _options.current()
@@ -556,8 +604,6 @@ def select_backend(A: SparseTensor, backend: str, method: str):
             backend = "direct"
         else:
             backend = "jnp"
-    if backend == "direct":
-        raise NotImplementedError(_DIRECT_LATER)
     if method == "auto":
         method = BACKENDS[backend].default_method(A) \
             if backend in BACKENDS else "cg"

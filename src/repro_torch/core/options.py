@@ -36,9 +36,10 @@ class Options:
         CPU tensors; ``"on"``/``"off"`` force either path.  Read at solve
         time, never frozen into a plan.
     supernodal
-        Supernodal direct factorization mode (``"auto"``/``"on"``/``"off"``);
-        kept for parity with the reference record — the direct route is not
-        ported yet.
+        Supernodal direct factorization mode (``"auto"``/``"on"``/``"off"``)
+        read by the direct backend's analysis: ``"auto"`` declines
+        narrow-chain patterns (which keep the scalar packed scan), ``"off"``
+        always keeps the scalar scan.
     dense_budget
         Auto-dispatch crossover: systems with ``n <= dense_budget`` take the
         dense direct path.

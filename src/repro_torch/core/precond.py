@@ -1,13 +1,14 @@
-"""Preconditioners (port of ``repro.core.precond``, diagonal slice).
+"""Preconditioners (port of ``repro.core.precond``).
 
-The paper's PyTorch-native backend supports only Jacobi; this slice ports
-``none`` and ``jacobi`` behind :class:`PreconditionerPlan`, split like the
-reference into an eager pattern stage (``__init__``), an arrays-only values
-stage (:meth:`PreconditionerPlan.refresh_state`) and a closure assembly
-(:meth:`PreconditionerPlan.make_apply`).  The functional :func:`chebyshev`
+``none``, ``jacobi`` and ``ilu`` stand behind :class:`PreconditionerPlan`,
+split like the reference into an eager pattern stage (``__init__``), an
+arrays-only values stage (:meth:`PreconditionerPlan.refresh_state`) and a
+closure assembly (:meth:`PreconditionerPlan.make_apply`).  ``ilu`` is
+ILU(0)/IC(0) on the direct solver's machinery: the ``incomplete=True``
+symbolic program at analyze time, its numeric factorization per values
+tensor, and the factored solve as M⁻¹.  The functional :func:`chebyshev`
 polynomial is ported as well (its inner step is the fused ``cheb_step``
-kernel); as a plan preconditioner it arrives with the other non-diagonal
-ones.
+kernel); as a plan preconditioner it arrives with slice 3.
 """
 from __future__ import annotations
 
@@ -20,8 +21,7 @@ __all__ = ["identity", "jacobi", "chebyshev", "PreconditionerPlan"]
 PRECONDITIONERS = ("none", "identity", "jacobi", "block_jacobi", "chebyshev",
                    "mg", "amg", "ilu")
 # preconditioners of the reference that later slices of the port bring
-_LATER_SLICE = {"block_jacobi": 3, "chebyshev": 3, "mg": 3, "amg": 3,
-                "ilu": 2}
+_LATER_SLICE = {"block_jacobi": 3, "chebyshev": 3, "mg": 3, "amg": 3}
 
 
 def identity():
@@ -85,22 +85,39 @@ class PreconditionerPlan:
         if self.name in _LATER_SLICE:
             raise NotImplementedError(
                 f"precond={self.name!r} is not ported yet (slice "
-                f"{_LATER_SLICE[self.name]} of the PyTorch port); this slice "
-                f"has 'none' and 'jacobi'")
+                f"{_LATER_SLICE[self.name]} of the PyTorch port); ported so "
+                f"far: 'none', 'jacobi' and 'ilu'")
         self.row, self.col = row, col
         self.shape = tuple(shape)
         self.stencil = stencil
+        if self.name == "ilu":
+            # eager pattern part: the direct backend's symbolic stage in
+            # zero-fill (ILU(0)) mode — structures + packed level schedule,
+            # placed on the pattern's device once
+            from . import direct as _direct
+            from ._device import to_numpy
+            art = _direct.symbolic_factor(to_numpy(row), to_numpy(col),
+                                          self.shape[0], incomplete=True)
+            self._ilu = _direct.to_device(
+                art, getattr(row, "device", torch.device("cpu")))
 
     def fused_diag(self, A) -> Optional[torch.Tensor]:
-        """Diagonal-inverse vector for the fused step kernels."""
+        """Diagonal-inverse vector for the fused step kernels, or None when
+        the apply is not a diagonal scale (``ilu``) — the fused solvers then
+        keep the apply outside the fused pass (partial fusion)."""
         if self.name == "none":
             return torch.ones(self.shape[0], dtype=A.dtype, device=A.device)
+        if self.name == "ilu":
+            return None
         return _inv_diag(A.diagonal())
 
     def refresh_state(self, A, matvec: Callable) -> tuple:
         """Values-dependent stage, arrays only."""
         if self.name == "none":
             return ()
+        if self.name == "ilu":
+            from . import direct as _direct
+            return (_direct.numeric_factor(self._ilu, A.val),)
         return (_inv_diag(A.diagonal()),)
 
     def make_apply(self, state, matvec: Callable,
@@ -108,5 +125,10 @@ class PreconditionerPlan:
         """Apply closure over a :meth:`refresh_state` tuple."""
         if self.name == "none":
             return identity()
+        if self.name == "ilu":
+            from . import direct as _direct
+            art = self._ilu
+            (C,) = state
+            return lambda r: _direct.factored_solve(art, C, r)
         (inv,) = state
         return lambda r: inv * r

@@ -309,14 +309,24 @@ class SparseTensor:
               precond: str = "jacobi", x0=None):
         """Differentiable solve of ``A x = b`` through the plan engine.
 
-        ``backend`` ∈ {auto, dense, jnp, pallas, stencil} (``direct`` comes
-        with slice 2); ``precond`` ∈ {none, jacobi} on the iterative backends.
-        Gradients w.r.t. ``val`` and ``b`` come from ONE adjoint solve."""
+        ``backend`` ∈ {auto, dense, direct, jnp, pallas, stencil};
+        ``precond`` ∈ {none, jacobi, ilu} on the iterative backends (``ilu``
+        is ILU(0)/IC(0) on the direct solver's machinery).  Gradients
+        w.r.t. ``val`` and ``b`` come from ONE adjoint solve; the direct
+        backend's adjoint runs on the forward's factors."""
         from . import adjoint, dispatch
         cfg = dispatch.make_config(self, backend=backend, method=method,
                                    tol=tol, atol=atol, maxiter=maxiter,
                                    precond=precond)
         return adjoint.sparse_solve(cfg, self, b, x0)
+
+    def slogdet(self):
+        """(sign, log|det|): sparse via the plan engine's cached LDLᵀ/LU
+        factors (Σ log |d_i| with sign tracking, 2x2 pivot blocks included)
+        for square patterns within the ``direct_budget`` option; dense
+        fallback beyond.  Differentiable in ``val``."""
+        from . import adjoint
+        return adjoint.sparse_slogdet(self)
 
     def __repr__(self):
         return (f"SparseTensor(shape={self.shape}, nnz={self.nnz}, "

@@ -22,11 +22,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("stencil5.cu", "spmv_bell.cu", "solve_step.cu")
+SOURCES = ("stencil5.cu", "spmv_bell.cu", "solve_step.cu", "supernode.cu")
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v"]
+# per-source extra flags: the panel kernels keep the reference's rounding
+# of every a - b*c (no contraction into an FMA)
+SOURCE_FLAGS = {"supernode.cu": ["-fmad=false"]}
 
 #: seconds the last build took (None when the library came from the cache)
 LAST_BUILD_SECONDS = None
@@ -47,6 +50,10 @@ _SIGNATURES = {
     "bell_spmv_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "bell_spmv_f64": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "fused_step": [_I, _I, _PP, _PP, _PP, _P, _P, _P, _L, _I, _P],
+    "sn_panel_factor": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _P],
+    "sn_schur_update": [_I, _P, _P, _P, _I, _I, _I, _P],
+    "sn_block_trsv": [_I, _I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -70,6 +77,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in HEADERS + SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -92,7 +100,8 @@ def build() -> Path:
             obj = os.path.join(tmp, src.replace(".cu", ".o"))
             objs.append(obj)
             procs.append(subprocess.Popen(
-                [compiler, *FLAGS, "-c", str(CSRC / src), "-o", obj],
+                [compiler, *FLAGS, *SOURCE_FLAGS.get(src, ()), "-c",
+                 str(CSRC / src), "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         logs, failed = [], []
         for src, p in zip(SOURCES, procs):

@@ -80,3 +80,226 @@ def bell_matvec_ref(bell_vals: torch.Tensor, block_cols: torch.Tensor,
     gathered = xb[block_cols.long()]                 # (n_rb, k, bn)
     y = torch.einsum("rkab,rkb->ra", bell_vals, gathered)
     return y.reshape(n_rb * bm)[:n]
+
+
+# ---------------------------------------------------------------------------
+# Supernodal panel kernels (kernels/supernode.py)
+#
+# Lane-batched forms of the reference's single-lane bodies: a Python loop
+# over the panel column t with tensor ops across the bucket's lanes (the
+# torch form of ``vmap`` over ``fori_loop``).  The masking, the τ clamp, the
+# pair-determinant floor and the per-element order of operations are the
+# reference's.
+#
+# Lane layout (one supernode of bucket shape (wb, rb), true size (w, r)):
+#   P (wb+rb, wb): rows 0..wb-1 the dense diagonal block D (strict lower = L,
+#       diagonal = pivots, strict upper = U), rows wb.. the sub-diagonal
+#       L panel over the supernode's row structure;
+#   Q (wb, rb):    the U panel.
+# Entries gathered from pad slots hold scratch garbage, so every function
+# first masks rows/columns beyond (w, r) to zero and plants a unit diagonal
+# on pad pivots, making pad lanes exact no-ops.
+# ---------------------------------------------------------------------------
+
+
+def sn_pair_det(a, b, c, e):
+    """Clamped determinant of a static Bunch–Kaufman 2x2 pivot
+    E = [[a, b], [c, e]] (elementwise over lanes): the floor is locally
+    scaled, eps·max|E|² + tiny.  Returns (detc, bad)."""
+    det = a * e - b * c
+    fi = torch.finfo(det.dtype)
+    scale = torch.maximum(torch.maximum(a.abs(), e.abs()),
+                          torch.maximum(b.abs(), c.abs()))
+    floor = fi.eps * scale * scale + fi.tiny
+    bad = det.abs() < floor
+    detc = torch.where(bad, torch.where(det < 0, -floor, floor), det)
+    return detc, bad
+
+
+def sn_panel_mask(P, Q, wvec, rvec):
+    """Zero pad rows/cols of gathered (P, Q) lanes; unit pad diagonal."""
+    k, m, wb = P.shape
+    rb = Q.shape[2]
+    dev = P.device
+    w = wvec.to(dev).long()[:, None, None]
+    r = rvec.to(dev).long()[:, None, None]
+    ri = torch.arange(m, device=dev)[None, :, None]
+    cj = torch.arange(wb, device=dev)[None, None, :]
+    tw = cj < w
+    row_ok = torch.where(ri < wb, ri < w, (ri - wb) < r)
+    P = torch.where(row_ok & tw, P, 0.0)
+    P = P + torch.where((ri == cj) & (cj >= w), 1.0, 0.0).to(P.dtype)
+    qa = torch.arange(wb, device=dev)[None, :, None]
+    qc = torch.arange(rb, device=dev)[None, None, :]
+    Q = torch.where((qa < w) & (qc < r), Q, 0.0)
+    return P, Q
+
+
+def sn_block_mask(D, wvec):
+    """Zero pad rows/cols of gathered diagonal blocks; unit pad diagonal."""
+    wb = D.shape[1]
+    dev = D.device
+    w = wvec.to(dev).long()[:, None, None]
+    ri = torch.arange(wb, device=dev)[None, :, None]
+    cj = torch.arange(wb, device=dev)[None, None, :]
+    D = torch.where((ri < w) & (cj < w), D, 0.0)
+    return D + torch.where((ri == cj) & (ri >= w), 1.0, 0.0).to(D.dtype)
+
+
+def sn_panel_factor_ref(P, Q, wvec, rvec, tau, bkm, *, pairs=False,
+                        guard=True):
+    """Dense right-looking factorization of a bucket of supernode panels.
+
+    ``P`` (k, wb+rb, wb), ``Q`` (k, wb, rb), ``wvec``/``rvec`` (k,) true
+    sizes, ``tau`` the 1x1 pivot clamp, ``bkm`` (k, wb) pair-start flags.
+    L columns are divided by their pivot, U rows stay raw, clamped pivots
+    persist; with ``pairs`` a flagged column t starts a 2x2 pivot (t, t+1)
+    eliminated jointly through E⁻¹, its four entries stored raw.  Returns
+    (P, Q, nbad) with nbad the number of clamped 1x1 pivots / 2x2 dets."""
+    P, Q = sn_panel_mask(P, Q, wvec, rvec)
+    k, m, wb = P.shape
+    dev, dt = P.device, P.dtype
+    tau = torch.as_tensor(tau, dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    rows = torch.arange(m, device=dev)[None, :]
+    cols = torch.arange(wb, device=dev)[None, :]
+    bkm = bkm.to(dev).bool()
+    nbad = torch.zeros(k, dtype=dt, device=dev)
+    for t in range(wb):
+        # -- 1x1 elimination (a unit divisor on pair members keeps the
+        #    discarded branch finite) --
+        d = P[:, t, t]
+        if guard:
+            bad1 = d.abs() < tau
+            dc = torch.where(bad1, torch.where(d < 0, -tau, tau), d)
+        else:
+            bad1 = torch.zeros(k, dtype=torch.bool, device=dev)
+            dc = d
+        if pairs:
+            start = bkm[:, t]
+            second = bkm[:, max(t - 1, 0)] & (t > 0)
+            deff = torch.where(start | second, one, dc)
+        else:
+            deff = dc
+        colL = torch.where(rows > t, P[:, :, t] / deff[:, None], 0.0)
+        urow = torch.where(cols > t, P[:, t, :], 0.0)
+        P1 = P - colL[:, :, None] * urow[:, None, :]
+        P1[:, :, t] = torch.where(rows > t, colL, P[:, :, t])
+        P1[:, t, t] = dc
+        Q1 = Q - colL[:, :wb, None] * Q[:, t, :][:, None, :]
+        if not pairs:
+            P, Q = P1, Q1
+            nbad = nbad + bad1.to(dt)
+            continue
+        # -- 2x2 elimination for the pair (t, t+1); t1 is clamped so the
+        #    branch stays in bounds when discarded at t = wb-1 --
+        t1 = min(t + 1, wb - 1)
+        a, b = P[:, t, t], P[:, t, t1]
+        c, e = P[:, t1, t], P[:, t1, t1]
+        detc, bad2 = sn_pair_det(a, b, c, e)
+        below2 = rows > t1
+        u = torch.where(below2, P[:, :, t], 0.0)
+        v = torch.where(below2, P[:, :, t1], 0.0)
+        lu = (u * e[:, None] - v * c[:, None]) / detc[:, None]
+        lv = (v * a[:, None] - u * b[:, None]) / detc[:, None]
+        urow1 = torch.where(cols > t1, P[:, t, :], 0.0)
+        urow2 = torch.where(cols > t1, P[:, t1, :], 0.0)
+        P2 = (P - lu[:, :, None] * urow1[:, None, :]
+              - lv[:, :, None] * urow2[:, None, :])
+        P2[:, :, t] = torch.where(below2, lu, P[:, :, t])
+        P2[:, :, t1] = torch.where(below2, lv, P[:, :, t1])
+        Q2 = (Q - lu[:, :wb, None] * Q[:, t, :][:, None, :]
+              - lv[:, :wb, None] * Q[:, t1, :][:, None, :])
+        s3, sec3 = start[:, None, None], second[:, None, None]
+        P = torch.where(s3, P2, torch.where(sec3, P, P1))
+        Q = torch.where(s3, Q2, torch.where(sec3, Q, Q1))
+        nbad = nbad + torch.where(
+            start, bad2.to(dt), torch.where(second, 0.0, bad1.to(dt)))
+    return P, Q, nbad.sum()
+
+
+def sn_schur_ref(P, Q):
+    """Batched Schur-complement GEMM: S[l] = Lpanel[l] @ Upanel[l].
+
+    ``P`` (k, wb+rb, wb) factored panels, ``Q`` (k, wb, rb) raw U rows;
+    returns (k, rb, rb), scatter-subtracted into the trailing slots."""
+    wb = Q.shape[1]
+    return torch.einsum("kiw,kwr->kir", P[:, wb:, :], Q)
+
+
+def sn_trsv_ref(D, y, wvec, bkm, *, mode, pairs=False):
+    """Dense triangular solves on a bucket of supernode diagonal blocks.
+
+    ``D`` (k, wb, wb) packed blocks (strict lower = unit-L, diagonal =
+    pivots, strict upper = U); ``y`` (k, wb) or (k, wb, m) right-hand sides.
+    Modes: ``"l"`` unit-lower forward (L y = b), ``"lt"`` unit-upper
+    backward (Lᵀ x = y), ``"u"`` upper backward with pivot divides
+    (U x = y), ``"ut"`` lower forward with pivot divides (Uᵀ y = b).  With
+    ``pairs`` the pair-start subdiagonal holds raw c (identity in the unit
+    factor) and the pivot modes solve each 2x2 system E / Eᵀ jointly."""
+    vec = y.dim() == 2
+    if vec:
+        y = y[:, :, None]
+    wb = D.shape[1]
+    dev = D.device
+    D = sn_block_mask(D, wvec)
+    idx = torch.arange(wb, device=dev)[None, :]
+    x = torch.where(idx[:, :, None] < wvec.to(dev).long()[:, None, None],
+                    y, 0.0)
+    bkm = bkm.to(dev).bool()
+    one = torch.ones((), dtype=D.dtype, device=dev)
+    if pairs and mode in ("l", "lt"):
+        sub = (idx[0][:, None] == idx[0][None, :] + 1)[None] & bkm[:, None, :]
+        D = torch.where(sub, 0.0, D)
+    if mode == "l":
+        for t in range(wb):
+            col = torch.where(idx > t, D[:, :, t], 0.0)
+            x = x - col[:, :, None] * x[:, t:t + 1, :]
+    elif mode == "lt":
+        for i in range(wb):
+            t = wb - 1 - i
+            row = torch.where(idx < t, D[:, t, :], 0.0)
+            x = x - row[:, :, None] * x[:, t:t + 1, :]
+    elif mode in ("u", "ut"):
+        for i in range(wb):
+            t = (wb - 1 - i) if mode == "u" else i
+            if pairs:
+                start = bkm[:, t]
+                second = bkm[:, max(t - 1, 0)] & (t > 0)
+                dd = torch.where(start | second, one, D[:, t, t])
+            else:
+                dd = D[:, t, t]
+            xt1 = x[:, t, :] / dd[:, None]
+            if mode == "u":
+                prop = torch.where(idx < t, D[:, :, t], 0.0)
+            else:
+                prop = torch.where(idx > t, D[:, t, :], 0.0)
+            x1 = x - prop[:, :, None] * xt1[:, None, :]
+            x1[:, t, :] = xt1
+            if not pairs:
+                x = x1
+                continue
+            t1 = min(t + 1, wb - 1)
+            a, b = D[:, t, t, None], D[:, t, t1, None]
+            c, e = D[:, t1, t, None], D[:, t1, t1, None]
+            detc, _ = sn_pair_det(a, b, c, e)
+            rt, rt1 = x[:, t, :], x[:, t1, :]
+            if mode == "u":           # E [xt, xtt] = [rt, rt1]
+                xt = (e * rt - b * rt1) / detc
+                xtt = (a * rt1 - c * rt) / detc
+                p1 = torch.where(idx < t, D[:, :, t], 0.0)
+                p2 = torch.where(idx < t, D[:, :, t1], 0.0)
+            else:                     # Eᵀ [xt, xtt] = [rt, rt1]
+                xt = (e * rt - c * rt1) / detc
+                xtt = (a * rt1 - b * rt) / detc
+                p1 = torch.where(idx > t1, D[:, t, :], 0.0)
+                p2 = torch.where(idx > t1, D[:, t1, :], 0.0)
+            x2 = (x - p1[:, :, None] * xt[:, None, :]
+                  - p2[:, :, None] * xtt[:, None, :])
+            x2[:, t, :] = xt
+            x2[:, t1, :] = xtt
+            x = torch.where(start[:, None, None], x2,
+                            torch.where(second[:, None, None], x, x1))
+    else:
+        raise ValueError(f"unknown block_trsv mode {mode!r}")
+    return x[:, :, 0] if vec else x

@@ -1,4 +1,4 @@
-"""repro_torch.sla — public surface of the PyTorch port (slice 1 subset).
+"""repro_torch.sla — public surface of the PyTorch port (slices 1–2).
 
 The names match the reference's ``repro.sla``::
 
@@ -12,9 +12,11 @@ The names match the reference's ``repro.sla``::
     with sla.options(fused_step="off"):          # scoped option override
         x = sla.solve(A, b)
 
-This slice has the iterative route (``jnp``/``pallas``/``stencil`` backends,
-CG and BiCGStab with Jacobi) and the dense route; the rest of the
-reference's surface arrives with later slices.
+Ported so far: the iterative route (``jnp``/``pallas``/``stencil``
+backends, CG and BiCGStab with Jacobi or ILU(0)), the sparse-direct route
+(``direct``: supernodal LDLᵀ/LU, the auto choice for mid-size systems, with
+``SparseTensor.slogdet`` on the same factors) and the dense route; the rest
+of the reference's surface arrives with later slices.
 """
 from __future__ import annotations
 
@@ -45,9 +47,10 @@ __all__ = [
 
 def solve(A, b, **kw):
     """Solve ``A @ x = b`` with adjoint gradients.  Keyword options:
-    ``backend`` ("auto", "dense", "jnp", "pallas", "stencil"), ``method``
-    ("cg", "bicgstab"; "lu"/"cholesky" for dense), ``precond`` ("none",
-    "jacobi"), ``tol``, ``atol``, ``maxiter``, ``x0``."""
+    ``backend`` ("auto", "dense", "direct", "jnp", "pallas", "stencil"),
+    ``method`` ("cg", "bicgstab"; "ldlt"/"lu" for direct; "lu"/"cholesky"
+    for dense), ``precond`` ("none", "jacobi", "ilu"), ``tol``, ``atol``,
+    ``maxiter``, ``x0``."""
     return A.solve(b, **kw)
 
 

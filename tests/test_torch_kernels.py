@@ -207,8 +207,19 @@ def test_kernel_wrappers_count_no_cpu_launches():
     tops.stencil5_matvec(Stencil5Meta(nx=8, ny=8), torch.tensor(v),
                          torch.tensor(x))
     tfk.fused_dots2(torch.tensor(x), torch.tensor(x))
+    from repro_torch.kernels import supernode as tsn
+    P = torch.eye(6, 2, dtype=torch.float64).repeat(3, 1, 1)
+    Q = torch.ones(3, 2, 4, dtype=torch.float64)
+    w = torch.full((3,), 2, dtype=torch.int32)
+    r = torch.full((3,), 4, dtype=torch.int32)
+    bk = torch.zeros(3, 2, dtype=torch.bool)
+    P, Q, _ = tsn.panel_factor(P, Q, w, r, 1e-8, bk)
+    tsn.schur_update(P, Q)
+    tsn.block_trsv(P[:, :2, :], torch.ones(3, 2, dtype=torch.float64), w,
+                   bk, mode="u")
     assert set(kernels.launch_counts().values()) == {0}
-    assert len(kernels.launch_counts()) == 10
+    assert set(tsn.TRSV_MODE_LAUNCHES.values()) == {0}
+    assert len(kernels.launch_counts()) == 13
 
 
 # ---------------------------------------------------------------------------

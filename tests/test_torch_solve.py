@@ -164,9 +164,14 @@ def test_backend_selection_matches_reference():
         t = tdisp.select_backend(port_of(A_ref), "auto", "auto")
         assert t == r
     big = rpoisson.poisson2d(70)               # 4900 > dense_budget
-    assert rdisp.select_backend(big, "auto", "auto")[0] == "direct"
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tdisp.select_backend(port_of(big), "auto", "auto")
+    assert rdisp.select_backend(big, "auto", "auto") == ("direct", "ldlt")
+    A = port_of(big)
+    assert tdisp.select_backend(A, "auto", "auto") == ("direct", "ldlt")
+    b = np.random.default_rng(2).normal(size=4900)
+    x = A.solve(torch.tensor(b))               # auto → direct, and it solves
+    x_ref = big.solve(jnp.asarray(b))
+    assert_close(x, x_ref, rtol=1e-10, atol=1e-12)
+    assert A.plan().cfg.backend == "direct"
 
 
 @pytest.mark.parametrize("method", ["cholesky", "lu"])
@@ -206,8 +211,9 @@ def test_later_slices_raise_with_their_slice():
         A.solve(torch.ones(2, 25, dtype=torch.float64), backend="jnp")
     with pytest.raises(NotImplementedError, match="slice 5"):
         A.with_values(torch.stack([A.val, A.val])).solve(b, backend="jnp")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        A.solve(b, backend="direct")
+    x = A.solve(b, backend="direct")           # slice 2: ported
+    assert_close(x, torch.linalg.solve(A.todense(), b), rtol=1e-12,
+                 atol=1e-13)
     with pytest.raises(NotImplementedError, match="gmres"):
         A.solve(b, backend="jnp", method="gmres")
     with pytest.raises(ValueError):

@@ -174,16 +174,20 @@ def test_port_imports_without_jax_or_reference():
         sys.meta_path.insert(0, Refuse())
         import repro_torch
         from repro_torch import sla
-        from repro_torch.core import (adjoint, convert, dispatch, options,
-                                      precond, solvers, sparse)
+        from repro_torch.core import (adjoint, convert, direct, dispatch,
+                                      options, precond, solvers, sparse)
         from repro_torch.data import poisson
-        from repro_torch.kernels import _build, ops, ref, solve_step
-        bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
-        assert not bad, bad
+        from repro_torch.kernels import (_build, ops, ref, solve_step,
+                                         supernode)
         A = poisson.poisson2d(6, device="cpu")
         import torch
         x = sla.solve(A, torch.ones(36, dtype=torch.float64), backend="jnp")
+        sla.solve(A, x, backend="direct")
+        sla.solve(A, x, backend="jnp", precond="ilu")
+        A.slogdet()
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not bad, bad
         print("ok", x.shape[0])
     """)
     env = dict(os.environ)
