@@ -26,21 +26,22 @@ What it does, in order:
    the stencil kernel on transposed planes and block-ELL on Aᵀ's layout
    (``t_bell``); solved to tol 1e-10, ∂Σu²/∂(κ, val) checked against the
    plain COO path;
-8. panel kernels: panel_factor, schur_update and block_trsv against their
-   plain versions on the gathered panels of ``poisson2d(316)``'s analysis
-   (its widest bucket, the bucket with the most lanes, a ragged bucket with
-   garbage in its pad slots), f32 and f64, pairs off and on, block_trsv in
-   its four modes with 1 and 64 right-hand sides; then their summed time
-   over one factorization (one sweep for block_trsv) against the bound;
-9. direct path (the slice's main path): ``poisson2d(316)`` (99,856
+8. direct path (the slice's main path): ``poisson2d(316)`` (99,856
    unknowns, f64), ``sla.solve`` auto-routed to the supernodal LDLᵀ, ∂Σu²/∂val
    against a CG run at tol 1e-12, then a ``with_values`` refactorization;
-10. LU path: the non-symmetric drift ``poisson2d(128)``, auto → direct/LU,
-    solution and ∂/∂val against the dense backend (adjoint on ut/lt sweeps);
-11. indefinite path: a dense-block saddle point (n = 512) with static 2x2
+9. LU path: the non-symmetric drift ``poisson2d(128)``, auto → direct/LU,
+   solution and ∂/∂val against the dense backend (adjoint on ut/lt sweeps);
+10. indefinite path: a dense-block saddle point (n = 512) with static 2x2
     pivot pairs, solve, transposed solve, ``slogdet`` and its gradient
     against torch.linalg;
-12. ILU path: ``poisson2d(100)``, CG with ``precond="ilu"`` against Jacobi;
+11. ILU path: ``poisson2d(100)``, CG with ``precond="ilu"`` against Jacobi;
+12. panel kernels: panel_factor, schur_update and block_trsv against their
+    plain versions on the gathered panels of the direct path's own analysis
+    of ``poisson2d(316)`` (its widest bucket, the bucket with the most
+    lanes, a ragged bucket with garbage in its pad slots), f32 and f64,
+    pairs off and on, block_trsv in its four modes with 1 and 64
+    right-hand sides; then their summed time over one factorization (one
+    mode-l sweep for block_trsv) against the bound;
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Every failed check raises (exit code 1).  Without a CUDA device it
@@ -50,10 +51,10 @@ tolerance and seed below are those of the main path.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import time
@@ -790,11 +791,12 @@ def _sum_ms(fn, reps=5):
     return cuda_ms(fn, reps, warmup=1, spin_ms=1.5 * _enqueue_ms(fn) + 1.0)
 
 
-def _panel_work(bk):
+def _panel_work(bk, trsv_mode="l"):
     """(bytes, flops) per kernel that one bucket's true sizes need, f64:
     inputs read at their true extent, outputs written at the padded shape
-    the kernel returns.  block_trsv: one mode-l solve, one right-hand
-    side."""
+    the kernel returns.  block_trsv: one solve in ``trsv_mode`` with one
+    right-hand side, reading only the triangle of D that mode uses (strict
+    lower for l/lt; upper with the pivots for u/ut, which also divide)."""
     w = bk.wvec.double().cpu().numpy()
     r = bk.rvec.double().cpu().numpy()
     k, wb, rb = bk.pidx.shape[0], bk.wb, bk.rb
@@ -805,36 +807,30 @@ def _panel_work(bk):
           float((2 * s2 + s1 + r * w + 4 * r * s1).sum()))
     su = (8 * float((2 * r * w).sum()) + 8 * k * rb * rb,
           float((2 * w * r * r).sum()))
-    bt = (8 * float((w * w + w).sum()) + 8 * k * wb, float((2 * s1).sum()))
+    piv = w if trsv_mode in ("u", "ut") else 0 * w
+    bt = (8 * float((s1 + piv + w).sum()) + 8 * k * wb,
+          float((2 * s1 + piv).sum()))
     return {"panel_factor": pf, "schur_update": su, "block_trsv": bt}
 
 
-def panel_kernel_phase(dev, ng, seed, out):
+def panel_kernel_phase(dev, art, val, ng, seed, out):
     """panel_factor, schur_update and block_trsv against their plain versions
-    on the main path's panels (``poisson2d(ng)``'s analysis), and their
-    summed device time over one factorization."""
+    on the main path's panels (the direct path's analysis ``art`` of
+    ``poisson2d(ng)`` with values ``val``), and their summed device time
+    over one factorization."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.core import direct as td
-    from repro_torch.data.poisson import poisson2d_arrays
     from repro_torch.kernels import ref
     from repro_torch.kernels import supernode as ksn
 
     rng = np.random.default_rng(seed)
-    val, row, col = poisson2d_arrays(ng)
-    n = ng * ng
-    t0 = time.perf_counter()
-    art = td.to_device(td.symbolic_factor(row, col, n), dev)
-    analyze_s = time.perf_counter() - t0
     buckets = [bk for lvl in art.snode.schedule for bk in lvl]
-    say(f"  analysis of poisson2d({ng}) for the panel shapes: {analyze_s:.2f} "
-        f"s, {len(buckets)} buckets in {len(art.snode.schedule)} levels")
-    vt = torch.tensor(val, device=dev)
+    say(f"  panel shapes of the direct path's poisson2d({ng}): "
+        f"{len(buckets)} buckets in {len(art.snode.schedule)} levels")
     C = torch.zeros(art.nnzF + 2, dtype=torch.float64, device=dev)
-    C.index_add_(0, art.a2f, vt)
+    C.index_add_(0, art.a2f, val)
     C[art.nnzF + 1] = 1.0
     C[art.nnzF] = 7.25                   # pad slots gather NaN-free garbage
-    tau64 = math.sqrt(np.finfo(np.float64).eps) * float(np.abs(val).max())
+    tau64 = math.sqrt(np.finfo(np.float64).eps) * float(val.abs().max())
 
     def ragged(bk):
         w, r = bk.wvec.cpu(), bk.rvec.cpu()
@@ -984,20 +980,19 @@ def panel_kernel_phase(dev, ng, seed, out):
         for t, e in worst.items():
             check(e <= TOL_KERNEL[t], f"{name} {t} matches its plain version "
                   f"at {', '.join(shapes)} ({e:.2e} <= {TOL_KERNEL[t]:.0e})")
-    out["panel_kernel_phase"] = dict(analyze_s=analyze_s,
-                                     n_buckets=len(buckets), kernels=res)
+    out["panel_kernel_phase"] = dict(n_buckets=len(buckets), kernels=res)
     del ins, facs, Ds, Dm, ys, C
     torch.cuda.empty_cache()
     return res
 
 
 def _kernel_breakdown(fn, trace):
-    """Device kernels of one call of ``fn`` from a ``torch.profiler`` trace
-    (written to ``trace``): (count, summed kernel ms, [(ms, count, name)]
-    by name, largest first).  Kernel durations only; launch gaps between
-    them are not in the sum."""
-    import collections
+    """Device work of one call of ``fn`` from ``torch.profiler`` (its trace
+    written to ``trace``): (count, summed device ms, [(ms, count, name)] by
+    name, largest first) over the device-side events (kernels, copies).
+    Their durations only; launch gaps between them are not in the sum."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1005,21 +1000,9 @@ def _kernel_breakdown(fn, trace):
         fn()
         torch.cuda.synchronize()
     prof.export_chrome_trace(trace)
-    with open(trace) as fh:
-        events = json.load(fh)
-    if isinstance(events, dict):
-        events = events.get("traceEvents", [])
-    agg = collections.defaultdict(lambda: [0.0, 0])
-    for e in events:
-        if e.get("cat") == "kernel" and e.get("ph") == "X":
-            name = e["name"].replace("(anonymous namespace)::", "")
-            name = name[5:] if name.startswith("void ") else name
-            base = name.split("(")[0].split("<")[0].split("::")[-1]
-            func = re.search(r"(\w+Func(?:tor)?)\b", name)
-            key = base + (f"[{func.group(1)}]" if func else "")
-            agg[key][0] += e["dur"] / 1e3
-            agg[key][1] += 1
-    top = sorted(((ms, c, k) for k, (ms, c) in agg.items()), reverse=True)
+    top = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), reverse=True)
     return sum(c for _, c, _ in top), sum(ms for ms, _, _ in top), top
 
 
@@ -1028,9 +1011,10 @@ def _trsv_modes():
     return dict(ksn.TRSV_MODE_LAUNCHES)
 
 
-def direct_path(dev, ng, seed, out):
+def direct_path(dev, ng, seed, out, keep):
     """The slice's main path: auto-dispatch to the supernodal LDLᵀ, solve +
-    ∂Σu²/∂val through the shared factors, then a with_values refresh."""
+    ∂Σu²/∂val through the shared factors, then a with_values refresh.
+    Its analysis and values go into ``keep`` for the panel-kernel phase."""
     import torch
     from repro_torch import sla
     from repro_torch.core.sparse import coo_matvec
@@ -1103,9 +1087,9 @@ def direct_path(dev, ng, seed, out):
     say(f"  true residual {relres:.3e} (with_values run {rel3:.3e})")
     for stage, (cnt, tot, top) in kern.items():
         wall = fact_wall if stage == "factorize" else solve_ms
-        say(f"  {stage} trace: {cnt} kernels, {tot:.2f} ms of kernel time "
+        say(f"  {stage} trace: {cnt} device ops, {tot:.2f} ms of device time "
             f"in {wall:.1f} ms of wall (device busy {busy[stage]:.0%}); "
-            + "; ".join(f"{name} {ms:.2f} ms ×{c}"
+            + "; ".join(f"{name[:60]} {ms:.2f} ms ×{c}"
                         for ms, c, name in top[:5]))
     say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}; "
         f"block_trsv by mode {json.dumps(modes)}")
@@ -1148,6 +1132,8 @@ def direct_path(dev, ng, seed, out):
           f"(analyze 1, factorize 2, residual {rel3:.2e})")
     check(nbytes < 2e9,
           f"direct path: plan.nbytes {nbytes / 1e9:.3f} GB < 2 GB")
+    check(kern["factorize"][0] > 0 and kern["solve"][0] > 0,
+          "direct path: the profiler saw the device work")
     out["direct_path"] = dict(
         ng=ng, n=n, buckets=nb, levels=len(art.snode.schedule),
         nnz_L=art.stats["nnz_L"], analyze_s=t1 - t0, factorize_s=t2 - t1,
@@ -1159,6 +1145,7 @@ def direct_path(dev, ng, seed, out):
         grad_rel_diff=gerr, plan_nbytes=nbytes, peak_gb=peak,
         launches=launches, trsv_modes=modes, plan_stats=stats,
         plan_stats_after_with_values=stats2)
+    keep.update(art=art, val=A0.val)
     del A, A0, u, u2, u3, info, val, val2, plan, art
     torch.cuda.empty_cache()
     return launches
@@ -1395,6 +1382,10 @@ def main():
     phases = []
 
     def phase(name, fn, *a):
+        # free what earlier phases left in reference cycles, so a phase's
+        # peak device memory is its own
+        gc.collect()
+        torch.cuda.empty_cache()
         say(f"[{name}]")
         t = time.perf_counter()
         r = fn(*a)
@@ -1405,6 +1396,7 @@ def main():
 
     kres = phase("kernels", kernel_phase, dev, NG_STENCIL, NG_BELL, SEED, out)
     path_launches = {}
+    direct = {}                        # the direct path's analysis, values
     for name, fn, a in (
             ("stencil path", stencil_path,
              (dev, NG_STENCIL, TOL, MAXITER, SEED, out)),
@@ -1414,21 +1406,21 @@ def main():
              (dev, NG_BELL, TOL, MAXITER, out)),
             ("transposed paths", transpose_path,
              (dev, NG_TRANSPOSE, TOL_TRANSPOSE, MAXITER, SEED, out)),
-            ("panel kernels", None, None),
-            ("direct path", direct_path, (dev, NG_DIRECT, SEED, out)),
+            ("direct path", direct_path, (dev, NG_DIRECT, SEED, out, direct)),
             ("LU path", lu_path, (dev, NG_LU, SEED, out)),
             ("indefinite path", indefinite_path, (dev, *SADDLE, SEED, out)),
             ("ILU path", ilu_path, (dev, NG_ILU, TOL, MAXITER, out))):
-        if fn is None:                 # kernel checks of this slice's path
-            kres.update(phase(name, panel_kernel_phase, dev, NG_DIRECT,
-                              SEED, out))
-            continue
         counts = phase(name, fn, *a)
         torch.cuda.empty_cache()
         for k, v in counts.items():
             path_launches[k] = path_launches.get(k, 0) + v
     for k, v in path_launches.items():
         check(v > 0, f"{k} launched on the paths ({v} times)")
+    # the panel kernels against their plain versions, on the direct path's
+    # own analysis (its bucket shapes), after the paths' counts are read
+    kres.update(phase("panel kernels", panel_kernel_phase, dev,
+                      direct["art"], direct["val"], NG_DIRECT, SEED, out))
+    del direct
 
     kernels = []
     for name, r in kres.items():
