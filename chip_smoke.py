@@ -42,6 +42,20 @@ What it does, in order:
     pairs off and on, block_trsv in its four modes with 1 and 64
     right-hand sides; then their summed time over one factorization (one
     mode-l sweep for block_trsv) against the bound;
+13. flash kernel: flash_attention against its plain version (f32, on the
+    same inputs, over chunks of bh; elementwise, |o − plain| ≤ 2e-5·|plain|
+    + 2e-5 in f32 and ≤ 8e-3·|plain| + 1e-3 in bf16) at the LM path's layer shape (BH 128,
+    S 4096, d 64, bf16, causal), f32 causal and bidirectional (64, 2048,
+    64), a ragged bf16 (24, 1000, 128) and an uneven f32 bidirectional
+    (2, 128 | 256, 64); its time, the plain version's, SDPA's and the bound;
+14. LM serving path: llama3.2-1b at full width (16 layers, d 2048, vocab
+    128,256; seed-made weights, params f32, activations bf16): ``prefill``
+    of 4 prompts × 4096 tokens (the flash kernel once per layer), its wall
+    time, tokens/s, peak memory and profiler breakdown; the serving CLI
+    (``serve.main``, batch 4, prompt 32, 32 generated) and ms per token step
+    with the device busy share over 8 traced steps; decode ≡ forward (B 2,
+    S 128; decode runs no kernel): f32 logits within 2e-4 of max |logits|,
+    bf16 greedy tokens agreeing on ≥ 95% of the positions;
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Every failed check raises (exit code 1).  Without a CUDA device it
@@ -63,8 +77,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
-# H100 SXM peak rates outside the tensor cores (NVIDIA data sheet)
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# H100 SXM peak rates (NVIDIA data sheet): f32 and f64 outside the tensor
+# cores; bf16 at the dense tensor-core rate, the least time any kernel could
+# take for bf16 attention
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 TOL_KERNEL = {"float32": 1e-5, "float64": 1e-12}
 TOL_GRAD = 1e-6                      # gradient vs the plain path, relative
 
@@ -90,6 +106,25 @@ TOL_CG_REF = 1e-12                   # the CG run the direct gradient meets
 TOL_DENSE = 1e-8                     # LU / saddle vs torch.linalg, relative
 MAXITER = 30000
 SEED = 0
+# phase 13: (label, BH, S, T, d, dtype, causal); the first is the main
+# path's layer shape (B 4 × 32 heads, S 4096, head dim 64)
+FLASH_SHAPES = (("prefill layer", 128, 4096, 4096, 64, "bfloat16", True),
+                ("f32 causal", 64, 2048, 2048, 64, "float32", True),
+                ("f32 bidir", 64, 2048, 2048, 64, "float32", False),
+                ("ragged bf16", 24, 1000, 1000, 128, "bfloat16", True),
+                ("uneven f32", 2, 128, 256, 64, "float32", False))
+# elementwise |o − plain| <= rtol·|plain| + atol, the plain version run in
+# f32 on the same inputs.  f32: the reference test's 2e-5·(1 + |plain|);
+# bf16: the output's rounding is 2^-9 relative, held at 8e-3 (4 half-ulps)
+# with an atol of 1e-3 for outputs near 0
+TOL_FLASH = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-3)}
+# phase 14: llama3.2-1b at full width (16 layers), seed-made weights
+LM_ARCH = "llama3.2-1b"
+LM_PREFILL = (4, 4096)               # prefill: B prompts × S tokens
+LM_SERVE = (4, 32, 32)               # serving: batch, prompt, generated
+LM_CHECK = (2, 128)                  # decode ≡ forward: B × S
+TOL_LM_F32 = 2e-4                    # f32 max |Δlogits| / max |logits|
+LM_AGREE = 0.95                      # bf16: greedy tokens that must agree
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 
 KERNEL_SOURCES = {
@@ -114,6 +149,9 @@ for _f, _line in (("panel_factor", 73), ("schur_update", 123),
     KERNEL_SOURCES[_f] = ("src/repro_torch/kernels/csrc/supernode.cu",
                           f"src/repro/kernels/supernode.py:{_line}")
 PANEL_KERNELS = ("panel_factor", "schur_update", "block_trsv")
+KERNEL_SOURCES["flash_attention"] = (
+    "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "src/repro/kernels/flash_attention.py:84")
 
 
 class CheckFailed(AssertionError):
@@ -1340,6 +1378,254 @@ def ilu_path(dev, ng, tol, maxiter, out):
 
 
 # ---------------------------------------------------------------------------
+# phases 13–14: the LM serving path on the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+def _attn_work(BH, S, T, d, causal, elem):
+    """(bytes, flops) of one attention call: q, k, v read once and o
+    written once; 4·d flops per (query, key) pair the mask keeps."""
+    if causal:
+        i = np.arange(S)
+        pairs = int(np.minimum(i + 1, T).sum())
+    else:
+        pairs = S * T
+    return elem * BH * (2 * S * d + 2 * T * d), 4 * BH * d * pairs
+
+
+def _flash_plain(q, k, v, causal):
+    """The plain version in f32 on the same inputs, over chunks of bh that
+    keep the (chunk, S, T) score block near 1 GB."""
+    import torch
+    from repro_torch.kernels import ref
+    S, T = q.shape[1], k.shape[1]
+    step = max(1, (1 << 28) // (S * T))
+    return torch.cat([ref.flash_attention_ref(
+        q[b:b + step].float(), k[b:b + step].float(), v[b:b + step].float(),
+        causal=causal) for b in range(0, q.shape[0], step)])
+
+
+def flash_phase(dev, seed, out):
+    """Phase 13: the flash kernel against its plain version on the card at
+    the main path's layer shape and four checking shapes; its time, the
+    plain version's, SDPA's (``library_ms``) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    res = []
+    for label, BH, S, T, d, dname, causal in FLASH_SHAPES:
+        dt = getattr(torch, dname)
+        q, k, v = (torch.randn((BH, n, d), generator=gen, device=dev).to(dt)
+                   for n in (S, T, T))
+        o = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = _flash_plain(q, k, v, causal)
+        diff = (o.float() - want).abs()
+        limit, atol = TOL_FLASH[dname]
+        floor = atol / limit
+        # err <= limit  ⟺  |o − plain| <= limit·|plain| + atol everywhere
+        err = float((diff / (floor + want.abs())).max())
+        what = f"max |o − plain| / ({floor:g} + |plain|)"
+        nbytes, flops = _attn_work(BH, S, T, d, causal, q.element_size())
+        bms, bby = bound_ms(nbytes, flops, dname)
+        call = lambda: flash_attention(q, k, v, causal=causal)
+        ms = cuda_ms(call, 5, warmup=1, spin_ms=5.0)
+        wall = wall_ms(call, 3)
+        plain = _sum_ms(lambda: _flash_plain(q, k, v, causal), reps=2)
+        q4, k4, v4 = (t[None] for t in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal), 5, warmup=1, spin_ms=5.0)
+        r = dict(case=label, shape=f"({BH},{S},{T},{d})", dtype=dname,
+                 causal=causal, ms=ms, wall_ms=wall, plain_ms=plain,
+                 library_ms=lib, bytes=nbytes, flops=flops, bound_ms=bms,
+                 bound_by=bby, tflops=flops / ms / 1e9,
+                 max_abs_err=float(diff.max()), err=err, limit=limit)
+        res.append(r)
+        say(f"  flash_attention {label:14s} {r['shape']:>20s} {dname} "
+            f"{'causal' if causal else 'bidir '}: {ms:.4f} ms "
+            f"({r['tflops']:.2f} TFLOP/s; host wall {wall:.4f} ms, plain "
+            f"{plain:.3f} ms, bound {bms:.4f} ms by {bby}, SDPA {lib:.4f} "
+            f"ms); {what} {err:.2e}")
+        check(err <= limit, f"flash_attention {label} {r['shape']} {dname} "
+              f"matches its plain version ({err:.2e} <= {limit:.0e})")
+        del q, k, v, o, want, diff, q4, k4, v4
+        torch.cuda.empty_cache()
+    out["flash_phase"] = res
+    main = res[0]
+    return {"flash_attention": dict(
+        main, max_abs_err=max(r["max_abs_err"] for r in res),
+        max_rel_err=max(r["err"] for r in res),
+        shape=f"{main['shape']} causal (BH, S, T, d)")}
+
+
+def _lm_breakdown(top):
+    """Device ms of a profiled call by class of kernel name."""
+    cls = {"flash kernel": 0.0, "GEMMs": 0.0, "casts/copies": 0.0,
+           "rest": 0.0}
+    for ms, _, name in top:
+        low = name.lower()
+        if "flash_kernel" in low:
+            cls["flash kernel"] += ms
+        elif any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass",
+                                    "cublas")):
+            cls["GEMMs"] += ms
+        elif "copy" in low or "memcpy" in low:    # casts, transposes, cat
+            cls["casts/copies"] += ms
+        else:
+            cls["rest"] += ms
+    return cls
+
+
+def lm_path(dev, seed, out):
+    """Phase 14: the LM serving path of llama3.2-1b at full width (seed-made
+    weights, params f32, activations bf16): prefill of B 4 × S 4096 through
+    the flash kernel, the serving CLI, and decode ≡ forward."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Transformer
+
+    cfg = get_config(LM_ARCH)
+    B, S = LM_PREFILL
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    _peak_reset(dev)
+    t0 = time.perf_counter()
+    model = Transformer(cfg, seed=seed, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    # (a) prefill: one warm-up, then the counted, timed call
+    serve.prefill(model, toks)
+    _sync(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    logits = serve.prefill(model, toks)
+    _sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()[0]
+    peak = _peak(dev)
+    prefill_walls = [wall_ms(lambda: serve.prefill(model, toks), 1)
+                     for _ in range(2)]
+    cnt, dev_ms, top = _kernel_breakdown(
+        lambda: serve.prefill(model, toks),
+        os.path.join(OUT, "lm_prefill_trace.json"))
+    cls = _lm_breakdown(top)
+    say(f"  {cfg.name} prefill B={B} S={S}: {prefill_ms:.1f} ms wall "
+        f"(repeats {', '.join('%.1f' % w for w in prefill_walls)} ms), "
+        f"{B * S / prefill_ms * 1e3:.0f} tokens/s; peak device memory "
+        f"{peak:.2f} GB (weights {cfg.param_count() * 4 / 1e9:.2f} GB f32); "
+        f"model init {init_s:.2f} s")
+    say(f"  prefill trace: {cnt} device ops, {dev_ms:.1f} ms device time "
+        f"(busy {dev_ms / prefill_walls[-1]:.0%}); "
+        + "; ".join(f"{k} {v:.1f} ms" for k, v in cls.items()))
+    for ms, c, name in top[:8]:
+        say(f"    {ms:9.2f} ms ×{c:<5d} {name[:90]}")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)} finite")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"prefill launched flash_attention once per layer "
+          f"({launches['flash_attention']} == {cfg.n_layers})")
+    del logits
+
+    # (b) serving: the CLI, then the same decode loop timed and traced
+    _counts_reset()
+    seq = serve.main(["--arch", LM_ARCH, "--batch", str(LM_SERVE[0]),
+                      "--prompt-len", str(LM_SERVE[1]), "--gen-len",
+                      str(LM_SERVE[2]), "--seed", str(seed),
+                      "--device", str(dev)])
+    _sync(dev)
+    Bs, P, G = LM_SERVE
+    check(tuple(seq.shape) == (Bs, P + G) and int(seq.min()) >= 0
+          and int(seq.max()) < cfg.vocab,
+          f"serve.main produced {tuple(seq.shape)} tokens in the vocab")
+    prompts = torch.randint(0, cfg.vocab, (Bs, P), generator=gen, device=dev)
+    serve.greedy_decode(model, prompts, 2)              # warm-up
+    _, dec_s = serve.greedy_decode(model, prompts, G)
+    step_ms = dec_s * 1e3 / (P + G - 1)
+    step = serve.make_serve_step(model)
+    tok = prompts[:, :1].to(torch.int32)
+
+    def eight_steps():
+        state = model.init_decode_state(Bs, P + G)
+        t_ = tok
+        for t in range(8):
+            t_, state = step(state, t_, t)
+
+    eight_wall = wall_ms(eight_steps, 2)
+    cnt8, dev8, top8 = _kernel_breakdown(
+        eight_steps, os.path.join(OUT, "lm_decode_trace.json"))
+    say(f"  serving B={Bs} prompt {P} + gen {G}: {step_ms:.2f} ms per token "
+        f"step; 8 steps {eight_wall:.1f} ms wall, {dev8:.1f} ms device time "
+        f"(busy {dev8 / eight_wall:.0%}, {cnt8} device ops); "
+        + "; ".join(f"{k} {v:.1f} ms" for k, v in _lm_breakdown(top8).items()))
+    serve_launches = _counts()[0]
+
+    # (c) decode ≡ forward: f32 at full width, then bf16 greedy agreement
+    Bc, Sc = LM_CHECK
+    ctoks = torch.randint(0, cfg.vocab, (Bc, Sc), generator=gen, device=dev)
+
+    def decode_logits(m):
+        state = m.init_decode_state(Bc, Sc)
+        outs = []
+        for t in range(Sc):
+            lg, state = m.decode_step(state, ctoks[:, t:t + 1], t)
+            outs.append(lg[:, 0])
+        return torch.stack(outs, 1)
+
+    _counts_reset()
+    bf_fwd, _ = model(ctoks)
+    bf_dec = decode_logits(model)
+    del model
+    torch.cuda.empty_cache()
+    m32 = Transformer(dataclasses.replace(cfg, dtype="float32"), seed=seed,
+                      device=dev)
+    f_fwd, _ = m32(ctoks)
+    f_dec = decode_logits(m32)
+    _sync(dev)
+    check_launches = _counts()[0]
+    del m32
+    f_diff = float((f_fwd - f_dec).abs().max())
+    f_rel = f_diff / float(f_fwd.abs().max())
+    agree = float((bf_fwd.argmax(-1) == bf_dec.argmax(-1)).float().mean())
+    bf_diff = float((bf_fwd - bf_dec).abs().max())
+    say(f"  decode ≡ forward (B={Bc}, S={Sc}): f32 max |Δlogits| {f_diff:.3e}"
+        f" = {f_rel:.2e} of max |logits|; bf16 greedy tokens agree on "
+        f"{agree:.1%} of positions, max |Δlogits| {bf_diff:.3e} (max |logits| "
+        f"{float(bf_fwd.abs().max()):.3f})")
+    check(f_rel <= TOL_LM_F32, f"decode ≡ forward in f32 ({f_rel:.2e} <= "
+          f"{TOL_LM_F32:.0e} of max |logits|)")
+    check(agree >= LM_AGREE, f"decode ≡ forward in bf16: greedy tokens agree "
+          f"on {agree:.1%} >= {LM_AGREE:.0%} of positions")
+    check(check_launches["flash_attention"] == 2 * cfg.n_layers,
+          f"the two checking forwards launched flash_attention "
+          f"{check_launches['flash_attention']} == {2 * cfg.n_layers} times")
+    out["lm_path"] = dict(
+        arch=cfg.name, prefill=dict(
+            B=B, S=S, wall_ms=prefill_ms, repeats_ms=prefill_walls,
+            tokens_per_s=B * S / prefill_ms * 1e3, peak_gb=peak,
+            device_ms=dev_ms, device_ops=cnt, busy=dev_ms / prefill_walls[-1],
+            breakdown=cls, top=top[:20], launches=launches),
+        serve=dict(batch=Bs, prompt_len=P, gen_len=G, ms_per_step=step_ms,
+                   eight_steps_wall_ms=eight_wall, eight_steps_device_ms=dev8,
+                   busy=dev8 / eight_wall, top=top8[:20],
+                   launches=serve_launches),
+        check=dict(B=Bc, S=Sc, f32_max_abs=f_diff, f32_rel=f_rel,
+                   bf16_agree=agree, bf16_max_abs=bf_diff,
+                   launches=check_launches),
+        model_init_s=init_s)
+    torch.cuda.empty_cache()
+    total = dict(launches)
+    for k2, v2 in check_launches.items():
+        total[k2] = total.get(k2, 0) + v2
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def card_line():
     q = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1377,7 +1663,10 @@ def main():
                            ng_transpose=NG_TRANSPOSE, tol=TOL,
                            tol_transpose=TOL_TRANSPOSE, ng_direct=NG_DIRECT,
                            ng_lu=NG_LU, saddle=SADDLE, ng_ilu=NG_ILU,
-                           maxiter=MAXITER, seed=SEED))
+                           maxiter=MAXITER, seed=SEED,
+                           flash_shapes=FLASH_SHAPES, lm_arch=LM_ARCH,
+                           lm_prefill=LM_PREFILL, lm_serve=LM_SERVE,
+                           lm_check=LM_CHECK))
 
     phases = []
 
@@ -1414,13 +1703,16 @@ def main():
         torch.cuda.empty_cache()
         for k, v in counts.items():
             path_launches[k] = path_launches.get(k, 0) + v
-    for k, v in path_launches.items():
-        check(v > 0, f"{k} launched on the paths ({v} times)")
     # the panel kernels against their plain versions, on the direct path's
     # own analysis (its bucket shapes), after the paths' counts are read
     kres.update(phase("panel kernels", panel_kernel_phase, dev,
                       direct["art"], direct["val"], NG_DIRECT, SEED, out))
     del direct
+    kres.update(phase("flash kernel", flash_phase, dev, SEED, out))
+    for k, v in phase("LM serving path", lm_path, dev, SEED, out).items():
+        path_launches[k] = path_launches.get(k, 0) + v
+    for k, v in path_launches.items():
+        check(v > 0, f"{k} launched on the paths ({v} times)")
 
     kernels = []
     for name, r in kres.items():

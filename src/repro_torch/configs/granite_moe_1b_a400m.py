@@ -1,0 +1,11 @@
+"""granite-moe-1b-a400m — 32 experts top-8
+[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m", family="moe",
+    n_layers=24, d_model=1024, n_heads=16, n_kv_heads=8, d_ff=512,
+    vocab=49_155, head_dim=64,
+    layer_pattern=("moe",), n_experts=32, top_k=8, d_ff_expert=512,
+    rope_theta=10_000.0, act="silu", tie_embeddings=True,
+)

@@ -1,0 +1,9 @@
+"""qwen3-8b — qk_norm, GQA [hf:Qwen/Qwen3-8B; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=12288,
+    vocab=151_936, head_dim=128, qk_norm=True,
+    rope_theta=1_000_000.0, act="silu",
+)

@@ -4,10 +4,10 @@ PyTorch versions (``ref.py``) and differentiable wrappers (``ops.py``).
 Nothing here builds or loads CUDA code at import; the library is compiled by
 ``nvcc`` at the first launch on a CUDA tensor (``_build.py``).
 """
-from . import solve_step, spmv_bell, stencil5, supernode
+from . import flash_attention, solve_step, spmv_bell, stencil5, supernode
 
 _COUNTERS = (stencil5.LAUNCHES, spmv_bell.LAUNCHES, solve_step.LAUNCHES,
-             supernode.LAUNCHES)
+             supernode.LAUNCHES, flash_attention.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("stencil5.cu", "spmv_bell.cu", "solve_step.cu", "supernode.cu")
+SOURCES = ("stencil5.cu", "spmv_bell.cu", "solve_step.cu", "supernode.cu",
+           "flash_attention.cu")
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -54,6 +55,8 @@ _SIGNATURES = {
                         _I, _I, _P],
     "sn_schur_update": [_I, _P, _P, _P, _I, _I, _I, _P],
     "sn_block_trsv": [_I, _I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P],
+    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -151,10 +154,15 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def cuda_dtype_tag(dtype) -> str:
-    import torch
-    if dtype == torch.float32:
-        return "f32"
-    if dtype == torch.float64:
-        return "f64"
-    raise TypeError(f"the CUDA kernels take float32 or float64, got {dtype}")
+_DTYPE_TAGS = {"float32": "f32", "float64": "f64", "bfloat16": "bf16"}
+
+
+def cuda_dtype_tag(dtype, allowed=("f32", "f64")) -> str:
+    """The entry-point suffix of ``dtype`` (``f32``/``f64``/``bf16``);
+    raises unless it is one of the kernel's ``allowed`` tags."""
+    tag = _DTYPE_TAGS.get(str(dtype).removeprefix("torch."))
+    if tag not in allowed:
+        names = [k for k, v in _DTYPE_TAGS.items() if v in allowed]
+        raise TypeError(f"this CUDA kernel takes {' or '.join(names)}, "
+                        f"got {dtype}")
+    return tag

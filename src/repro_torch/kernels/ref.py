@@ -303,3 +303,25 @@ def sn_trsv_ref(D, y, wvec, bkm, *, mode, pairs=False):
     else:
         raise ValueError(f"unknown block_trsv mode {mode!r}")
     return x[:, :, 0] if vec else x
+
+
+ATTN_NEG_INF = -1e30            # the reference's attention mask value
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Attention softmax(q·kᵀ/√d)·v in f32 (f64 for f64 inputs), the
+    result in q's dtype.
+
+    ``q``: (BH, S, d); ``k``, ``v``: (BH, T, d).  ``causal`` keeps key
+    j ≤ query i in absolute indices (top-left aligned when T ≠ S).  The
+    reference's ``flash_attention_ref``."""
+    d = q.shape[-1]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bsd,btd->bst", q.to(acc), k.to(acc)) / (d ** 0.5)
+    if causal:
+        S, T = s.shape[-2:]
+        i = torch.arange(S, device=q.device)[:, None]
+        j = torch.arange(T, device=q.device)[None, :]
+        s = torch.where((j <= i)[None], s, ATTN_NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bst,btd->bsd", p, v.to(acc)).to(q.dtype)

@@ -1,0 +1,195 @@
+"""Attention: GQA with optional qk-norm / QKV bias / RoPE / M-RoPE, and the
+ring-buffer KV cache of one-token decode.
+
+The port of the reference's ``repro/models/attention.py`` for the dense
+decoder: modes ``causal`` and ``bidir``.  On every device the
+score/softmax/PV core of :func:`attention` is ONE call of
+``kernels/flash_attention.py`` on (B·H, S, hd) copies of q and the
+head-expanded k, v: the hand-written flash kernel on a CUDA tensor, its
+plain version on a CPU tensor, so the CPU tests run the card's layout.  The
+kernel, like the reference's flash kernel, keeps the probabilities in f32;
+the reference model's own formula (dense scores, query-chunked above
+2·512 queries) rounds them to the activation dtype before p·v, so the two
+agree to f32 rounding in f32 and to one bf16 rounding of p in bf16.
+Decode attention is plain torch, as in the reference (no kernel).  Local
+(sliding-window) and cross attention are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels.flash_attention import flash_attention
+from .layers import RMSNorm, apply_rope, const_param, dense_init, pdtype
+
+NEG_INF = -1e30
+#: attention modes this package runs
+MODES = ("causal", "bidir")
+
+
+def _unported(mode: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"attention mode {mode!r} is not ported yet: local (sliding-window) "
+        "and cross attention come with a later slice of the LM port "
+        "(ROADMAP, slice 7)")
+
+
+class Attention(nn.Module):
+    """Projections ``wq`` (d, H·hd), ``wk``/``wv`` (d, K·hd), ``wo``
+    (H·hd, d); ``bq``/``bk``/``bv`` with ``qkv_bias``; ``q_norm``/``k_norm``
+    (RMSNorm over hd) with ``qk_norm``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__()
+        d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        dt = pdtype(cfg)
+        self.wq = dense_init(gen, (d, H * hd), dt, device)
+        self.wk = dense_init(gen, (d, K * hd), dt, device)
+        self.wv = dense_init(gen, (d, K * hd), dt, device)
+        self.wo = dense_init(gen, (H * hd, d), dt, device)
+        self.bq = self.bk = self.bv = None
+        if cfg.qkv_bias:
+            self.bq = const_param((H * hd,), 0.0, dt, device)
+            self.bk = const_param((K * hd,), 0.0, dt, device)
+            self.bv = const_param((K * hd,), 0.0, dt, device)
+        self.q_norm = self.k_norm = None
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(hd, cfg.norm_eps, dt, device)
+            self.k_norm = RMSNorm(hd, cfg.norm_eps, dt, device)
+
+
+def _project_q(p: Attention, x, cfg: ModelConfig):
+    B, S, _ = x.shape
+    q = x @ p.wq.to(x.dtype)
+    if p.bq is not None:
+        q = q + p.bq.to(x.dtype)
+    return q.reshape(B, S, cfg.n_heads, cfg.hd)
+
+
+def _project_kv(p: Attention, src, cfg: ModelConfig):
+    B, T, _ = src.shape
+    k = src @ p.wk.to(src.dtype)
+    v = src @ p.wv.to(src.dtype)
+    if p.bk is not None:
+        k = k + p.bk.to(src.dtype)
+        v = v + p.bv.to(src.dtype)
+    K = cfg.n_kv_heads
+    return k.reshape(B, T, K, cfg.hd), v.reshape(B, T, K, cfg.hd)
+
+
+def _expand_kv(kv, H: int):
+    """Repeat the KV heads to the query-head count: (B, T, K, hd) →
+    (B, T, H, hd), query head h reading KV head h // (H // K)."""
+    B, T, K, hd = kv.shape
+    if K == H:
+        return kv
+    return kv[:, :, :, None, :].expand(B, T, K, H // K, hd).reshape(
+        B, T, H, hd)
+
+
+def _sqrt_hd(q) -> torch.Tensor:
+    """√hd in q's dtype (the reference rounds it to the activation dtype)."""
+    return torch.tensor(q.shape[-1] ** 0.5, dtype=q.dtype)
+
+
+def _gqa_scores(q, k, cfg: ModelConfig):
+    """q: (B, S, H, hd), k: (B, T, K, hd) → scores (B, H, S, T) in q's dtype."""
+    ke = _expand_kv(k, cfg.n_heads)
+    return torch.einsum("bshd,bthd->bhst", q, ke) / _sqrt_hd(q)
+
+
+def _gqa_out(probs, v, wo, B: int, S: int, cfg: ModelConfig):
+    ve = _expand_kv(v, cfg.n_heads)
+    o = torch.einsum("bhst,bthd->bshd", probs, ve)
+    return o.reshape(B, S, cfg.n_heads * cfg.hd) @ wo.to(o.dtype)
+
+
+def _heads_first(t, H: int):
+    """(B, T, K, hd) → contiguous (B·H, T, hd), the KV heads expanded to H."""
+    B, T, K, hd = t.shape
+    t = t.permute(0, 2, 1, 3)[:, :, None].expand(B, K, H // K, T, hd)
+    return t.reshape(B * H, T, hd)
+
+
+def _attention_flash(q, k, v, cfg: ModelConfig, causal: bool):
+    """The core as one ``flash_attention`` call on (B·H, S, hd) copies: one
+    kernel launch on the card."""
+    B, S, H, hd = q.shape
+    o = flash_attention(_heads_first(q, H), _heads_first(k, H),
+                        _heads_first(v, H), causal=causal)
+    return o.reshape(B, H, S, hd).transpose(1, 2)
+
+
+def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, mode: str = "causal") -> torch.Tensor:
+    """Prefill attention over ``x`` (B, S, d); ``mode``: causal | bidir."""
+    if mode not in MODES:
+        raise _unported(mode)
+    B, S, _ = x.shape
+    q = _project_q(p, x, cfg)
+    k, v = _project_kv(p, x, cfg)
+    if p.q_norm is not None:
+        q = p.q_norm(q)
+        k = p.k_norm(k)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    o = _attention_flash(q, k, v, cfg, causal=mode == "causal")
+    return o.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (decode)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, mode: str,
+               dtype, device) -> dict:
+    """Ring-buffer cache: keys and values (B, capacity, K, hd) and the
+    absolute position held by each slot (−1: empty)."""
+    if mode != "causal":
+        raise _unported(mode)
+    K, hd = cfg.n_kv_heads, cfg.hd
+    return {
+        "k": torch.zeros((batch, capacity, K, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, capacity, K, hd), dtype=dtype, device=device),
+        "pos": torch.full((capacity,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def cache_capacity(cfg: ModelConfig, mode: str, seq_len: int) -> int:
+    if mode != "causal":
+        raise _unported(mode)
+    return seq_len
+
+
+def decode_attention(p: Attention, x: torch.Tensor, cache: dict,
+                     cfg: ModelConfig, *, pos, mode: str = "causal"):
+    """One-token decode.  ``x``: (B, 1, d); ``pos``: the absolute position.
+
+    Keys are stored after RoPE in ring slot ``pos % capacity``; validity
+    comes from the per-slot absolute-position table.  The cache is updated
+    in place (the reference returns a new one) and returned."""
+    if mode != "causal":
+        raise _unported(mode)
+    B = x.shape[0]
+    pos = int(pos)
+    q = _project_q(p, x, cfg)
+    k_new, v_new = _project_kv(p, x, cfg)
+    if p.q_norm is not None:
+        q = p.q_norm(q)
+        k_new = p.k_norm(k_new)
+    pos_b = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, pos_b, cfg.rope_theta, cfg.mrope)
+    k_new = apply_rope(k_new, pos_b, cfg.rope_theta, cfg.mrope)
+
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    slot = pos % ck.shape[1]
+    ck[:, slot] = k_new[:, 0]
+    cv[:, slot] = v_new[:, 0]
+    cpos[slot] = pos
+
+    scores = _gqa_scores(q, ck, cfg).float()               # (B, H, 1, cap)
+    valid = (cpos >= 0) & (cpos <= pos)
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    return _gqa_out(probs, cv, p.wo, B, 1, cfg), cache

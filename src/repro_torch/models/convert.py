@@ -1,0 +1,59 @@
+"""Carry the reference's LM weights across as plain arrays.
+
+The port imports nothing of the JAX package: a caller that holds the
+reference's parameter pytree hands it over as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, params)``).  The reference stacks the layers of
+each period on a leading axis under ``params["stack"]["l{i}"]`` and keeps
+the remainder under ``params["rem"]``; the port's layer
+``p·len(pattern) + i`` is the stack's slice ``p`` of ``l{i}``, and the
+remainder follows.  Tied embeddings have no ``unembed`` on either side.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from .transformer import Transformer, check_ported
+
+
+def _flat(prefix: str, tree: dict, out: dict) -> None:
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            _flat(name, v, out)
+        else:
+            out[name] = np.asarray(v)
+
+
+def params_from_jax(cfg: ModelConfig, params_np: dict) -> dict:
+    """The port's ``state_dict`` (CPU tensors) for the reference's params."""
+    check_ported(cfg)
+    period = len(cfg.layer_pattern)
+    n_full = cfg.n_layers // period
+    layers = []
+    for p in range(n_full):
+        for i in range(period):
+            one = {}
+            _flat("", params_np["stack"][f"l{i}"], one)
+            layers.append({k: a[p] for k, a in one.items()})
+    for i in range(cfg.n_layers - n_full * period):
+        one = {}
+        _flat("", params_np["rem"][f"l{i}"], one)
+        layers.append(one)
+    flat = {}
+    _flat("embed", params_np["embed"], flat)
+    _flat("final_norm", params_np["final_norm"], flat)
+    for n, one in enumerate(layers):
+        for k, a in one.items():
+            flat[f"layers.{n}.{k}"] = a
+    return {k: torch.tensor(a) for k, a in flat.items()}
+
+
+def model_from_jax(cfg: ModelConfig, params_np: dict, device=None
+                   ) -> Transformer:
+    """A ready :class:`Transformer` on ``device`` (``None`` → ``"cuda"``)
+    holding the reference's weights."""
+    model = Transformer(cfg, device=device)
+    model.load_state_dict(params_from_jax(cfg, params_np), strict=True)
+    return model

@@ -217,9 +217,12 @@ def test_kernel_wrappers_count_no_cpu_launches():
     tsn.schur_update(P, Q)
     tsn.block_trsv(P[:, :2, :], torch.ones(3, 2, dtype=torch.float64), w,
                    bk, mode="u")
+    from repro_torch.kernels.flash_attention import flash_attention
+    qkv = torch.ones(2, 5, 16)
+    flash_attention(qkv, qkv, qkv, causal=True)
     assert set(kernels.launch_counts().values()) == {0}
     assert set(tsn.TRSV_MODE_LAUNCHES.values()) == {0}
-    assert len(kernels.launch_counts()) == 13
+    assert len(kernels.launch_counts()) == 14
 
 
 # ---------------------------------------------------------------------------
