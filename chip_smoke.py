@@ -11,12 +11,19 @@ What it does, in order:
    solve-step bodies) against its plain PyTorch version on the card, in f32
    and f64, at the main-path shapes and one ragged small shape, with its
    time, the plain version's time, its bound and — where one PyTorch call
-   computes the same function — that call's time (``library_ms``);
+   computes the same function — that call's time (``library_ms``); the
+   block-ELL SpMV reads the sliced-ELL layout of its block-ELL plan and is
+   also held to the product on the reference's dense tiles, its bound
+   counts the nonzeros (CSR bytes), and the segment-sum ``coo_matvec`` is
+   timed beside the CSR call;
+   before the phases, nvcc's ``-Xptxas -v`` registers, shared memory and
+   spills of the SpMV and flash kernels;
 3. stencil path: ``poisson2d_vc(κ)`` at ng=2048 (4.19M unknowns, f64),
    ``sla.solve`` (auto → stencil backend, CG, Jacobi, fused steps) and
    ∂Σu²/∂κ, checked against the same run on the plain COO path;
 4. block-ELL path: ``poisson2d(1024)`` with ``backend="pallas"``, solve and
-   ∂/∂val, checked the same way;
+   ∂/∂val, checked the same way; peak device memory (at most 1.25 GB: no
+   dense tiles) and ms per iteration;
 5. default general path: ``poisson2d(1024)`` with ``backend="jnp"``, CG and
    BiCGStab (the kernel plan keeps COO: block-ELL fill is below the gate);
 6. solver-level path: ``cg_fused`` with a fused Chebyshev preconditioner,
@@ -42,20 +49,28 @@ What it does, in order:
     pairs off and on, block_trsv in its four modes with 1 and 64
     right-hand sides; then their summed time over one factorization (one
     mode-l sweep for block_trsv) against the bound;
-13. flash kernel: flash_attention against its plain version (f32, on the
-    same inputs, over chunks of bh; elementwise, |o − plain| ≤ 2e-5·|plain|
-    + 2e-5 in f32 and ≤ 8e-3·|plain| + 1e-3 in bf16) at the LM path's layer shape (BH 128,
-    S 4096, d 64, bf16, causal), f32 causal and bidirectional (64, 2048,
-    64), a ragged bf16 (24, 1000, 128) and an uneven f32 bidirectional
-    (2, 128 | 256, 64); its time, the plain version's, SDPA's and the bound;
+13. flash kernels: flash_attention against its plain version (f32, on the
+    same inputs, over chunks of bh; elementwise, |o − plain| ≤
+    2e-5·|plain| + 2e-5 in f32 and ≤ 8e-3·|plain| + 1e-3 in bf16, with the
+    bf16 kernel's distance from the plain version that rounds p to bf16
+    printed beside it)
+    at the LM path's layer shape (BH 128, S 4096, d 64, bf16, causal), f32
+    causal and bidirectional (64, 2048, 64), a ragged bf16 (24, 1000, 128)
+    and an uneven f32 bidirectional (2, 128 | 256, 64), then the model's
+    GQA form (B 4, S 4096, H 32, K 8, d 64, q a strided slice) against the
+    plain version on expanded heads; their time, the plain version's,
+    SDPA's and the bound (the bf16 tensor-core kernel and the f32 SIMT
+    kernel are two rows of the kernels line);
 14. LM serving path: llama3.2-1b at full width (16 layers, d 2048, vocab
     128,256; seed-made weights, params f32, activations bf16): ``prefill``
-    of 4 prompts × 4096 tokens (the flash kernel once per layer), its wall
-    time, tokens/s, peak memory and profiler breakdown; the serving CLI
+    of 4 prompts × 4096 tokens (the flash kernel once per layer, on the
+    projections' own (B, S, H, hd) / (B, S, K, hd) layout), its wall time,
+    tokens/s, peak memory and profiler breakdown; the serving CLI
     (``serve.main``, batch 4, prompt 32, 32 generated) and ms per token step
     with the device busy share over 8 traced steps; decode ≡ forward (B 2,
     S 128; decode runs no kernel): f32 logits within 2e-4 of max |logits|,
-    bf16 greedy tokens agreeing on ≥ 95% of the positions;
+    bf16 greedy tokens agreeing on ≥ 95% of the positions (the bf16
+    forward on the tensor-core kernel, the f32 one on the SIMT kernel);
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Every failed check raises (exit code 1).  Without a CUDA device it
@@ -86,6 +101,9 @@ TOL_GRAD = 1e-6                      # gradient vs the plain path, relative
 
 NG_STENCIL = 2048                    # stencil path: 4.19M unknowns
 NG_BELL = 1024                       # block-ELL / general paths: 1.05M
+# block-ELL path: the sliced layout holds the nonzeros once (~0.1 GB at
+# ng=1024); the dense (bm, bn) tiles it replaced took 4.29 GB
+BELL_PEAK_GB = 1.25
 NG_TRANSPOSE = 256                   # non-symmetric (transposed) paths
 # 1e-8: at ng=2048 (cond(A) ~ 1e7) the f64 recurrences' residual gap
 # reaches ~3e-9, so 1e-10 is below what f64 CG attains in true residual
@@ -113,10 +131,16 @@ FLASH_SHAPES = (("prefill layer", 128, 4096, 4096, 64, "bfloat16", True),
                 ("f32 bidir", 64, 2048, 2048, 64, "float32", False),
                 ("ragged bf16", 24, 1000, 1000, 128, "bfloat16", True),
                 ("uneven f32", 2, 128, 256, 64, "float32", False))
+# the model's GQA form at the shapes the main path gives it: (label, B, S, H,
+# K, d, dtype) — the bf16 prefill layer and the f32 decode ≡ forward check's
+# forward (the only f32 launches of the path; row 7b is read here)
+FLASH_GQA = (("prefill GQA", 4, 4096, 32, 8, 64, "bfloat16"),
+             ("f32 check GQA", 2, 128, 32, 8, 64, "float32"))
 # elementwise |o − plain| <= rtol·|plain| + atol, the plain version run in
-# f32 on the same inputs.  f32: the reference test's 2e-5·(1 + |plain|);
-# bf16: the output's rounding is 2^-9 relative, held at 8e-3 (4 half-ulps)
-# with an atol of 1e-3 for outputs near 0
+# f32 (p in f32) on the same inputs.  f32: the reference test's
+# 2e-5·(1 + |plain|); bf16: the output's rounding is 2^-9 relative, held at
+# 8e-3 (4 half-ulps) with an atol of 1e-3 for outputs near 0.  The bf16
+# kernel's distance from the version that rounds p to bf16 is printed too.
 TOL_FLASH = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-3)}
 # phase 14: llama3.2-1b at full width (16 layers), seed-made weights
 LM_ARCH = "llama3.2-1b"
@@ -149,9 +173,9 @@ for _f, _line in (("panel_factor", 73), ("schur_update", 123),
     KERNEL_SOURCES[_f] = ("src/repro_torch/kernels/csrc/supernode.cu",
                           f"src/repro/kernels/supernode.py:{_line}")
 PANEL_KERNELS = ("panel_factor", "schur_update", "block_trsv")
-KERNEL_SOURCES["flash_attention"] = (
-    "src/repro_torch/kernels/csrc/flash_attention.cu",
-    "src/repro/kernels/flash_attention.py:84")
+for _f in ("flash_attention", "flash_attention_f32"):
+    KERNEL_SOURCES[_f] = ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                          "src/repro/kernels/flash_attention.py:84")
 
 
 class CheckFailed(AssertionError):
@@ -306,55 +330,78 @@ def kernel_phase(dev, ng_stencil, ng_bell, seed, out):
                            bytes=7 * n * 8, flops=9 * n, dtype="float64",
                            shape=f"(5,{ng},{ng})")
 
-    # -- bell_spmv: the block-ELL layout of poisson2d(ng_bell) --------------
+    # -- bell_spmv: poisson2d(ng_bell), sliced-ELL layout of its block-ELL
+    #    plan; held to the plain version and to the old dense tiles ---------
     ngb = ng_bell
     val, row, col = poisson2d_arrays(ngb)
     nb = ngb * ngb
     bell = bell_to_device(build_bell(row, col, (nb, nb)), dev)
-    bmeta, bcols, bperm = bell
+    sell = bell.sell
     vt = torch.tensor(val, device=dev)
-    tiles = ops.bell_assemble(bmeta, bperm, vt)
+    packed = ops.sell_assemble(sell, vt)
     xb = torch.tensor(rng.normal(size=nb), device=dev)
-    errs = []
+
+    def sell_plain(sl, pk, xx, n_):
+        return ref.sell_matvec_ref(sl.slice_ptr, sl.cols, pk, xx, n_)
+
+    errs, tile_errs = [], []
     for dt in (torch.float64, torch.float32):
-        tt, xx = tiles.to(dt), xb.to(dt)
-        y = bell_spmv(bmeta, bcols, tt, xx, nb)
-        torch.cuda.synchronize()
-        xp = torch.nn.functional.pad(xx, (0, bmeta.m_pad - nb))
-        e, ea = rel_err([y], [ref.bell_matvec_ref(tt, bcols, xp, nb)],
-                        [ref.bell_matvec_ref(tt.abs(), bcols, xp.abs(), nb)])
-        errs.append((str(dt)[6:], bmeta.n_rb, bmeta.k, e, ea))
-        del tt, xx, xp
+        cases = [(bell, vt.to(dt), xb.to(dt), nb)]
         # ragged small case: 1000 × 700 random pattern
         n_s, m_s = 1000, 700
         keys = np.unique(rng.integers(0, n_s * m_s, 9000))
         r_s, c_s = keys // m_s, keys % m_s
-        sm, sc, sp = bell_to_device(build_bell(r_s, c_s, (n_s, m_s)), dev)
-        vs = torch.tensor(rng.normal(size=len(keys)), device=dev, dtype=dt)
-        ts = ops.bell_assemble(sm, sp, vs)
-        xs = torch.tensor(rng.normal(size=m_s), device=dev, dtype=dt)
-        y = bell_spmv(sm, sc, ts, xs, n_s)
-        torch.cuda.synchronize()
-        xsp = torch.nn.functional.pad(xs, (0, sm.m_pad - m_s))
-        e, ea = rel_err([y], [ref.bell_matvec_ref(ts, sc, xsp, n_s)],
-                        [ref.bell_matvec_ref(ts.abs(), sc, xsp.abs(), n_s)])
-        errs.append((str(dt)[6:], n_s, m_s, e, ea))
-    ms = cuda_ms(lambda: bell_spmv(bmeta, bcols, tiles, xb, nb), 20)
-    wall = wall_ms(lambda: bell_spmv(bmeta, bcols, tiles, xb, nb), 10)
-    xpad = torch.nn.functional.pad(xb, (0, bmeta.m_pad - nb))
-    plain = cuda_ms(lambda: ref.bell_matvec_ref(tiles, bcols, xpad, nb), 5)
-    from repro_torch.core.sparse import SparseTensor
+        cases.append((bell_to_device(build_bell(r_s, c_s, (n_s, m_s)), dev),
+                      torch.tensor(rng.normal(size=len(keys)), device=dev,
+                                   dtype=dt),
+                      torch.tensor(rng.normal(size=m_s), device=dev,
+                                   dtype=dt), n_s))
+        for bl, vv, xx, n_ in cases:
+            pk = ops.sell_assemble(bl.sell, vv)
+            y = bell_spmv(bl.sell, pk, xx, n_)
+            torch.cuda.synchronize()
+            scale = [sell_plain(bl.sell, pk.abs(), xx.abs(), n_)]
+            e, ea = rel_err([y], [sell_plain(bl.sell, pk, xx, n_)], scale)
+            errs.append((str(dt)[6:], n_, xx.shape[0], e, ea))
+            # the same product on the reference's dense (bm, bn) tiles
+            et, _ = rel_err([y], [ops.bell_matvec_ref(bl, vv, xx, n_)],
+                            scale)
+            tile_errs.append((str(dt)[6:], n_, xx.shape[0], et))
+            torch.cuda.empty_cache()
+    for dt, n_, m_, et in tile_errs:
+        check(et <= TOL_KERNEL[dt], f"bell_spmv {dt} ({n_} x {m_}) matches "
+              f"the product on the old dense tiles ({et:.2e} <= "
+              f"{TOL_KERNEL[dt]:.0e})")
+    ms = cuda_ms(lambda: bell_spmv(sell, packed, xb, nb), 50)
+    wall = wall_ms(lambda: bell_spmv(sell, packed, xb, nb), 20)
+    plain = cuda_ms(lambda: sell_plain(sell, packed, xb, nb), 5)
+    from repro_torch.core.sparse import SparseTensor, coo_matvec
     A = SparseTensor(vt, row, col, (nb, nb), props={}, device=dev)
     csr = csr_of(A)
-    lib = cuda_ms(lambda: csr @ xb, 20)
-    tile_words = bmeta.n_rb * bmeta.k * bmeta.bm * bmeta.bn
+    lib = cuda_ms(lambda: csr @ xb, 50)
+    coo = cuda_ms(lambda: coo_matvec(A.val, A.row, A.col, xb, nb), 20)
+    nnz = len(val)
+    # what the product needs: values, int32 columns and x read once, y
+    # written once, with CSR's row pointers or the sliced layout's padded
+    # slots and slice pointers — the bound takes the smaller
+    csr_bytes = nnz * (8 + 4) + (nb + 1) * 4 + 2 * nb * 8
+    layout_bytes = sell.n_slots * (8 + 4) + sell.slice_ptr.numel() * 8 \
+        + 2 * nb * 8
+    say(f"  bell_spmv poisson2d({ngb}) f64: {ms:.4f} ms; sliced layout "
+        f"{sell.n_slots} slots for {nnz} nonzeros, {layout_bytes / 1e6:.1f} "
+        f"MB ({layout_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); "
+        f"CSR {csr_bytes / 1e6:.1f} MB "
+        f"({csr_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); CSR call {lib:.4f} "
+        f"ms; coo_matvec (index_add_) {coo:.4f} ms; plain {plain:.4f} ms")
     res["bell_spmv"] = dict(
         errs=errs, ms=ms, wall_ms=wall, plain_ms=plain, library_ms=lib,
-        bytes=tile_words * 8 + bcols.numel() * 4 + 2 * nb * 8,
-        flops=2 * tile_words, dtype="float64",
-        shape=f"({bmeta.n_rb},{bmeta.k},{bmeta.bm},{bmeta.bn})",
-        fill=bmeta.fill)
-    del A, csr, tiles, xpad
+        coo_matvec_ms=coo, bytes=min(csr_bytes, layout_bytes),
+        csr_bytes=csr_bytes, layout_bytes=layout_bytes,
+        flops=2 * nnz, dtype="float64", nnz=nnz, slots=sell.n_slots,
+        shape=f"poisson2d({ngb}) n={nb} nnz={nnz} (sliced ELL, "
+              f"{sell.n_slots} slots)",
+        fill=bell.meta.fill, tile_errs=tile_errs)
+    del A, csr, packed, bell, sell
     torch.cuda.empty_cache()
 
     # -- the 8 fused bodies: n = ng_stencil² (the stencil path's vectors) ---
@@ -609,14 +656,20 @@ def bell_path(dev, ng, tol, maxiter, out):
     for k in ("bell_spmv", "fused_cg_update", "fused_cg_direction"):
         check(launches[k] > 0, f"block-ELL path launched {k} "
               f"({launches[k]} times)")
+    iters = max(int(info.iterations), 1)
     out["bell_path"] = dict(
         ng=ng, n=n, tol=tol, iterations=int(info.iterations),
         forward_s=t1 - t0, backward_s=t2 - t1, info_solve_s=t4 - t3,
         plain_run_s=t6 - t5, true_residual=relres, grad_rel_diff=gerr,
         fill=kp.bell[0].fill, reason=kp.reason, peak_gb=peak,
+        forward_ms_per_iteration=(t1 - t0) / iters * 1e3,
+        info_ms_per_iteration=(t4 - t3) / iters * 1e3,
         launches=launches, plan_stats=stats)
-    say(f"  peak device memory {peak:.2f} GB; forward "
-        f"{(t1 - t0) / max(int(info.iterations), 1) * 1e3:.3f} ms/iteration")
+    say(f"  peak device memory {peak:.3f} GB; forward "
+        f"{(t1 - t0) / iters * 1e3:.3f} ms/iteration (solve_with_info "
+        f"{(t4 - t3) / iters * 1e3:.3f} ms/iteration)")
+    check(peak <= BELL_PEAK_GB, f"block-ELL path: peak device memory "
+          f"{peak:.3f} GB <= {BELL_PEAK_GB} GB (no dense tiles)")
     del A, A0, u, u2, info, val, val2
     return launches
 
@@ -1392,25 +1445,47 @@ def _attn_work(BH, S, T, d, causal, elem):
     return elem * BH * (2 * S * d + 2 * T * d), 4 * BH * d * pairs
 
 
-def _flash_plain(q, k, v, causal):
+def _flash_plain(q, k, v, causal, round_p=False):
     """The plain version in f32 on the same inputs, over chunks of bh that
-    keep the (chunk, S, T) score block near 1 GB."""
+    keep the (chunk, S, T) score block near 1 GB; ``round_p`` rounds the
+    probabilities to bf16 before p·v, as the bf16 kernel does."""
     import torch
     from repro_torch.kernels import ref
     S, T = q.shape[1], k.shape[1]
     step = max(1, (1 << 28) // (S * T))
     return torch.cat([ref.flash_attention_ref(
         q[b:b + step].float(), k[b:b + step].float(), v[b:b + step].float(),
-        causal=causal) for b in range(0, q.shape[0], step)])
+        causal=causal, round_p=round_p) for b in range(0, q.shape[0], step)])
+
+
+def _flash_err(o, q, k, v, causal, dname):
+    """(err, max |o − plain|, distance from the p-rounded plain version):
+    the rule of TOL_FLASH, err <= limit ⟺ |o − plain| <= limit·|plain| +
+    atol everywhere, plain in f32 with p in f32."""
+    limit, atol = TOL_FLASH[dname]
+    want = _flash_plain(q, k, v, causal)
+    diff = (o.float() - want).abs()
+    err = float((diff / (atol / limit + want.abs())).max())
+    dist = None
+    if dname == "bfloat16":
+        # the plain version that rounds p to bf16 once, as the reference
+        # model's jnp attention does
+        rp = _flash_plain(q, k, v, causal, round_p=True)
+        drp = (o.float() - rp).abs()
+        dist = dict(max_abs=float(drp.max()), err_rule=float(
+            (drp / (atol / limit + rp.abs())).max()))
+    return err, float(diff.max()), dist
 
 
 def flash_phase(dev, seed, out):
-    """Phase 13: the flash kernel against its plain version on the card at
-    the main path's layer shape and four checking shapes; its time, the
-    plain version's, SDPA's (``library_ms``) and the bound."""
+    """Phase 13: the flash kernels against their plain versions on the card
+    at the main path's layer shape (and its GQA form) and four checking
+    shapes; their time, the plain version's, SDPA's (``library_ms``) and
+    the bound."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_gqa)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -1421,43 +1496,103 @@ def flash_phase(dev, seed, out):
                    for n in (S, T, T))
         o = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        want = _flash_plain(q, k, v, causal)
-        diff = (o.float() - want).abs()
-        limit, atol = TOL_FLASH[dname]
-        floor = atol / limit
-        # err <= limit  ⟺  |o − plain| <= limit·|plain| + atol everywhere
-        err = float((diff / (floor + want.abs())).max())
-        what = f"max |o − plain| / ({floor:g} + |plain|)"
+        err, max_abs, dist = _flash_err(o, q, k, v, causal, dname)
+        limit = TOL_FLASH[dname][0]
         nbytes, flops = _attn_work(BH, S, T, d, causal, q.element_size())
         bms, bby = bound_ms(nbytes, flops, dname)
         call = lambda: flash_attention(q, k, v, causal=causal)
-        ms = cuda_ms(call, 5, warmup=1, spin_ms=5.0)
+        ms = cuda_ms(call, 10, warmup=2, spin_ms=3.0)
         wall = wall_ms(call, 3)
         plain = _sum_ms(lambda: _flash_plain(q, k, v, causal), reps=2)
         q4, k4, v4 = (t[None] for t in (q, k, v))
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal), 5, warmup=1, spin_ms=5.0)
+            q4, k4, v4, is_causal=causal), 10, warmup=2, spin_ms=3.0)
         r = dict(case=label, shape=f"({BH},{S},{T},{d})", dtype=dname,
                  causal=causal, ms=ms, wall_ms=wall, plain_ms=plain,
                  library_ms=lib, bytes=nbytes, flops=flops, bound_ms=bms,
                  bound_by=bby, tflops=flops / ms / 1e9,
-                 max_abs_err=float(diff.max()), err=err, limit=limit)
+                 max_abs_err=max_abs, err=err, limit=limit,
+                 round_p_distance=dist)
         res.append(r)
         say(f"  flash_attention {label:14s} {r['shape']:>20s} {dname} "
             f"{'causal' if causal else 'bidir '}: {ms:.4f} ms "
             f"({r['tflops']:.2f} TFLOP/s; host wall {wall:.4f} ms, plain "
             f"{plain:.3f} ms, bound {bms:.4f} ms by {bby}, SDPA {lib:.4f} "
-            f"ms); {what} {err:.2e}")
+            f"ms); err {err:.2e}, max |o − plain| {max_abs:.2e}"
+            + ("" if dist is None else
+               f"; vs the p-rounded plain version: max |Δ| "
+               f"{dist['max_abs']:.2e}, {dist['err_rule']:.2e} of "
+               f"({TOL_FLASH[dname][1] / limit:g} + |plain|)"))
         check(err <= limit, f"flash_attention {label} {r['shape']} {dname} "
               f"matches its plain version ({err:.2e} <= {limit:.0e})")
-        del q, k, v, o, want, diff, q4, k4, v4
+        del q, k, v, o, q4, k4, v4
+        torch.cuda.empty_cache()
+
+    # the model's form: q (B, S, H, d) sliced from one projection output,
+    # k, v (B, T, K, d), read in place with KV head h // (H/K); timed with
+    # its plain version on the expanded heads and SDPA's GQA form
+    gqa = {}
+    for label, B, S, H, K, d, dname in FLASH_GQA:
+        dt = getattr(torch, dname)
+        qkv = torch.randn((B, S, H + 2 * K, d), generator=gen,
+                          device=dev).to(dt)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+        o = flash_attention_gqa(q, k, v, causal=True)
+        torch.cuda.synchronize()
+
+        def heads(t):
+            t = t.repeat_interleave(H // t.shape[2], dim=2)
+            return t.permute(0, 2, 1, 3).reshape(B * H, S, d)
+
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        err, max_abs, dist = _flash_err(
+            o.permute(0, 2, 1, 3).reshape(B * H, S, d), qh, kh, vh, True,
+            dname)
+        call = lambda: flash_attention_gqa(q, k, v, causal=True)
+        ms = cuda_ms(call, 10, warmup=2, spin_ms=3.0)
+        wall = wall_ms(call, 3)
+        plain = _sum_ms(lambda: _flash_plain(qh, kh, vh, True), reps=2)
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True), 10, warmup=2,
+            spin_ms=3.0)
+        pairs = S * (S + 1) // 2                 # causal, S == T
+        nbytes = q.element_size() * 2 * B * S * d * (H + K)
+        flops = 4 * B * H * d * pairs
+        bms, bby = bound_ms(nbytes, flops, dname)
+        limit = TOL_FLASH[dname][0]
+        say(f"  flash_attention_gqa {label} (B {B}, S {S}, H {H}, K {K}, d "
+            f"{d}) {dname} causal, strided q: {ms:.4f} ms (host wall "
+            f"{wall:.4f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms by "
+            f"{bby}, SDPA {lib:.4f} ms); err {err:.2e}, max |o − plain| "
+            f"{max_abs:.2e}")
+        check(err <= limit, f"flash_attention_gqa {label} {dname} matches "
+              f"its plain version on the expanded heads ({err:.2e} <= "
+              f"{limit:.0e})")
+        r = dict(case=label, shape=f"B{B} S{S} H{H} K{K} d{d}", dtype=dname,
+                 causal=True, ms=ms, wall_ms=wall, plain_ms=plain,
+                 library_ms=lib, bytes=nbytes, flops=flops, bound_ms=bms,
+                 bound_by=bby, tflops=flops / ms / 1e9, err=err,
+                 max_abs_err=max_abs, limit=limit, round_p_distance=dist)
+        res.append(r)
+        gqa[dname] = r
+        del qkv, q, k, v, o, qh, kh, vh
         torch.cuda.empty_cache()
     out["flash_phase"] = res
-    main = res[0]
-    return {"flash_attention": dict(
-        main, max_abs_err=max(r["max_abs_err"] for r in res),
-        max_rel_err=max(r["err"] for r in res),
-        shape=f"{main['shape']} causal (BH, S, T, d)")}
+
+    def row(main, dname, form):
+        rs = [r for r in res if r["dtype"] == dname]
+        return dict(main, max_abs_err=max(r["max_abs_err"] for r in rs),
+                    max_rel_err=max(r["err"] for r in rs),
+                    shape=f"{main['shape']} "
+                          f"{'causal' if main['causal'] else 'bidir'} "
+                          f"{form}")
+
+    # bf16: the prefill layer's work in the (BH, S, T, d) form; f32: the
+    # path's own GQA call (its only f32 launches)
+    return {"flash_attention": row(res[0], "bfloat16", "(BH, S, T, d)"),
+            "flash_attention_f32": row(gqa["float32"], "float32",
+                                       "(B, S, H, K, d)")}
 
 
 def _lm_breakdown(top):
@@ -1466,7 +1601,7 @@ def _lm_breakdown(top):
            "rest": 0.0}
     for ms, _, name in top:
         low = name.lower()
-        if "flash_kernel" in low:
+        if "tc_kernel" in low or "simt_kernel" in low:
             cls["flash kernel"] += ms
         elif any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass",
                                     "cublas")):
@@ -1601,9 +1736,11 @@ def lm_path(dev, seed, out):
           f"{TOL_LM_F32:.0e} of max |logits|)")
     check(agree >= LM_AGREE, f"decode ≡ forward in bf16: greedy tokens agree "
           f"on {agree:.1%} >= {LM_AGREE:.0%} of positions")
-    check(check_launches["flash_attention"] == 2 * cfg.n_layers,
-          f"the two checking forwards launched flash_attention "
-          f"{check_launches['flash_attention']} == {2 * cfg.n_layers} times")
+    check(check_launches["flash_attention"] == cfg.n_layers
+          and check_launches["flash_attention_f32"] == cfg.n_layers,
+          f"the bf16 and f32 checking forwards launched flash_attention "
+          f"{check_launches['flash_attention']} and flash_attention_f32 "
+          f"{check_launches['flash_attention_f32']} times (== {cfg.n_layers})")
     out["lm_path"] = dict(
         arch=cfg.name, prefill=dict(
             B=B, S=S, wall_ms=prefill_ms, repeats_ms=prefill_walls,
@@ -1626,6 +1763,44 @@ def lm_path(dev, seed, out):
 
 
 # ---------------------------------------------------------------------------
+
+def ptxas_report(log, sources):
+    """One line per kernel of ``sources`` from nvcc's ``-Xptxas -v`` output:
+    registers, static shared memory and spills (the flash kernels' dynamic
+    shared memory beside them)."""
+    import re
+    from repro_torch.kernels import _build
+    entries, src = [], None
+    for ln in log.splitlines():
+        if ln.startswith("== nvcc"):
+            src = ln.split()[2]
+        elif src not in sources:
+            continue
+        elif "Compiling entry function" in ln:
+            m = re.search(r"(sell_spmv_kernel|tc_kernel|simt_kernel)I(?:Li)?"
+                          r"(\w+?)E", ln)
+            entries.append(dict(name=f"{m.group(1)}<{m.group(2)}>" if m
+                                else ln.split("'")[1], spill="", regs="?",
+                                smem="0"))
+        elif entries and "spill" in ln:
+            entries[-1]["spill"] = ln.strip()
+        elif entries and "Used" in ln and "registers" in ln:
+            entries[-1]["regs"] = re.search(r"Used (\d+) registers",
+                                            ln).group(1)
+            m = re.search(r"(\d+) bytes smem", ln)
+            entries[-1]["smem"] = m.group(1) if m else "0"
+    out = []
+    for e in entries:
+        dyn = ""
+        m = re.match(r"(tc_kernel|simt_kernel)<(\d+)>", e["name"])
+        if m:
+            nbytes = _build.lib().flash_attention_smem(
+                int(m.group(2)), int(m.group(1) == "tc_kernel"))
+            dyn = f", {nbytes} B dynamic smem"
+        out.append(f"ptxas {e['name']}: {e['regs']} registers, {e['smem']} "
+                   f"B static smem{dyn}; {e['spill']}")
+    return out
+
 
 def card_line():
     q = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1658,13 +1833,17 @@ def main():
         fh.write(_build.BUILD_LOG)
     say(f"kernel build: {build_s:.2f} s (nvcc: "
         f"{_build.LAST_BUILD_SECONDS if _build.LAST_BUILD_SECONDS is not None else 'cached'})")
+    for line in ptxas_report(_build.BUILD_LOG, ("spmv_bell.cu",
+                                                "flash_attention.cu")):
+        say(line)
     out = dict(card=card, build_s=build_s,
                config=dict(ng_stencil=NG_STENCIL, ng_bell=NG_BELL,
                            ng_transpose=NG_TRANSPOSE, tol=TOL,
                            tol_transpose=TOL_TRANSPOSE, ng_direct=NG_DIRECT,
                            ng_lu=NG_LU, saddle=SADDLE, ng_ilu=NG_ILU,
                            maxiter=MAXITER, seed=SEED,
-                           flash_shapes=FLASH_SHAPES, lm_arch=LM_ARCH,
+                           flash_shapes=FLASH_SHAPES, flash_gqa=FLASH_GQA,
+                           lm_arch=LM_ARCH,
                            lm_prefill=LM_PREFILL, lm_serve=LM_SERVE,
                            lm_check=LM_CHECK))
 

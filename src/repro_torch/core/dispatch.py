@@ -137,8 +137,10 @@ class KernelPlan:
     ``choice``: "bell" | "stencil" | "coo"; ``reason`` records why.
     ``interpret`` is True where the plain versions run (the pattern lies on
     the CPU) — the port's reading of the reference's interpret-mode flag.
-    ``bell``/``t_bell`` are the device-resident (meta, block_cols, perm)
-    layouts of A and Aᵀ (``t_bell is bell`` for symmetric patterns)."""
+    ``bell``/``t_bell`` are the block-ELL plans of A and Aᵀ
+    (``core.sparse.BellLayout``: meta, block_cols and perm on the host, the
+    sliced-ELL layout the kernel reads on the device; ``t_bell is bell`` for
+    symmetric patterns)."""
     choice: str
     reason: str
     interpret: bool
@@ -169,9 +171,11 @@ def _build_kernel_plan(pattern, prefer: str) -> KernelPlan:
         bell = build_bell(pattern.row, pattern.col, pattern.shape)
         PLAN_STATS["kernel_plan"] += 1
     meta = bell[0]
-    # below the fill floor the padded tiles cost more than they save, so
-    # the plan records a segment-sum fallback (2-D Poisson drops below the
-    # default 1/64 from ng≈100 up: 0.0129 at ng=100, 0.0098 at ng=1024)
+    # the reference's gate: below the fill floor its padded tiles cost more
+    # than they save, so the plan records a segment-sum fallback (2-D
+    # Poisson drops below the default 1/64 from ng≈100 up: 0.0129 at
+    # ng=100, 0.0098 at ng=1024).  Kept for plan parity, although the
+    # sliced-ELL kernel here reads only the nonzeros.
     min_fill = _options.current().bell_min_fill
     if prefer != "bell" and meta.fill < min_fill:
         return KernelPlan(
@@ -200,18 +204,18 @@ def _fuse_enabled(kp: Optional[KernelPlan]) -> bool:
 
 
 def _plan_matvec(plan: "SolverPlan", kp: KernelPlan, val,
-                 tiles=None) -> Callable:
+                 packed=None) -> Callable:
     """Single-instance matvec closure through the kernel plan's choice;
-    ``tiles`` are block-ELL tiles already assembled from ``val``."""
+    ``packed`` is the sliced-ELL value array already assembled from
+    ``val``."""
     n = plan.shape[0]
     if kp.choice == "stencil" and plan.stencil is not None:
         from ..kernels import ops as kops
         return lambda x: kops.stencil5_matvec(plan.stencil, val, x)
     if kp.choice == "bell" and kp.bell is not None:
         from ..kernels import ops as kops
-        meta, block_cols, perm = kp.bell
-        return lambda x: kops.bell_matvec(meta, block_cols, perm, val, x, n,
-                                          t_bell=kp.t_bell, tiles=tiles)
+        return lambda x: kops.bell_matvec(kp.bell, val, x, n,
+                                          t_bell=kp.t_bell, packed=packed)
     row, col = plan.row, plan.col
     return lambda x: coo_matvec(val, row, col, x, n)
 
@@ -265,9 +269,8 @@ def _kernel_fn(A, kernel: str) -> Callable:
         return lambda v, x: kops.stencil5_matvec(A.stencil, v, x)
     if kernel == "bell" and A.bell is not None:
         from ..kernels import ops as kops
-        meta, block_cols, perm = A.bell
-        n = A.shape[0]
-        return lambda v, x: kops.bell_matvec(meta, block_cols, perm, v, x, n)
+        bell, n = A.bell, A.shape[0]
+        return lambda v, x: kops.bell_matvec(bell, v, x, n)
     row, col, n = A.row, A.col, A.shape[0]
     return lambda v, x: coo_matvec(v, row, col, x, n)
 
@@ -415,10 +418,11 @@ class DirectBackend(Backend):
 class IterativeBackend(Backend):
     """Shared machinery of the Krylov backends: kernel matvec + Jacobi.
 
-    ``setup`` returns ``(val, pstate, dinv, tiles)``: the (possibly
+    ``setup`` returns ``(val, pstate, dinv, packed)``: the (possibly
     transpose-remapped) values, the preconditioner state, the diagonal
-    inverse for the fused kernels, and the block-ELL tiles assembled once
-    per values tensor (None for the COO and stencil kernels)."""
+    inverse for the fused kernels, and the block-ELL plan's sliced-ELL value
+    array, assembled once per values tensor (None for the COO and stencil
+    kernels; no dense tiles are built)."""
     kernel = "auto"             # kernel-plan preference (see _build_kernel_plan)
     methods = ("cg", "bicgstab", "gmres", "block_cg")
     cache_setup = True
@@ -434,31 +438,30 @@ class IterativeBackend(Backend):
                 cfg.precond, pattern.row, pattern.col, pattern.shape,
                 stencil=pattern.stencil)}
 
-    def _matvec_from_val(self, plan, val, tiles=None) -> Callable:
+    def _matvec_from_val(self, plan, val, packed=None) -> Callable:
         kp = plan.artifacts.get("kernel")
         if kp is not None:
-            return _plan_matvec(plan, kp, val, tiles)
+            return _plan_matvec(plan, kp, val, packed)
         fn = _kernel_fn(plan, self.kernel)
         return lambda x: fn(val, x)
 
     def setup(self, plan, A):
         kp = plan.artifacts.get("kernel")
-        tiles = None
+        packed = None
         if kp is not None and kp.choice == "bell" and kp.bell is not None:
             from ..kernels import ops as kops
-            meta, _, perm = kp.bell
-            tiles = kops.bell_assemble(meta, perm, A.val)
-        mv = self._matvec_from_val(plan, A.val, tiles)
+            packed = kops.sell_assemble(kp.bell.sell, A.val)
+        mv = self._matvec_from_val(plan, A.val, packed)
         pre = plan.artifacts["precond"]
         pstate = pre.refresh_state(A, mv)
         dinv = pre.fused_diag(A)
-        return A.val, pstate, dinv, tiles
+        return A.val, pstate, dinv, packed
 
     def solve(self, plan, state, A, b, x0, cfg):
-        val, pstate, dinv, tiles = state
+        val, pstate, dinv, packed = state
         # rebuild from the STATE's values, not A.val: transpose plans remap
         # the forward values in setup (_StencilTransposeBackend)
-        mv = self._matvec_from_val(plan, val, tiles)
+        mv = self._matvec_from_val(plan, val, packed)
         kp = plan.artifacts.get("kernel")
         fuse = _fuse_enabled(kp)
         M = plan.artifacts["precond"].make_apply(pstate, mv, fused=fuse)

@@ -1,8 +1,9 @@
 """Typed sparse tensors (PyTorch port of ``repro.core.sparse``).
 
 ``SparseTensor`` — one matrix in COO form ``(val, row, col)``.  Auxiliary
-kernel layouts (block-ELL for the BELL SpMV kernel, 5-point stencil metadata)
-are attached at construction time when asked for.  The numpy symbolic helpers
+kernel layouts (block-ELL with its sliced-ELL form for the SpMV kernel,
+5-point stencil metadata) are attached at construction time when asked for.
+The numpy symbolic helpers
 (:func:`build_bell`, :func:`detect_properties`, :func:`has_full_diagonal`)
 are kept as copies of the reference's so analyze artifacts compare array for
 array.  Leading batch dimensions on ``val`` are accepted by the COO products;
@@ -11,7 +12,7 @@ batched *solves* come with a later slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence
+from typing import Any, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +29,9 @@ __all__ = [
     "detect_properties",
     "has_full_diagonal",
     "build_bell",
+    "build_sell",
+    "BellLayout",
+    "SellLayout",
 ]
 
 
@@ -171,14 +175,104 @@ def build_bell(row, col, shape, bm: int = 8, bn: int = 128,
     return meta, block_cols, perm
 
 
-def bell_to_device(bell, device) -> tuple:
-    """``(meta, block_cols, perm)`` with the index arrays as device tensors
-    (int32 slot table, int64 scatter map)."""
-    meta, block_cols, perm = bell
-    return (meta,
-            torch.as_tensor(to_numpy(block_cols), dtype=torch.int32,
-                            device=device),
-            torch.as_tensor(to_numpy(perm), dtype=torch.int64, device=device))
+#: rows per slice of the sliced-ELL layout (one warp, one lane per row)
+SELL_SLICE = 32
+
+
+@dataclasses.dataclass
+class SellLayout:
+    """Sliced-ELL layout of the matrix a block-ELL plan describes — the
+    layout the CUDA SpMV kernel reads (see kernels/spmv_bell.py).
+
+    Rows are cut into slices of :data:`SELL_SLICE`; a slice is padded to its
+    longest row, and entry j of row r sits at slot
+    ``slice_ptr[r // 32] + 32·j + r % 32`` (a warp's loads are coalesced).
+    ``cols`` holds each slot's int32 column (0 in padding slots, whose value
+    is 0); ``spos[e]`` is the slot of COO entry e (−1 for entries the
+    block-ELL plan dropped), the counterpart of the block-ELL ``perm``."""
+    n_rows: int                # rows covered (the block-ELL n_pad)
+    n_slots: int               # padded entries, 32 · Σ slice widths
+    slice_ptr: Any             # int64 (n_slices + 1,): first slot of a slice
+    cols: Any                  # int32 (n_slots,)
+    spos: Any                  # int64 (nnz,): COO entry → slot, −1 dropped
+
+    def to(self, device) -> "SellLayout":
+        def t(a, dt):
+            return torch.as_tensor(to_numpy(a), dtype=dt, device=device)
+        return SellLayout(self.n_rows, self.n_slots,
+                          t(self.slice_ptr, torch.int64),
+                          t(self.cols, torch.int32), t(self.spos, torch.int64))
+
+    def entry_coords(self):
+        """(keep, row, col) of every COO entry, decoded from its slot: the
+        slice through ``slice_ptr``, the row from the slot's lane, the
+        column from ``cols``.  Dropped entries read row 0, column 0."""
+        keep = self.spos >= 0
+        slot = torch.where(keep, self.spos, torch.zeros_like(self.spos))
+        if self.n_slots == 0:
+            zero = torch.zeros_like(slot)
+            return keep, zero, zero
+        s = torch.searchsorted(self.slice_ptr, slot, right=True) - 1
+        row = s * SELL_SLICE + (slot - self.slice_ptr[s]) % SELL_SLICE
+        zero = torch.zeros_like(row)
+        col = self.cols[slot].long()
+        return keep, torch.where(keep, row, zero), torch.where(keep, col, zero)
+
+
+def build_sell(meta: BellMeta, block_cols, perm) -> SellLayout:
+    """Sliced-ELL layout (numpy) of the matrix that the block-ELL slot table
+    and scatter map describe: each kept COO entry is decoded from its
+    block-ELL slot and stored once, in COO order within its row."""
+    bc = to_numpy(block_cols).astype(np.int64)
+    p = to_numpy(perm).astype(np.int64)
+    keep = np.flatnonzero(p >= 0)
+    t = p[keep]
+    lc = t % meta.bn
+    t = t // meta.bn
+    lr = t % meta.bm
+    t = t // meta.bm
+    row = (t // meta.k) * meta.bm + lr
+    col = bc.reshape(-1)[t] * meta.bn + lc
+    n_rows = meta.n_pad
+    n_slices = -(-n_rows // SELL_SLICE)
+    lens = np.bincount(row, minlength=n_slices * SELL_SLICE)
+    width = lens.reshape(n_slices, SELL_SLICE).max(axis=1)
+    slice_ptr = np.zeros(n_slices + 1, np.int64)
+    np.cumsum(width * SELL_SLICE, out=slice_ptr[1:])
+    order = np.argsort(row, kind="stable")           # COO order in a row
+    starts = np.cumsum(lens) - lens
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order)) - starts[row[order]]
+    slot = (slice_ptr[row // SELL_SLICE] + rank * SELL_SLICE
+            + row % SELL_SLICE)
+    n_slots = int(slice_ptr[-1])
+    cols = np.zeros(n_slots, np.int32)
+    cols[slot] = col
+    spos = np.full(len(p), -1, np.int64)
+    spos[keep] = slot
+    return SellLayout(n_rows, n_slots, slice_ptr, cols, spos)
+
+
+class BellLayout(NamedTuple):
+    """A block-ELL plan placed for a device: the reference's ``(meta,
+    block_cols, perm)`` on the host (the fill gate reads ``meta``; only the
+    checks against the dense tiles read the other two) and the sliced-ELL
+    layout, on the device, that the kernel and the backward read."""
+    meta: BellMeta
+    block_cols: np.ndarray     # int32 (n_rb, k), host
+    perm: np.ndarray           # int64 (nnz,), host
+    sell: SellLayout
+
+
+def bell_to_device(bell, device) -> BellLayout:
+    """``(meta, block_cols, perm)`` (from :func:`build_bell`) as a
+    :class:`BellLayout` whose sliced-ELL layout, built from them (reused when
+    ``bell`` is already a :class:`BellLayout`), lies on ``device``."""
+    meta, block_cols, perm = bell[:3]
+    sell = bell.sell if isinstance(bell, BellLayout) else \
+        build_sell(meta, block_cols, perm)
+    return BellLayout(meta, to_numpy(block_cols).astype(np.int32),
+                      to_numpy(perm).astype(np.int64), sell.to(device))
 
 
 # ---------------------------------------------------------------------------

@@ -44,19 +44,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _PP = ctypes.POINTER(ctypes.c_void_p)
+_LP = ctypes.POINTER(ctypes.c_longlong)
 
 _SIGNATURES = {
     "stencil5_f32": [_P, _P, _P, _I, _I, _P],
     "stencil5_f64": [_P, _P, _P, _I, _I, _P],
-    "bell_spmv_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
-    "bell_spmv_f64": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
+    "bell_spmv_f32": [_P, _P, _P, _P, _P, _L, _P],
+    "bell_spmv_f64": [_P, _P, _P, _P, _P, _L, _P],
     "fused_step": [_I, _I, _PP, _PP, _PP, _P, _P, _P, _L, _I, _P],
     "sn_panel_factor": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P],
     "sn_schur_update": [_I, _P, _P, _P, _I, _I, _I, _P],
     "sn_block_trsv": [_I, _I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P],
-    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "flash_attention_f32": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
+    "flash_attention_bf16": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
+                             _I, _P],
+    "flash_attention_smem": [_I, _I],
 }
 
 

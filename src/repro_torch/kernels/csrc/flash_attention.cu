@@ -2,47 +2,99 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (its pallas_call at flash_attention.py:84, body _kernel at :27-65):
-//     o = softmax(q k^T / sqrt(d)) v          per batch*head bh,
+//     o = softmax(q k^T / sqrt(d)) v          per batch and query head,
 // an optional causal mask "key j <= query i" in absolute indices (top-left
-// aligned when T != S), f32 running max / denominator / accumulator, the
-// output divided by max(l, 1e-30) and written in q's dtype.  q: (BH, S, d),
-// k and v: (BH, T, d) with the KV heads already expanded to query heads,
-// all contiguous.  Inputs are float32 or bfloat16; all arithmetic is f32
-// (p is never rounded to bf16).
+// aligned when T != S), masked scores set to -1e30, f32 running max /
+// denominator / accumulator, the output divided by max(l, 1e-30) and
+// written in q's dtype.  Any S and T >= 1; d in {16, 32, 64, 128}.
+//
+// Layout (both kernels): q is (B, S, H, d) and k, v are (B, T, K, d), read
+// in place through their strides (the head dim contiguous); query head h
+// reads KV head h / (H / K), so grouped-query attention needs no expanded
+// copies.  o is written (B, S, H, d) contiguous.  The (BH, S, d) form is
+// the case B = BH, H = K = 1.
 //
 // The TPU version walks the KV blocks as the innermost, sequential grid
-// axis and carries m / l / acc in VMEM scratch from one grid step to the
-// next, asserting that S and T are multiples of its blocks.  On Hopper the
-// blocks of a grid run concurrently and in no order, so the KV walk is a
-// loop inside the block: one block of 128 threads owns a 64-query tile of
-// one bh, keeps its Q tile in shared memory and its m / l / acc in
-// registers, and streams 64-key K and V tiles through one shared buffer.
-// Ragged tails are masked in the kernel (queries past S are not stored,
-// keys past T are masked like the causal mask), so any S and T work.  In
-// causal mode the KV loop stops at the tile's last query: tiles strictly
-// above the diagonal are never loaded.  The heaviest causal query tiles
-// are scheduled first.
+// axis and carries m / l / acc in VMEM scratch across grid steps.  On
+// Hopper a block's KV walk is a loop inside the block, ragged tails are
+// masked in the kernel, and in causal mode the loop stops at the block's
+// last query (tiles above the diagonal are never loaded).  The grid is
+// (B*H, query tiles) with the query tiles in reverse, so the heaviest
+// causal tiles of every head are scheduled first.
 //
-// Thread layout: 8 x 16 threads; thread (ty, tx) owns the 8 query rows
-// ty*8 .. ty*8+7, key columns tx + 16 j of each score tile and head dims
-// tx + 16 c of the accumulator, so the rows a thread rescales are the rows
-// whose max and sum it helped reduce (a shuffle over the 16 lanes of its
-// half-warp).  K is stored transposed with a padded stride and P and Q with
-// padded strides, so the inner loops read shared memory without bank
-// conflicts.
+// bf16: tensor cores (tc_kernel).  Bound: operations, 4 B H S T d flops
+// (about halved by the causal mask at S = T) against q + k + v + o bytes:
+// ~2,000 flops per byte at the prefill shape (B*H 128, S = T = 4096, d 64),
+// so the bound is the bf16 tensor-core rate (989 TFLOP/s).  A block owns
+// 128 queries and is warp-specialised into three warpgroups:
+//   producer    one thread streams Q once and 64-key K / V tiles by TMA
+//               (tensor maps of the strided 4-D views, 128-byte swizzle,
+//               zeros past S, T and d) into a three-stage ring, each stage
+//               guarded by a full and an empty mbarrier;
+//   consumers   two warpgroups of 64 query rows, each per tile:
+//     S = Q K^T   wgmma m64n64k16, Q and K from shared memory (K-major),
+//     online softmax on S in registers (exp2 with the scale folded in,
+//     row max and sum over the 4 lanes that share a row, O rescaled only
+//     when a row max moved),
+//     O += P V    wgmma m64n{d}k16 twice, P in registers as the A operand
+//                 split into hi = bf16(p) and lo = bf16(p - hi) (the f32
+//                 accumulator fragment of S is the bf16 A fragment, pair
+//                 by pair), V an MN-major B operand (transposed by the
+//                 descriptor),
+//   with f32 accumulators.  Named barriers make the two consumers issue
+//   their Q K^T in turn, so one's softmax overlaps the other's products.
+// The producer gives its registers to the consumers (setmaxnreg).  The hi /
+// lo split keeps ~16 bits of p, so the kernel computes the TPU kernel's
+// f32-p function; with a single bf16 P (one rounding of p, as the reference
+// model's jnp attention does) the bf16 decode == forward check of
+// chip_smoke.py lost 3 greedy tokens of 256 on an H100 (94.5%, under its
+// 95% floor).  The split costs 1.5x the tensor-core work of one pass.
+// Head dims below 64 are zero-padded to one 128-byte row in shared memory.
+// The decode == forward check moves by a few greedy tokens with the last
+// bits of the output, so tiles and rounding steps are kept as the check
+// was first passed with.  Not done yet: a consumer's next Q K^T in flight
+// during its own softmax (tried; ptxas serialised the wgmmas or spilled).
 //
-// Bound: operations.  4 * BH * S * T * d flops (halved by the causal mask
-// at S = T) against (q + k + v + o) bytes: at the prefill shape (BH 128,
-// S = T = 4096, d 64) about 2,000 flops per byte, far above the card's
-// balance point.  This simple kernel runs on the f32 FMA pipes (no tensor
-// cores, no TF32), so it sits far below the bf16 tensor-core bound; wgmma /
-// TMA / warp specialisation are the redesign.
+// f32: SIMT kernel (simt_kernel), all arithmetic f32 on the FMA pipes (no
+// tensor cores, no TF32: the f32 decode == forward check needs f32
+// scores).  One block of 128 threads owns a 64-query tile of one head,
+// keeps its Q tile in shared memory and m / l / acc in registers, and
+// streams 64-key K and V tiles through one shared buffer.  Thread layout
+// 8 x 16: thread (ty, tx) owns query rows ty*8 .. ty*8+7, key columns
+// tx + 16 j of each score tile and head dims tx + 16 c of the accumulator,
+// so the rows a thread rescales are the rows whose max and sum it helped
+// reduce (a shuffle over the 16 lanes of its half-warp).  K is stored
+// transposed and P and Q with padded strides, so the inner loops read
+// shared memory without bank conflicts.  Its bound is the f32 FMA rate.
 #include "common.cuh"
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
 namespace {
+
+constexpr float kNegInf = -1e30f;    // the reference's mask value
+
+// Where q, k, v and o live: strides in elements, the head dim contiguous.
+struct Attn {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  long long sqb, sqs, sqh, skb, sks, skh, svb, svs, svh;
+  int H, G;          // query heads; query heads per KV head (H / K)
+  int S, T;
+  float scale;       // 1 / sqrt(d)
+  int causal;
+};
+
+// ---------------------------------------------------------------------------
+// f32: SIMT kernel
+// ---------------------------------------------------------------------------
+
+namespace simt {
 
 constexpr int kBQ = 64;              // queries per block
 constexpr int kBK = 64;              // keys per KV tile
@@ -51,13 +103,6 @@ constexpr int kTX = 16;              // thread columns (one half-warp)
 constexpr int kThreads = kTY * kTX;  // 128
 constexpr int kRows = kBQ / kTY;     // query rows per thread: 8
 constexpr int kCols = kBK / kTX;     // key columns per thread: 4
-constexpr float kNegInf = -1e30f;    // the reference's mask value
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // shared-memory layout (floats): Q tile, one K^T / V buffer, P tile
 template <int D>
@@ -71,11 +116,8 @@ struct Smem {
   static constexpr size_t kBytes = sizeof(float) * (kQ + kKV + kP);
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
-             float scale, int causal) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) simt_kernel(const Attn a) {
   using L = Smem<D>;
   constexpr int kDC = D / kTX;       // accumulator columns per thread
   extern __shared__ float smem[];
@@ -83,10 +125,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* kv_s = q_s + L::kQ;
   float* p_s = kv_s + L::kKV;
 
-  const int nq = (S + kBQ - 1) / kBQ;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;   // heaviest tiles first
-  const size_t qbase = (size_t)blockIdx.y * S * D;
-  const size_t kbase = (size_t)blockIdx.y * Tk * D;
+  const int S = a.S, Tk = a.T;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / a.G;
+  const int q0 = (gridDim.y - 1 - (int)blockIdx.y) * kBQ;   // heaviest first
+  const float* q = (const float*)a.q + b * a.sqb + h * a.sqh;
+  const float* k = (const float*)a.k + b * a.skb + kvh * a.skh;
+  const float* v = (const float*)a.v + b * a.svb + kvh * a.svh;
+  float* o = (float*)a.o + ((long long)b * S * a.H + h) * D;
+  const long long so = (long long)a.H * D;        // o's row stride
   const int tid = threadIdx.x;
   const int ty = tid / kTX, tx = tid % kTX;
   const int r0 = ty * kRows;
@@ -94,7 +140,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int qi = q0 + r;
-    q_s[r * L::kQStride + c] = qi < S ? to_f32(q[qbase + (size_t)qi * D + c]) : 0.f;
+    q_s[r * L::kQStride + c] = qi < S ? q[qi * a.sqs + c] : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kDC];
@@ -107,13 +153,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // causal: keys j <= i <= q0 + kBQ - 1; later tiles lie above the diagonal
-  const int kend = causal ? min(Tk, q0 + kBQ) : Tk;
+  const int kend = a.causal ? min(Tk, q0 + kBQ) : Tk;
   for (int k0 = 0; k0 < kend; k0 += kBK) {
     __syncthreads();                 // Q stored / last tile's V reads done
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, c = e % D;
       const int kj = k0 + r;
-      kv_s[c * L::kKtStride + r] = kj < Tk ? to_f32(k[kbase + (size_t)kj * D + c]) : 0.f;
+      kv_s[c * L::kKtStride + r] = kj < Tk ? k[kj * a.sks + c] : 0.f;
     }
     __syncthreads();
 
@@ -142,8 +188,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int kj = k0 + tx + kTX * j;
-        const bool keep = kj < Tk && (!causal || kj <= qi);
-        s[i][j] = keep ? s[i][j] * scale : kNegInf;
+        const bool keep = kj < Tk && (!a.causal || kj <= qi);
+        s[i][j] = keep ? s[i][j] * a.scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -171,7 +217,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, c = e % D;
       const int kj = k0 + r;
-      kv_s[r * D + c] = kj < Tk ? to_f32(v[kbase + (size_t)kj * D + c]) : 0.f;
+      kv_s[r * D + c] = kj < Tk ? v[kj * a.svs + c] : 0.f;
     }
     __syncthreads();
 
@@ -195,54 +241,451 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kDC; ++c)
-      store(o + qbase + (size_t)qi * D + tx + kTX * c, acc[i][c] / denom);
+    for (int c = 0; c < kDC; ++c) o[qi * so + tx + kTX * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int BH,
-             int S, int Tk, int causal, void* stream) {
+template <int D>
+int launch(const Attn& a, int BH, void* stream) {
   // above 48 KB a block's shared memory is granted only on request
   static bool granted = false;
   if (!granted) {
-    cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, D>,
+    cudaError_t e = cudaFuncSetAttribute(simt_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Smem<D>::kBytes);
     if (e != cudaSuccess) return (int)e;
     granted = true;
   }
-  const float scale = (float)(1.0 / sqrt((double)D));
-  dim3 grid((S + kBQ - 1) / kBQ, BH);
-  flash_kernel<T, D><<<grid, kThreads, Smem<D>::kBytes, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, Tk, scale, causal);
+  dim3 grid(BH, (a.S + kBQ - 1) / kBQ);
+  simt_kernel<D><<<grid, kThreads, Smem<D>::kBytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int S,
-           int Tk, int d, int causal, void* stream) {
-  if (BH <= 0 || S <= 0) return 0;
-  if (Tk <= 0 || BH > 65535) return (int)cudaErrorInvalidValue;
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernel (wgmma)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBQ = 128;             // queries per block: two consumer warpgroups
+constexpr int kBK = 64;              // keys per K / V tile
+constexpr int kStages = 3;           // K / V ring
+constexpr int kThreads = 384;        // producer warpgroup + two consumers
+
+template <int D>
+struct Cfg {
+  static constexpr int DP = D < 64 ? 64 : D;        // head dim in shared memory
+  static constexpr int kQBytes = kBQ * DP * 2;
+  static constexpr int kTileBytes = kBK * DP * 2;    // one K or V tile
+  // + 1024 for the alignment of the swizzled tiles, + the mbarriers
+  static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + 1024 + 64;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t a, int n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(a), "r"(n) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t a, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(a), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t a) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(a) : "memory");
+}
+// Wait for the phase of parity `parity` to complete; a wait of ~10 s
+// means a lost arrival, so the kernel traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t a, uint32_t parity) {
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > 20000000000LL) asm volatile("trap;");
+  }
+}
+// TMA: the (64 head dims, 1, rows, 1) box at coordinates (c0, c1, c2, c3)
+// of a 4-D (d, heads, rows, batch) tensor, swizzled into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, int c3, uint32_t bar) {
+  asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+               :: "r"(dst), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+               : "memory");
+}
+// named barriers 1 and 2 order the two consumers' wgmma issue
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; byte offsets
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads across a wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// the two bf16 halves of a packed pair, as floats
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// d (64 x 64, f32) (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+
+// d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+tc_kernel(const Attn a, const __grid_constant__ CUtensorMap tmq,
+          const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv) {
+  using C = Cfg<D>;
+  constexpr int DP = C::DP;
+  constexpr int NS = kBK / 2;        // score registers per thread
+  constexpr int NO = DP / 2;         // output registers per thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  auto k_s = [&](int t) { return base + C::kQBytes + (t % kStages) * 2 * C::kTileBytes; };
+  auto v_s = [&](int t) { return k_s(t) + C::kTileBytes; };
+  const uint32_t bars = base + C::kQBytes + 2 * kStages * C::kTileBytes;
+  auto full = [&](int t) { return bars + 8 * (t % kStages); };
+  auto empty = [&](int t) { return bars + 8 * (kStages + t % kStages); };
+  const uint32_t qbar = bars + 8 * 2 * kStages;
+
+  const int S = a.S, T = a.T;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / a.G;
+  const int q0 = (gridDim.y - 1 - (int)blockIdx.y) * kBQ;   // heaviest first
+  const int kend = a.causal ? min(T, q0 + kBQ) : T;
+  const int nt = (kend + kBK - 1) / kBK;
+  const int tid = threadIdx.x, wg = tid >> 7;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), 256);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full; rows past S or T and head
+    // dims past d arrive as zeros (TMA's out-of-bounds fill)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      mbar_expect(qbar, C::kQBytes);
+#pragma unroll
+      for (int j = 0; j < DP / 64; ++j) tma_load(q_s + j * (kBQ * 128), &tmq, 64 * j, h, q0, b, qbar);
+      for (int t = 0; t < nt; ++t) {
+        if (t >= kStages) mbar_wait(empty(t), (t / kStages - 1) & 1);
+        mbar_expect(full(t), 2 * C::kTileBytes);
+#pragma unroll
+        for (int j = 0; j < DP / 64; ++j) {
+          tma_load(k_s(t) + j * (kBK * 128), &tmk, 64 * j, kvh, t * kBK, b, full(t));
+          tma_load(v_s(t) + j * (kBK * 128), &tmv, 64 * j, kvh, t * kBK, b, full(t));
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns query rows 64 cw .. 64 cw + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1;
+  const int w = (tid >> 5) & 3, lane = tid & 31;
+  const int rA = 64 * cw + 16 * w + (lane >> 2);   // this thread's rows rA, rA + 8
+  const int cq = 2 * (lane & 3);                   // and columns cq, cq + 1 of 8
+  const int my_bar = 1 + cw, other_bar = 2 - cw;
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float s[NS];
+  uint32_t ph[NS / 2], pl[NS / 2];   // P = hi + lo, two bf16 A operands
+  float mA = kNegInf, mB = kNegInf, lA = 0.f, lB = 0.f;
+  const float sl2 = a.scale * 1.4426950408889634f;   // scale * log2(e)
+  if (cw == 1) bar_arrive(1);        // consumer 0 issues first
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < nt; ++t) {
+    const int k0 = t * kBK;
+    mbar_wait(full(t), (t / kStages) & 1);
+    // S = Q K^T over the head dim, 16 at a time (K-major; 32 B along the
+    // swizzled row per step, the next 64-column sub-tile every 4 steps),
+    // issued in turn with the other consumer
+    bar_sync(my_bar);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk & 3) << 5;
+      const uint64_t da = desc(q_s + (kk >> 2) * (kBQ * 128) + cw * (64 * 128) + off, 16, 1024);
+      const uint64_t db = desc(k_s(t) + (kk >> 2) * (kBK * 128) + off, 16, 1024);
+      wgmma_ss(s, da, db, kk > 0);
+    }
+    wgmma_commit();
+    bar_arrive(other_bar);
+    wgmma_wait();
+    fence_regs(s);
+
+    // scale (log2 units), mask, online softmax
+    const bool edge = k0 + kBK > T || (a.causal && k0 + kBK - 1 > q0);
+    if (edge) {
+      const int qa = q0 + rA, qb = qa + 8;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int kj = k0 + 8 * (i >> 2) + cq + (i & 1);
+        const int qi = (i & 2) ? qb : qa;
+        const bool keep = kj < T && (!a.causal || kj <= qi);
+        s[i] = keep ? s[i] * sl2 : kNegInf;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] *= sl2;
+    }
+    float xA = kNegInf, xB = kNegInf;
+#pragma unroll
+    for (int i = 0; i < NS; i += 4) {
+      xA = fmaxf(xA, fmaxf(s[i], s[i + 1]));
+      xB = fmaxf(xB, fmaxf(s[i + 2], s[i + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, off));
+      xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, off));
+    }
+    const float nA = fmaxf(mA, xA), nB = fmaxf(mB, xB);
+    const float alA = ex2(mA - nA), alB = ex2(mB - nB);
+    mA = nA;
+    mB = nB;
+    float sumA = 0.f, sumB = 0.f;
+#pragma unroll
+    for (int i = 0; i < NS; i += 4) {
+      const float p0 = ex2(s[i] - nA), p1 = ex2(s[i + 1] - nA);
+      const float p2 = ex2(s[i + 2] - nB), p3 = ex2(s[i + 3] - nB);
+      sumA += p0 + p1;
+      sumB += p2 + p3;
+      const uint32_t h01 = pack_bf16(p0, p1), h23 = pack_bf16(p2, p3);
+      ph[i / 2] = h01;
+      ph[i / 2 + 1] = h23;
+      pl[i / 2] = pack_bf16(p0 - bf16_lo(h01), p1 - bf16_hi(h01));
+      pl[i / 2 + 1] = pack_bf16(p2 - bf16_lo(h23), p3 - bf16_hi(h23));
+    }
+    lA = lA * alA + sumA;
+    lB = lB * alB + sumB;
+    if (__any_sync(0xffffffffu, alA != 1.f || alB != 1.f)) {   // a row max moved
+#pragma unroll
+      for (int i = 0; i < NO; i += 4) {
+        o[i] *= alA;
+        o[i + 1] *= alA;
+        o[i + 2] *= alB;
+        o[i + 3] *= alB;
+      }
+    }
+
+    // O += P_hi V + P_lo V over the tile's keys, 16 at a time (V MN-major:
+    // LBO the next 64 head dims, SBO the next 8 keys)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t dv = desc(v_s(t) + kk * (16 * 128), DP > 64 ? kBK * 128 : 1024, 1024);
+      wgmma_rs(o, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], dv);
+      wgmma_rs(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], dv);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(o);
+    mbar_arrive(empty(t));           // this stage may be refilled
+  }
+  if (cw == 0) bar_sync(1);          // consumer 1's last arrive
+
+  // the row sums over the 4 lanes of a row; normalise and store
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    lA += __shfl_xor_sync(0xffffffffu, lA, off);
+    lB += __shfl_xor_sync(0xffffffffu, lB, off);
+  }
+  const float iA = 1.f / fmaxf(lA, 1e-30f), iB = 1.f / fmaxf(lB, 1e-30f);
+  const long long so = (long long)a.H * D;          // o's row stride
+  __nv_bfloat16* out = (__nv_bfloat16*)a.o + ((long long)b * S * a.H + h) * D;
+  const int qa = q0 + rA, qb = qa + 8;
+#pragma unroll
+  for (int i = 0; i < NO; i += 4) {
+    const int c = 8 * (i >> 2) + cq;
+    if (c >= D) break;
+    if (qa < S)
+      *reinterpret_cast<__nv_bfloat162*>(out + qa * so + c) =
+          __floats2bfloat162_rn(o[i] * iA, o[i + 1] * iA);
+    if (qb < S)
+      *reinterpret_cast<__nv_bfloat162*>(out + qb * so + c) =
+          __floats2bfloat162_rn(o[i + 2] * iB, o[i + 3] * iB);
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (no libcuda link)
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = (PFN_cuTensorMapEncodeTiled_v12000)p;
+  }
+  return fn;
+}
+
+// The 4-D (d, heads, rows, batch) view of q, k or v (strides in elements,
+// the head dim contiguous), read in boxes of 64 head dims x `rows` rows
+// with the 128-byte swizzle that the wgmma descriptors expect.
+int make_map(CUtensorMap* m, const void* ptr, int d, int heads, int n, int B, long long s_row,
+             long long s_head, long long s_b, int rows) {
+  auto fn = encode_fn();
+  if (!fn) return (int)cudaErrorNotSupported;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)n, (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)s_head * 2, (cuuint64_t)s_row * 2, (cuuint64_t)s_b * 2};
+  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch(const Attn& a, int B, int K, int BH, void* stream) {
+  // above 48 KB a block's shared memory is granted only on request
+  static bool granted = false;
+  if (!granted) {
+    cudaError_t e = cudaFuncSetAttribute(tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Cfg<D>::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    granted = true;
+  }
+  CUtensorMap mq, mk, mv;
+  int rc = make_map(&mq, a.q, D, a.H, a.S, B, a.sqs, a.sqh, a.sqb, kBQ);
+  if (!rc) rc = make_map(&mk, a.k, D, K, a.T, B, a.sks, a.skh, a.skb, kBK);
+  if (!rc) rc = make_map(&mv, a.v, D, K, a.T, B, a.svs, a.svh, a.svb, kBK);
+  if (rc) return rc;
+  dim3 grid(BH, (a.S + kBQ - 1) / kBQ);
+  tc_kernel<D><<<grid, kThreads, Cfg<D>::kSmem, (cudaStream_t)stream>>>(a, mq, mk, mv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+template <bool kTensorCores>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const long long* strides, int B, int H, int K, int S, int T, int d,
+           int causal, void* stream) {
+  if (B <= 0 || S <= 0) return 0;
+  if (T <= 0 || H <= 0 || K <= 0 || H % K != 0 ||
+      (long long)B * H > 0x7fffffffLL || (S + 63) / 64 > 65535)
+    return (int)cudaErrorInvalidValue;
+  Attn a{q, k, v, o,
+         strides[0], strides[1], strides[2], strides[3], strides[4],
+         strides[5], strides[6], strides[7], strides[8],
+         H, H / K, S, T, (float)(1.0 / sqrt((double)d)), causal};
+  const int BH = B * H;
   switch (d) {
-    case 16: return launch_d<T, 16>(q, k, v, o, BH, S, Tk, causal, stream);
-    case 32: return launch_d<T, 32>(q, k, v, o, BH, S, Tk, causal, stream);
-    case 64: return launch_d<T, 64>(q, k, v, o, BH, S, Tk, causal, stream);
-    case 128: return launch_d<T, 128>(q, k, v, o, BH, S, Tk, causal, stream);
+    case 16: return kTensorCores ? tc::launch<16>(a, B, K, BH, stream) : simt::launch<16>(a, BH, stream);
+    case 32: return kTensorCores ? tc::launch<32>(a, B, K, BH, stream) : simt::launch<32>(a, BH, stream);
+    case 64: return kTensorCores ? tc::launch<64>(a, B, K, BH, stream) : simt::launch<64>(a, BH, stream);
+    case 128: return kTensorCores ? tc::launch<128>(a, B, K, BH, stream) : simt::launch<128>(a, BH, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// q (B, S, H, d), k and v (B, T, K, d) with `strides` = the batch, row and
+// head strides of q, k, v in elements (9 values); o (B, S, H, d) contiguous.
 REPRO_EXPORT int flash_attention_f32(const void* q, const void* k, const void* v,
-                                     void* o, int BH, int S, int T, int d,
-                                     int causal, void* stream) {
-  return launch<float>(q, k, v, o, BH, S, T, d, causal, stream);
+                                     void* o, const long long* strides, int B,
+                                     int H, int K, int S, int T, int d, int causal,
+                                     void* stream) {
+  return launch<false>(q, k, v, o, strides, B, H, K, S, T, d, causal, stream);
 }
 
 REPRO_EXPORT int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                      void* o, int BH, int S, int T, int d,
-                                      int causal, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, BH, S, T, d, causal, stream);
+                                      void* o, const long long* strides, int B,
+                                      int H, int K, int S, int T, int d, int causal,
+                                      void* stream) {
+  return launch<true>(q, k, v, o, strides, B, H, K, S, T, d, causal, stream);
+}
+
+// dynamic shared memory of the kernel for head dim d (tensor_cores: the
+// bf16 kernel, else the f32 one), for reports
+REPRO_EXPORT int flash_attention_smem(int d, int tensor_cores) {
+  switch (d) {
+    case 16: return tensor_cores ? tc::Cfg<16>::kSmem : (int)simt::Smem<16>::kBytes;
+    case 32: return tensor_cores ? tc::Cfg<32>::kSmem : (int)simt::Smem<32>::kBytes;
+    case 64: return tensor_cores ? tc::Cfg<64>::kSmem : (int)simt::Smem<64>::kBytes;
+    case 128: return tensor_cores ? tc::Cfg<128>::kSmem : (int)simt::Smem<128>::kBytes;
+    default: return -1;
+  }
 }

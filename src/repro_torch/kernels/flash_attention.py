@@ -1,61 +1,117 @@
 """Flash attention (online softmax) — wrapper of ``csrc/flash_attention.cu``.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``.
-On a CUDA tensor :func:`flash_attention` launches the hand-written Hopper
-kernel (or raises); on a CPU tensor it runs the plain version
-``ref.flash_attention_ref``.  Bound: operations — 4·BH·S·T·d flops (halved
-by the causal mask at S = T) against (q + k + v + o) bytes.
+Two forms: :func:`flash_attention_gqa` reads q (B, S, H, d) and k, v
+(B, T, K, d) in place through their strides, query head h reading KV head
+h // (H/K), and writes o (B, S, H, d); :func:`flash_attention` is the
+reference's (BH, S, d) form, the case B = BH, H = K = 1.  On a CUDA tensor
+they launch a hand-written Hopper kernel or raise: bf16 runs on the tensor
+cores (``wgmma``, K/V tiles by TMA into a warp-specialised pipeline; p·v
+as two bf16 passes, p = hi + lo, so p keeps ~16 bits), f32 on the FMA
+pipes (all f32, no TF32).  On a CPU tensor they run
+the plain version ``ref.flash_attention_ref`` (p in f32; ``round_p=True``
+rounds p to bf16 once, as the reference model's jnp attention does).  Bound:
+operations — 4·B·H·S·T·d flops (about halved by the causal mask at S = T)
+against (q + k + v + o) bytes.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 from . import ref as _ref
 
-#: launches of the CUDA kernel (plain integer; reset by the caller)
-LAUNCHES = {"flash_attention": 0}
-#: head dims the kernel is built for
+#: launches of the CUDA kernels (plain integers; reset by the caller):
+#: the bf16 tensor-core kernel and the f32 SIMT kernel
+LAUNCHES = {"flash_attention": 0, "flash_attention_f32": 0}
+#: head dims the kernels are built for
 HEAD_DIMS = (16, 32, 64, 128)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """softmax(q·kᵀ/√d)·v per batch·head, f32 inside, out in q's dtype.
+def _plain(q, k, v, causal: bool) -> torch.Tensor:
+    """The plain version on the (B, S, H, d) / (B, T, K, d) layout: the KV
+    heads expanded to (B·H, T, d), one ``ref.flash_attention_ref`` call."""
+    B, S, H, d = q.shape
+    T, K = k.shape[1], k.shape[2]
 
-    ``q``: (BH, S, d); ``k``, ``v``: (BH, T, d) with the KV heads already
-    expanded to the query heads.  ``causal`` keeps key j ≤ query i (absolute
-    indices, top-left aligned when T ≠ S).  Any S and T; d in
-    :data:`HEAD_DIMS`; float32 or bfloat16."""
+    def heads(t, n):
+        t = t.permute(0, 2, 1, 3)[:, :, None]
+        return t.expand(B, t.shape[1], H // t.shape[1], n, d).reshape(
+            B * H, n, d)
+
+    o = _ref.flash_attention_ref(heads(q, S), heads(k, T), heads(v, T),
+                                 causal=causal)
+    return o.reshape(B, H, S, d).transpose(1, 2).contiguous()
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernel can read it in place (head dim
+    contiguous; base and strides 16-byte aligned, as TMA needs), else a
+    contiguous copy."""
+    def ok(x):
+        return x.stride(3) == 1 and x.data_ptr() % 16 == 0 and all(
+            (x.stride(i) * x.element_size()) % 16 == 0 for i in range(3))
+    if ok(t):
+        return t
+    t = t.contiguous()
+    return t if ok(t) else t.clone()
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """softmax(q·kᵀ/√d)·v per batch and query head, f32 inside, out in q's
+    dtype, (B, S, H, d) contiguous.
+
+    ``q``: (B, S, H, d); ``k``, ``v``: (B, T, K, d) with K dividing H —
+    query head h reads KV head h // (H/K).  ``causal`` keeps key j ≤ query
+    i (absolute indices, top-left aligned when T ≠ S).  Any S and T ≥ 1;
+    d in :data:`HEAD_DIMS`; float32 or bfloat16 on the card."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, d = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != d or K == 0 or H % K:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} disagree")
     if q.device.type == "cpu":
-        return _ref.flash_attention_ref(q, k, v, causal=causal)
+        return _plain(q, k, v, causal)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: tensors on {q.device} / "
                          f"{k.device} / {v.device}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: dtypes {q.dtype} / {k.dtype} / "
                         f"{v.dtype} differ")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if T == 0 or -(-S // 64) > 65535:
+        raise ValueError(f"flash_attention: needs 1 <= T and S <= 4,194,240,"
+                         f" got T={T}, S={S}")
+    tag = _build.cuda_dtype_tag(q.dtype, allowed=("f32", "bf16"))
+    o = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
+    if B == 0 or S == 0:
+        return o
+    q, k, v = (_kernel_layout(t) for t in (q, k, v))
+    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
+                                        for i in range(3)))
+    fn = getattr(_build.lib(), f"flash_attention_{tag}")
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    strides, B, H, K, S, T, d, int(causal),
+                    _build.stream_ptr(q)), "flash_attention")
+    LAUNCHES["flash_attention" if tag == "bf16" else
+             "flash_attention_f32"] += 1
+    return o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """The reference's form: ``q`` (BH, S, d), ``k``, ``v`` (BH, T, d) with
+    the KV heads already expanded; returns (BH, S, d).  See
+    :func:`flash_attention_gqa`."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    BH, S, d = q.shape
-    T = k.shape[1]
-    if k.shape[0] != BH or k.shape[2] != d:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
-                         f"{tuple(k.shape)} disagree")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if T == 0 or BH > 65535:
-        raise ValueError(f"flash_attention: needs 1 <= T and BH <= 65535, "
-                         f"got T={T}, BH={BH}")
-    tag = _build.cuda_dtype_tag(q.dtype, allowed=("f32", "bf16"))
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = torch.empty_like(q)
-    if BH == 0 or S == 0:
-        return o
-    fn = getattr(_build.lib(), f"flash_attention_{tag}")
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    BH, S, T, d, int(causal), _build.stream_ptr(q)),
-                 "flash_attention")
-    LAUNCHES["flash_attention"] += 1
-    return o
+    return flash_attention_gqa(q[:, :, None], k[:, :, None], v[:, :, None],
+                               causal=causal)[:, :, 0]

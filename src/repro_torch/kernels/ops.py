@@ -4,15 +4,18 @@
 ``bell_matvec`` and ``stencil5_matvec`` are ``torch.autograd.Function``\\ s
 with the reference's backward formulas: the product is bilinear in
 (val, x), so ∂/∂x = Aᵀg — run through the SAME kernel, on the transposed
-stencil planes or on the Aᵀ block-ELL layout (``t_bell``) — and ∂/∂val is
-the pattern-restricted outer product g[row]·x[col].
+stencil planes or on Aᵀ's sliced-ELL layout (``t_bell``) — and ∂/∂val is
+the pattern-restricted outer product g[row]·x[col].  The block-ELL product
+builds no dense tiles: values go straight into the sliced-ELL array.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..core.sparse import BellMeta
+from ..core.sparse import BellLayout, BellMeta, SellLayout
 from . import ref as _ref
 from .spmv_bell import bell_spmv
 from .stencil5 import Stencil5Meta, stencil5
@@ -22,13 +25,16 @@ from .stencil5 import Stencil5Meta, stencil5
 # block-ELL
 # ---------------------------------------------------------------------------
 
-def bell_assemble(meta: BellMeta, perm: torch.Tensor,
+def bell_assemble(meta: BellMeta, perm,
                   val: torch.Tensor) -> torch.Tensor:
-    """Scatter COO values into the dense (n_rb, k, bm, bn) block tensor.
+    """Scatter COO values into the dense (n_rb, k, bm, bn) block tensor —
+    the reference's layout, kept only to hold the kernel to it in tests.
 
     ``perm[e] == -1`` marks entries dropped by a max_k cap; they scatter a
     zero into slot 0 (harmless: kept slots are distinct, so the sum is
-    exact).  Differentiable (the transpose is a gather)."""
+    exact).  ``perm`` may lie on the host.  Differentiable (the transpose
+    is a gather)."""
+    perm = torch.as_tensor(perm, dtype=torch.int64, device=val.device)
     size = meta.n_rb * meta.k * meta.bm * meta.bn
     keep = perm >= 0
     safe = torch.where(keep, perm, torch.zeros_like(perm))
@@ -38,73 +44,73 @@ def bell_assemble(meta: BellMeta, perm: torch.Tensor,
     return flat.reshape(meta.n_rb, meta.k, meta.bm, meta.bn)
 
 
-def _bell_entry_coords(meta: BellMeta, block_cols, perm):
-    """(row, col) of every kept COO entry, decoded from its BELL slot."""
-    keep = perm >= 0
-    p = torch.where(keep, perm, torch.zeros_like(perm))
-    lc = p % meta.bn
-    t = p // meta.bn
-    lr = t % meta.bm
-    t = t // meta.bm
-    slot = t % meta.k
-    rb = t // meta.k
-    row = rb * meta.bm + lr
-    col = block_cols.long()[rb, slot] * meta.bn + lc
-    return keep, row, col
+def sell_assemble(sell: SellLayout, val: torch.Tensor) -> torch.Tensor:
+    """Scatter COO values into the sliced-ELL value array (n_slots,): one
+    slot per kept entry, zeros in the padding.  Entries the block-ELL plan
+    dropped (``spos == -1``) scatter a zero into slot 0.  Differentiable."""
+    keep = sell.spos >= 0
+    safe = torch.where(keep, sell.spos, torch.zeros_like(sell.spos))
+    contrib = torch.where(keep, val, torch.zeros_like(val))
+    flat = torch.zeros(sell.n_slots, dtype=val.dtype, device=val.device)
+    return flat.index_add_(0, safe, contrib)
 
 
 class _BellMatvec(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, val, x, meta, block_cols, perm, n, t_bell, tiles):
-        bv = bell_assemble(meta, perm, val) if tiles is None else tiles
-        ctx.meta, ctx.n, ctx.t_bell = meta, n, t_bell
-        ctx.save_for_backward(val, x, block_cols, perm)
-        return bell_spmv(meta, block_cols, bv, x, n)
+    def forward(ctx, val, x, bell, n, t_bell, packed):
+        vals = sell_assemble(bell.sell, val) if packed is None else packed
+        ctx.bell, ctx.n, ctx.t_bell = bell, n, t_bell
+        ctx.save_for_backward(val, x)
+        return bell_spmv(bell.sell, vals, x, n)
 
     @staticmethod
     def backward(ctx, g):
-        val, x, block_cols, perm = ctx.saved_tensors
-        meta, n = ctx.meta, ctx.n
+        val, x = ctx.saved_tensors
+        bell, n = ctx.bell, ctx.n
+        meta = bell.meta
         g = g.contiguous()
         gval = gx = None
+        need_coords = ctx.needs_input_grad[0] or (
+            ctx.needs_input_grad[1] and ctx.t_bell is None)
+        if need_coords:
+            keep, row, col = bell.sell.entry_coords()
+            gp = F.pad(g, (0, meta.n_pad - n))
         if ctx.needs_input_grad[1]:
             m = x.shape[0]
             if ctx.t_bell is not None:
-                # Aᵀg through the same kernel on Aᵀ's block-ELL layout
-                tmeta, tcols, tperm = ctx.t_bell
-                gx = bell_spmv(tmeta, tcols, bell_assemble(tmeta, tperm, val),
-                               g, m)
+                # Aᵀg through the same kernel on Aᵀ's layout
+                tsell = ctx.t_bell.sell
+                gx = bell_spmv(tsell, sell_assemble(tsell, val), g, m)
             else:
-                # reference formula: scatter blkᵀ·g_band into block columns
-                bv = bell_assemble(meta, perm, val)
-                gp = F.pad(g, (0, meta.n_pad - n)).reshape(meta.n_rb, meta.bm)
-                contrib = torch.einsum("rkab,ra->rkb", bv, gp)
-                gxb = torch.zeros(meta.n_cb, meta.bn, dtype=x.dtype,
-                                  device=x.device)
-                gxb.index_add_(0, block_cols.long().reshape(-1),
-                               contrib.reshape(-1, meta.bn))
-                gx = gxb.reshape(meta.m_pad)[:m]
+                # Aᵀg as a scatter of val·g[row] into the columns
+                contrib = torch.where(keep, val * gp[row],
+                                      torch.zeros_like(val))
+                gx = torch.zeros(meta.m_pad, dtype=x.dtype, device=x.device)
+                gx = gx.index_add_(0, col, contrib)[:m]
         if ctx.needs_input_grad[0]:
-            # ∂/∂val_e = g[row_e]·x[col_e], coordinates decoded from perm
-            keep, row, col = _bell_entry_coords(meta, block_cols, perm)
-            gp = F.pad(g, (0, meta.n_pad - n))
+            # ∂/∂val_e = g[row_e]·x[col_e], coordinates decoded from spos
             xp = F.pad(x, (0, meta.m_pad - x.shape[0]))
             gval = torch.where(keep, gp[row] * xp[col], torch.zeros_like(val))
-        return gval, gx, None, None, None, None, None, None
+        return gval, gx, None, None, None, None
 
 
-def bell_matvec(meta: BellMeta, block_cols: torch.Tensor, perm: torch.Tensor,
-                val: torch.Tensor, x: torch.Tensor, n: int, t_bell=None,
-                tiles=None) -> torch.Tensor:
-    """Differentiable block-ELL y = A x (first n rows).  ``t_bell`` (Aᵀ's
-    ``(meta, block_cols, perm)``) routes the backward's Aᵀg through the BELL
-    kernel; ``tiles`` reuses tiles already assembled from ``val``."""
-    return _BellMatvec.apply(val, x, meta, block_cols, perm, n, t_bell, tiles)
+def bell_matvec(bell: BellLayout, val: torch.Tensor, x: torch.Tensor, n: int,
+                t_bell: Optional[BellLayout] = None,
+                packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable block-ELL y = A x (first n rows) through the sliced-ELL
+    kernel.  ``t_bell`` (Aᵀ's layout) routes the backward's Aᵀg through the
+    same kernel; ``packed`` reuses the value array already assembled from
+    ``val`` (:func:`sell_assemble`)."""
+    return _BellMatvec.apply(val, x, bell, n, t_bell, packed)
 
 
-def bell_matvec_ref(meta: BellMeta, block_cols, perm, val, x, n):
-    bv = bell_assemble(meta, perm, val)
+def bell_matvec_ref(bell: BellLayout, val, x, n):
+    """The same product on the reference's dense tiles (the old layout),
+    with the host slot table and ``perm`` moved to ``val``'s device."""
+    meta = bell.meta
+    bv = bell_assemble(meta, bell.perm, val)
     xp = F.pad(x, (0, meta.m_pad - x.shape[0]))
+    block_cols = torch.as_tensor(bell.block_cols, device=val.device)
     return _ref.bell_matvec_ref(bv, block_cols, xp, n)
 
 

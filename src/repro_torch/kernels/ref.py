@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.sparse import SELL_SLICE
+
 
 def stencil5_ref(val5: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Variable-coefficient 5-point stencil apply.
@@ -80,6 +82,23 @@ def bell_matvec_ref(bell_vals: torch.Tensor, block_cols: torch.Tensor,
     gathered = xb[block_cols.long()]                 # (n_rb, k, bn)
     y = torch.einsum("rkab,rkb->ra", bell_vals, gathered)
     return y.reshape(n_rb * bm)[:n]
+
+
+def sell_matvec_ref(slice_ptr: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
+    """Sliced-ELL SpMV (the kernel's plain version): a gather of x over the
+    padded layout and a sum per row.  ``slice_ptr`` (n_slices + 1,),
+    ``cols``/``vals`` (n_slots,) as in ``core.sparse.SellLayout``; returns
+    the first ``n`` rows of y.  Padding slots hold value 0."""
+    w = SELL_SLICE
+    n_slices = slice_ptr.numel() - 1
+    slot = torch.arange(vals.numel(), device=vals.device)
+    slc = torch.repeat_interleave(torch.arange(n_slices, device=vals.device),
+                                  slice_ptr[1:] - slice_ptr[:-1])
+    row = slc * w + (slot - slice_ptr[slc]) % w
+    y = torch.zeros(n_slices * w, dtype=vals.dtype, device=vals.device)
+    y.index_add_(0, row, vals * x[cols.long()])
+    return y[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -308,13 +327,16 @@ def sn_trsv_ref(D, y, wvec, bkm, *, mode, pairs=False):
 ATTN_NEG_INF = -1e30            # the reference's attention mask value
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        round_p: bool = False) -> torch.Tensor:
     """Attention softmax(q·kᵀ/√d)·v in f32 (f64 for f64 inputs), the
     result in q's dtype.
 
     ``q``: (BH, S, d); ``k``, ``v``: (BH, T, d).  ``causal`` keeps key
     j ≤ query i in absolute indices (top-left aligned when T ≠ S).  The
-    reference's ``flash_attention_ref``."""
+    reference's ``flash_attention_ref``; ``round_p`` rounds the
+    probabilities to bf16 once before p·v, as the reference model's jnp
+    attention does."""
     d = q.shape[-1]
     acc = torch.promote_types(q.dtype, torch.float32)
     s = torch.einsum("bsd,btd->bst", q.to(acc), k.to(acc)) / (d ** 0.5)
@@ -324,4 +346,6 @@ def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
         j = torch.arange(T, device=q.device)[None, :]
         s = torch.where((j <= i)[None], s, ATTN_NEG_INF)
     p = torch.softmax(s, dim=-1)
+    if round_p:
+        p = p.to(torch.bfloat16).to(acc)
     return torch.einsum("bst,btd->bsd", p, v.to(acc)).to(q.dtype)

@@ -1,17 +1,21 @@
 """Block-ELL SpMV — wrapper of ``csrc/spmv_bell.cu``.
 
 Replaces the TPU kernel ``repro/kernels/spmv_bell.py::bell_spmv_pallas``.
-On a CUDA tensor :func:`bell_spmv` launches the hand-written Hopper kernel
-(one block per row band, slot loop inside the block) or raises; on a CPU
-tensor it runs the plain version ``ref.bell_matvec_ref``.  Bound: bytes —
-the dense (n_rb, k, bm, bn) tiles.
+The matrix is the one a block-ELL plan describes (``core.sparse.build_bell``:
+slot table and ``perm``), but the card reads it in the sliced-ELL form built
+from that plan in the same analyze pass (``core.sparse.SellLayout``): slices
+of 32 rows, each padded to its longest row, one warp per slice and one lane
+per row.  The dense (n_rb, k, bm, bn) tiles were the TPU's operand shape;
+here they would move ~50x the bytes the nonzeros need.  On a CUDA tensor
+:func:`bell_spmv` launches the hand-written Hopper kernel or raises; on a
+CPU tensor it runs the plain version ``ref.sell_matvec_ref``.  Bound: bytes
+— 12 B per padded entry (f64 value, int32 column) plus x read and y written.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from ..core.sparse import BellMeta
+from ..core.sparse import SellLayout
 from . import _build
 from . import ref as _ref
 
@@ -19,41 +23,32 @@ from . import ref as _ref
 LAUNCHES = {"bell_spmv": 0}
 
 
-def bell_spmv(meta: BellMeta, block_cols: torch.Tensor,
-              bell_vals: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
-    """y = A @ x, truncated to ``n`` rows, with A in block-ELL form.
+def bell_spmv(sell: SellLayout, vals: torch.Tensor, x: torch.Tensor,
+              n: int) -> torch.Tensor:
+    """y = A @ x, the first ``n`` rows, with A in sliced-ELL form.
 
-    ``block_cols``: (n_rb, k) int32 slot table; ``bell_vals``:
-    (n_rb, k, bm, bn) tiles; ``x``: (m,) with m ≤ m_pad (no padding needed
-    on CUDA: the kernel masks columns ≥ m)."""
-    m = x.shape[0]
+    ``vals``: (n_slots,) the layout's values (``ops.sell_assemble``);
+    ``x``: (m,).  Rows past the layout's last entry are 0."""
     if x.device.type == "cpu":
-        xp = F.pad(x, (0, meta.m_pad - m))
-        return _ref.bell_matvec_ref(bell_vals, block_cols, xp, n)
-    if x.device.type != "cuda" or bell_vals.device != x.device \
-            or block_cols.device != x.device:
+        return _ref.sell_matvec_ref(sell.slice_ptr, sell.cols, vals, x, n)
+    if x.device.type != "cuda" or vals.device != x.device \
+            or sell.cols.device != x.device:
         raise ValueError("bell_spmv: tensors must share one CUDA device")
-    if bell_vals.dtype != x.dtype:
-        raise TypeError(f"bell_spmv: dtypes {bell_vals.dtype} / {x.dtype}")
-    if block_cols.dtype != torch.int32:
-        raise TypeError(f"bell_spmv: block_cols must be int32, got "
-                        f"{block_cols.dtype}")
-    want = (meta.n_rb, meta.k, meta.bm, meta.bn)
-    if tuple(bell_vals.shape) != want or \
-            tuple(block_cols.shape) != (meta.n_rb, meta.k):
-        raise ValueError(f"bell_spmv: tiles {tuple(bell_vals.shape)} / slots "
-                         f"{tuple(block_cols.shape)} do not match {want}")
-    if m > meta.m_pad or n > meta.n_pad or x.dim() != 1:
-        raise ValueError(f"bell_spmv: x {tuple(x.shape)} / n={n} exceed the "
-                         f"layout ({meta.n_pad}, {meta.m_pad})")
+    if vals.dtype != x.dtype:
+        raise TypeError(f"bell_spmv: dtypes {vals.dtype} / {x.dtype}")
+    if tuple(vals.shape) != (sell.n_slots,) or x.dim() != 1:
+        raise ValueError(f"bell_spmv: values {tuple(vals.shape)} / x "
+                         f"{tuple(x.shape)} do not match {sell.n_slots} slots")
+    if not 0 <= n <= sell.n_rows:
+        raise ValueError(f"bell_spmv: n={n} exceeds the layout's "
+                         f"{sell.n_rows} rows")
     tag = _build.cuda_dtype_tag(x.dtype)
-    bell_vals = bell_vals.contiguous()
-    block_cols = block_cols.contiguous()
+    vals = vals.contiguous()
     x = x.contiguous()
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     fn = getattr(_build.lib(), f"bell_spmv_{tag}")
-    _build.check(fn(block_cols.data_ptr(), bell_vals.data_ptr(), x.data_ptr(),
-                    y.data_ptr(), n, m, meta.n_rb, meta.k, meta.bm, meta.bn,
+    _build.check(fn(sell.slice_ptr.data_ptr(), sell.cols.data_ptr(),
+                    vals.data_ptr(), x.data_ptr(), y.data_ptr(), n,
                     _build.stream_ptr(x)), "bell_spmv")
     LAUNCHES["bell_spmv"] += 1
     return y

@@ -4,15 +4,18 @@ ring-buffer KV cache of one-token decode.
 The port of the reference's ``repro/models/attention.py`` for the dense
 decoder: modes ``causal`` and ``bidir``.  On every device the
 score/softmax/PV core of :func:`attention` is ONE call of
-``kernels/flash_attention.py`` on (B·H, S, hd) copies of q and the
-head-expanded k, v: the hand-written flash kernel on a CUDA tensor, its
-plain version on a CPU tensor, so the CPU tests run the card's layout.  The
-kernel, like the reference's flash kernel, keeps the probabilities in f32;
-the reference model's own formula (dense scores, query-chunked above
-2·512 queries) rounds them to the activation dtype before p·v, so the two
-agree to f32 rounding in f32 and to one bf16 rounding of p in bf16.
-Decode attention is plain torch, as in the reference (no kernel).  Local
-(sliding-window) and cross attention are not ported yet.
+``kernels.flash_attention.flash_attention_gqa`` on q (B, S, H, hd) and
+k, v (B, S, K, hd) as the projections leave them — the kernel reads them in
+place, query head h on KV head h // (H/K), and writes (B, S, H, hd), so no
+head-expanded or transposed copies are made: the hand-written kernel on a
+CUDA tensor, its plain version on a CPU tensor.  The kernel, like the
+reference's flash kernel, keeps the probabilities at f32 precision (in bf16
+as two bf16 halves); the reference model's own formula (dense scores,
+query-chunked above 2·512 queries) and the port's decode round them to
+bf16 once before p·v, so the two agree to f32 rounding in f32 and to one
+bf16 rounding of p in bf16.  Decode attention is plain torch, as in the
+reference (no kernel).  Local (sliding-window) and cross attention are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention_gqa
 from .layers import RMSNorm, apply_rope, const_param, dense_init, pdtype
 
 NEG_INF = -1e30
@@ -105,22 +108,6 @@ def _gqa_out(probs, v, wo, B: int, S: int, cfg: ModelConfig):
     return o.reshape(B, S, cfg.n_heads * cfg.hd) @ wo.to(o.dtype)
 
 
-def _heads_first(t, H: int):
-    """(B, T, K, hd) → contiguous (B·H, T, hd), the KV heads expanded to H."""
-    B, T, K, hd = t.shape
-    t = t.permute(0, 2, 1, 3)[:, :, None].expand(B, K, H // K, T, hd)
-    return t.reshape(B * H, T, hd)
-
-
-def _attention_flash(q, k, v, cfg: ModelConfig, causal: bool):
-    """The core as one ``flash_attention`` call on (B·H, S, hd) copies: one
-    kernel launch on the card."""
-    B, S, H, hd = q.shape
-    o = flash_attention(_heads_first(q, H), _heads_first(k, H),
-                        _heads_first(v, H), causal=causal)
-    return o.reshape(B, H, S, hd).transpose(1, 2)
-
-
 def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, mode: str = "causal") -> torch.Tensor:
     """Prefill attention over ``x`` (B, S, d); ``mode``: causal | bidir."""
@@ -134,7 +121,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         k = p.k_norm(k)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
-    o = _attention_flash(q, k, v, cfg, causal=mode == "causal")
+    o = flash_attention_gqa(q, k, v, causal=mode == "causal")
     return o.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo.to(x.dtype)
 
 

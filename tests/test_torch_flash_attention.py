@@ -20,7 +20,8 @@ import torch
 from repro.kernels.flash_attention import flash_attention as jfa
 from repro.kernels.flash_attention import flash_attention_ref as jfa_ref
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_gqa)
 
 from _torch_parity import assert_close, cuda_device  # noqa: F401
 
@@ -117,9 +118,9 @@ def test_bf16_rule_rejects_a_wrong_kernel(fault):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("K", [4, 2, 1])
 def test_kernel_route_matches_model_attention(K, causal):
-    """The model's kernel route — (B, S, H, hd) q and (B, S, K, hd) k, v
-    laid out as (B·H, S, hd) with KV head h // (H/K), one flash call —
-    equals the reference model's GQA score/softmax/PV core."""
+    """The model's kernel route — one flash call on (B, S, H, hd) q and
+    (B, S, K, hd) k, v, KV head h // (H/K) — equals the reference model's
+    GQA score/softmax/PV core."""
     from repro.configs.base import ModelConfig
     from repro.models import attention as A
     from repro_torch.models import attention as tA
@@ -139,8 +140,8 @@ def test_kernel_route_matches_model_attention(K, causal):
     p = jax.nn.softmax(s, axis=-1)
     want = jnp.einsum("bhst,bthd->bshd", p,
                       A._expand_kv(jnp.asarray(v), H))
-    got = tA._attention_flash(torch.tensor(q), torch.tensor(k),
-                              torch.tensor(v), cfg, causal=causal)
+    got = tA.flash_attention_gqa(torch.tensor(q), torch.tensor(k),
+                                 torch.tensor(v), causal=causal)
     assert got.shape == (B, S, H, hd)
     assert_close(got, want, **TOL)
 
@@ -167,9 +168,97 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, d, causal, S,
     kernels.reset_launch_counts()
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["flash_attention"] == 1
+    bf16 = dtype == torch.bfloat16
+    assert kernels.launch_counts()[
+        "flash_attention" if bf16 else "flash_attention_f32"] == 1
     want = tref.flash_attention_ref(q.float(), k.float(), v.float(),
                                     causal=causal)
     diff = (out.float() - want).abs()
-    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else BF16_TOL
+    rtol, atol = BF16_TOL if bf16 else (2e-5, 2e-5)
     assert bool((diff <= rtol * want.abs() + atol).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [64, 100])
+def test_p_rounded_plain_matches_reference_model_formula(S, causal):
+    """``round_p=True`` on bf16 inputs equals the reference model's dense
+    attention formula (f32 scores, softmax, probabilities rounded to bf16,
+    p·v on the bf16 values) to one bf16 rounding of the output."""
+    from repro.configs.base import ModelConfig
+    from repro.models import attention as A
+
+    B, H, hd = 2, 4, 32
+    cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=64,
+                      n_heads=H, n_kv_heads=H, d_ff=0, vocab=16, head_dim=hd,
+                      dtype="bfloat16", param_dtype="float32", remat="none")
+    rng = np.random.default_rng(S + causal)
+    q, k, v = (torch.tensor(rng.normal(size=(B, S, H, hd)),
+                            dtype=torch.bfloat16) for _ in range(3))
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                  for t in (q, k, v))
+    s = A._gqa_scores(jq.astype(jnp.float32), jk.astype(jnp.float32), cfg)
+    if causal:
+        mask = jnp.arange(S)[None, :] <= jnp.arange(S)[:, None]
+        s = jnp.where(mask[None, None], s, A.NEG_INF)
+    p = jax.nn.softmax(s, axis=-1).astype(jnp.bfloat16)
+    want = jnp.einsum("bhst,bthd->bshd", p, jv).astype(jnp.float32)
+
+    def heads(t):
+        return t.permute(0, 2, 1, 3).reshape(B * H, S, hd)
+
+    got = tref.flash_attention_ref(heads(q), heads(k), heads(v),
+                                   causal=causal, round_p=True)
+    assert got.dtype == torch.bfloat16
+    got = got.reshape(B, H, S, hd).transpose(1, 2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want),
+                               rtol=2 ** -8, atol=2 ** -8)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("K", [1, 2, 4])
+def test_gqa_form_matches_expanded_form(K, causal):
+    """flash_attention_gqa on q (B, S, H, d), k, v (B, T, K, d) equals the
+    (B·H, S, d) form on the KV heads expanded (query head h on KV head
+    h // (H/K)), S ≠ T."""
+    B, S, T, H, d = 2, 72, 90, 4, 32
+    rng = np.random.default_rng(K + 3 * causal)
+    q = torch.tensor(rng.normal(size=(B, S, H, d)), dtype=torch.float32)
+    k, v = (torch.tensor(rng.normal(size=(B, T, K, d)), dtype=torch.float32)
+            for _ in range(2))
+    got = flash_attention_gqa(q, k, v, causal=causal)
+    assert got.shape == (B, S, H, d) and got.is_contiguous()
+
+    def heads(t):
+        t = t.repeat_interleave(H // t.shape[2], dim=2)
+        return t.permute(0, 2, 1, 3).reshape(B * H, t.shape[1], d)
+
+    want = flash_attention(heads(q), heads(k), heads(v), causal=causal)
+    assert_close(got, want.reshape(B, H, S, d).transpose(1, 2), rtol=0,
+                 atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 2, 8])
+def test_gqa_kernel_matches_plain_on_card(cuda_device, dtype, K):
+    """The kernel reads strided (B, S, H, d) / (B, T, K, d) views in place:
+    q sliced out of a fused projection, S ≠ T ragged."""
+    B, S, T, H, d = 2, 300, 333, 8, 64
+    rng = np.random.default_rng(K)
+    qkv = torch.tensor(rng.normal(size=(B, S, H + 2 * K, d)), dtype=dtype,
+                       device=cuda_device)
+    q = qkv[:, :, :H]
+    k, v = (torch.tensor(rng.normal(size=(B, T, K, d)), dtype=dtype,
+                         device=cuda_device) for _ in range(2))
+    out = flash_attention_gqa(q, k, v, causal=True)
+    torch.cuda.synchronize()
+
+    def heads(t):
+        t = t.float().repeat_interleave(H // t.shape[2], dim=2)
+        return t.permute(0, 2, 1, 3).reshape(B * H, t.shape[1], d)
+
+    want = tref.flash_attention_ref(heads(q), heads(k), heads(v),
+                                    causal=True).reshape(B, H, S, d)
+    want = want.transpose(1, 2)
+    rtol, atol = BF16_TOL if dtype == torch.bfloat16 else (2e-5, 2e-5)
+    assert bool(((out.float() - want).abs() <= rtol * want.abs() + atol).all())

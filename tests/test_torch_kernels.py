@@ -75,11 +75,10 @@ def test_bell_plain_matches_reference_kernel(n, m, density, dtype, seed):
     rmeta, rcols, rperm = r_build_bell(row, col, (n, m))
     y_r = rops.bell_matvec(rmeta, rcols, rperm, jnp.asarray(val),
                            jnp.asarray(x), n)
-    meta, cols, perm = bell_to_device(build_bell(row, col, (n, m)), "cpu")
-    y_t = tops.bell_matvec(meta, cols, perm, torch.tensor(val),
-                           torch.tensor(x), n)
+    bell = bell_to_device(build_bell(row, col, (n, m)), "cpu")
+    y_t = tops.bell_matvec(bell, torch.tensor(val), torch.tensor(x), n)
     assert_close(y_t, y_r, **tol(dtype))
-    assert_close(tops.bell_matvec_ref(meta, cols, perm, torch.tensor(val),
+    assert_close(tops.bell_matvec_ref(bell, torch.tensor(val),
                                       torch.tensor(x), n), y_r, **tol(dtype))
 
 
@@ -162,12 +161,12 @@ def test_bell_backward_matches_reference_vjp(with_t_bell):
     gr = jax.grad(lambda vv, xx: jnp.sum(jnp.asarray(w) * rops.bell_matvec(
         rmeta, rcols, rperm, vv, xx, n)), (0, 1))(jnp.asarray(val),
                                                   jnp.asarray(x))
-    meta, cols, perm = bell_to_device(build_bell(row, col, (n, m)), "cpu")
+    bell = bell_to_device(build_bell(row, col, (n, m)), "cpu")
     t_bell = bell_to_device(build_bell(col, row, (m, n)), "cpu") \
         if with_t_bell else None
     vt = torch.tensor(val, requires_grad=True)
     xt = torch.tensor(x, requires_grad=True)
-    (torch.tensor(w) * tops.bell_matvec(meta, cols, perm, vt, xt, n,
+    (torch.tensor(w) * tops.bell_matvec(bell, vt, xt, n,
                                         t_bell=t_bell)).sum().backward()
     assert_close(vt.grad, gr[0], rtol=1e-10, atol=1e-12)
     assert_close(xt.grad, gr[1], rtol=1e-10, atol=1e-12)
@@ -177,11 +176,10 @@ def test_bell_assemble_and_its_gradient_match_reference():
     n, m = 300, 517
     row, col, val, _ = _bell_case(n, m, 0.02, np.float64, 6)
     rmeta, rcols, rperm = r_build_bell(row, col, (n, m), max_k=2)
-    meta, cols, perm = bell_to_device(build_bell(row, col, (n, m), max_k=2),
-                                      "cpu")
+    bell = bell_to_device(build_bell(row, col, (n, m), max_k=2), "cpu")
     tiles_r = rops.bell_assemble(rmeta, rperm, jnp.asarray(val))
     vt = torch.tensor(val, requires_grad=True)
-    tiles_t = tops.bell_assemble(meta, perm, vt)
+    tiles_t = tops.bell_assemble(bell.meta, bell.perm, vt)
     assert_close(tiles_t, tiles_r, rtol=0, atol=0)
     w = np.random.default_rng(7).normal(size=tiles_r.shape)
     g_r = jax.grad(lambda v: jnp.sum(jnp.asarray(w) * rops.bell_assemble(
@@ -222,7 +220,7 @@ def test_kernel_wrappers_count_no_cpu_launches():
     flash_attention(qkv, qkv, qkv, causal=True)
     assert set(kernels.launch_counts().values()) == {0}
     assert set(tsn.TRSV_MODE_LAUNCHES.values()) == {0}
-    assert len(kernels.launch_counts()) == 14
+    assert len(kernels.launch_counts()) == 15
 
 
 # ---------------------------------------------------------------------------
@@ -248,13 +246,12 @@ def test_cuda_stencil5_matches_plain(cuda_device, dtype):
 def test_cuda_bell_matches_plain(cuda_device, dtype):
     n, m = 200, 150
     row, col, val, x = _bell_case(n, m, 0.05, np.float64, 1)
-    meta, cols, perm = bell_to_device(build_bell(row, col, (n, m)),
-                                      cuda_device)
+    bell = bell_to_device(build_bell(row, col, (n, m)), cuda_device)
     vt = torch.tensor(val, dtype=dtype, device=cuda_device)
     xt = torch.tensor(x, dtype=dtype, device=cuda_device)
-    y = tops.bell_matvec(meta, cols, perm, vt, xt, n)
+    y = tops.bell_matvec(bell, vt, xt, n)
     torch.cuda.synchronize()
-    assert_close(y, tops.bell_matvec_ref(meta, cols, perm, vt, xt, n),
+    assert_close(y, tops.bell_matvec_ref(bell, vt, xt, n),
                  **tol(np.float32 if dtype == torch.float32 else np.float64))
 
 

@@ -9,8 +9,8 @@ its ``decode_step`` must equal the reference's step by step at 1e-5 and
 its own ``forward`` at the reference test's 5e-4.  qwen2-vl also takes
 prefix patches and 3-section M-RoPE positions; a vocab that is not a
 multiple of 256 takes the padded unembedding.  The port's attention core
-is the card's route on every device (one flash-wrapper call per layer; its
-plain version here).  Models with unported parts raise
+is the card's route on every device (one flash-wrapper call per layer on
+the projections' own layout; its plain version here).  Models with unported parts raise
 ``NotImplementedError``.
 """
 import dataclasses
@@ -27,7 +27,7 @@ from repro.configs import smoke_variant as jsmoke
 from repro.models import layers as jL
 from repro.models import transformer as jT
 from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention_gqa
 from repro_torch.models import attention as tA
 from repro_torch.models.convert import model_from_jax, params_from_jax
 from repro_torch.models.transformer import Transformer
@@ -157,19 +157,20 @@ def test_padded_vocab_unembed(arch):
 @pytest.mark.parametrize("arch", DENSE)
 def test_forward_on_kernel_route_matches_reference(arch, monkeypatch):
     """The forward's attention core is one causal flash-wrapper call per
-    layer on (B·H, S, hd) — the card's route, its plain version here."""
+    layer on q (B, S, H, hd) and k (B, S, K, hd) as projected — the card's
+    route, its plain version here."""
     calls = []
 
     def spy(q, k, v, *, causal):
         calls.append((tuple(q.shape), tuple(k.shape), causal))
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention_gqa(q, k, v, causal=causal)
 
-    monkeypatch.setattr(tA, "flash_attention", spy)
+    monkeypatch.setattr(tA, "flash_attention_gqa", spy)
     got, want, model, _ = _both(arch, 2, 24)
     assert_close(got, want, **TOL)
     cfg = model.cfg
-    bhs = (2 * cfg.n_heads, 24, cfg.hd)
-    assert calls == [(bhs, bhs, True)] * cfg.n_layers
+    assert calls == [((2, 24, cfg.n_heads, cfg.hd),
+                      (2, 24, cfg.n_kv_heads, cfg.hd), True)] * cfg.n_layers
 
 
 @pytest.mark.parametrize("arch", DENSE)
