@@ -35,20 +35,26 @@ What it does, in order:
    plain COO path;
 8. direct path (the slice's main path): ``poisson2d(316)`` (99,856
    unknowns, f64), ``sla.solve`` auto-routed to the supernodal LDLᵀ, ∂Σu²/∂val
-   against a CG run at tol 1e-12, then a ``with_values`` refactorization;
+   against a CG run at tol 1e-12, then a ``with_values`` refactorization,
+   whose profiler trace must hold ``panel_factor`` and ``schur_update`` once
+   per bucket and no per-bucket gather, scatter or ``index_add_``;
 9. LU path: the non-symmetric drift ``poisson2d(128)``, auto → direct/LU,
    solution and ∂/∂val against the dense backend (adjoint on ut/lt sweeps);
 10. indefinite path: a dense-block saddle point (n = 512) with static 2x2
     pivot pairs, solve, transposed solve, ``slogdet`` and its gradient
     against torch.linalg;
 11. ILU path: ``poisson2d(100)``, CG with ``precond="ilu"`` against Jacobi;
-12. panel kernels: panel_factor, schur_update and block_trsv against their
-    plain versions on the gathered panels of the direct path's own analysis
-    of ``poisson2d(316)`` (its widest bucket, the bucket with the most
-    lanes, a ragged bucket with garbage in its pad slots), f32 and f64,
-    pairs off and on, block_trsv in its four modes with 1 and 64
-    right-hand sides; then their summed time over one factorization (one
-    mode-l sweep for block_trsv) against the bound;
+12. panel kernels: panel_factor and schur_update (fused with the
+    extend-add; both in place in the factor vector) and block_trsv against
+    their plain versions on copies of the direct path's own C for
+    ``poisson2d(316)`` (its widest bucket, the bucket with the most lanes,
+    a ragged bucket; garbage in the scratch sink, which must stay as it
+    was), every slot of C compared, f32 and f64, pairs off and on,
+    block_trsv in its four modes with 1 and 64 right-hand sides; then
+    their summed time over one factorization (one mode-l sweep for
+    block_trsv) against the bound, with ``torch.bmm`` and bmm +
+    ``index_add_`` beside schur_update and ``lu_factor_ex`` (no pivoting)
+    beside panel_factor;
 13. flash kernels: flash_attention against its plain version (f32, on the
     same inputs, over chunks of bh; elementwise, |o − plain| ≤
     2e-5·|plain| + 2e-5 in f32 and ≤ 8e-3·|plain| + 1e-3 in bf16, with the
@@ -97,6 +103,7 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
 # take for bf16 attention
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 TOL_KERNEL = {"float32": 1e-5, "float64": 1e-12}
+REPEATS = 4                          # whole factorizations on the kernels
 TOL_GRAD = 1e-6                      # gradient vs the plain path, relative
 
 NG_STENCIL = 2048                    # stencil path: 4.19M unknowns
@@ -196,20 +203,35 @@ def say(msg):
 # measurement helpers
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, reps, warmup=2, spin_ms=1.0):
+def cuda_ms(fn, reps, warmup=2, spin_ms=1.0, reset=None):
     """Mean device time of ``fn`` over ``reps`` back-to-back launches.
 
     The launches are queued behind a spin kernel (``torch.cuda._sleep``), so
     the host's time to enqueue them stays off the clock: the events measure
     the device work alone, not Python overhead between launches.
     ``spin_ms`` is the spin per rep; it must exceed one call's enqueue
-    time (``fn`` may launch many kernels)."""
+    time (``fn`` may launch many kernels).  ``reset``, when given, runs
+    before each call off the clock (it restores the inputs ``fn`` changes
+    in place), and each call is timed on its own."""
     import torch
     for _ in range(warmup):
+        if reset is not None:
+            reset()
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if reset is not None:
+        tot = 0.0
+        for _ in range(reps):
+            reset()
+            torch.cuda._sleep(int(spin_ms * 2_000_000))
+            t0.record()
+            fn()
+            t1.record()
+            t1.synchronize()
+            tot += t0.elapsed_time(t1)
+        return tot / reps
     torch.cuda._sleep(int(reps * spin_ms * 2_000_000))   # ≈1 ms per 2M
     t0.record()
     for _ in range(reps):
@@ -219,9 +241,20 @@ def cuda_ms(fn, reps, warmup=2, spin_ms=1.0):
     return t0.elapsed_time(t1) / reps
 
 
-def wall_ms(fn, reps):
-    """Mean host wall time per call, synchronized (enqueue + device)."""
+def wall_ms(fn, reps, reset=None):
+    """Mean host wall time per call, synchronized (enqueue + device).  With
+    ``reset`` (as in :func:`cuda_ms`) each call is timed on its own."""
     import torch
+    if reset is not None:
+        times = []
+        for _ in range(reps + 1):            # the first call warms up
+            reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return sum(times[1:]) / reps * 1e3
     fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -865,38 +898,50 @@ def transpose_path(dev, ng, tol, maxiter, seed, out):
 # phases 8–12: the sparse-direct route
 # ---------------------------------------------------------------------------
 
-def _enqueue_ms(fn):
+def _enqueue_ms(fn, reset=None):
     """Host time to enqueue one call of ``fn`` (after a warm-up)."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    fn()
-    dt = time.perf_counter() - t
-    torch.cuda.synchronize()
+    for _ in range(2):                        # a warm-up, then the timed call
+        if reset is not None:
+            reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
     return dt * 1e3
 
 
-def _sum_ms(fn, reps=5):
-    """Device time of ``fn`` (many launches), the spin covering enqueue."""
-    return cuda_ms(fn, reps, warmup=1, spin_ms=1.5 * _enqueue_ms(fn) + 1.0)
+def _sum_ms(fn, reps=5, reset=None):
+    """Device time of ``fn`` (many launches), the spin covering enqueue with
+    a wide margin: a loop of a few hundred launches enqueues at the host's
+    pace, which varies between calls, and a spin that ends early counts the
+    device's wait for the host."""
+    return cuda_ms(fn, reps, warmup=1, reset=reset,
+                   spin_ms=3.0 * _enqueue_ms(fn, reset) + 2.0)
 
 
-def _panel_work(bk, trsv_mode="l"):
-    """(bytes, flops) per kernel that one bucket's true sizes need, f64:
-    inputs read at their true extent, outputs written at the padded shape
-    the kernel returns.  block_trsv: one solve in ``trsv_mode`` with one
-    right-hand side, reading only the triangle of D that mode uses (strict
-    lower for l/lt; upper with the pivots for u/ut, which also divide)."""
+def _panel_work(bk, trsv_mode="l", distinct=None):
+    """(bytes, flops) per kernel that one bucket's true sizes need, f64,
+    each input read once and each output written once.  panel_factor reads
+    and writes its panels in place in C: w² + 2rw words, each with its
+    int32 slot (20 B a word).  schur_update reads the two panels (2rw words
+    with their slots, 12 B), one int32 index per live target (r² of them,
+    4 B), and reads and writes each distinct target once (``distinct``, the
+    bucket's distinct addresses: sibling lanes share some; 16 B).
+    block_trsv: one solve in ``trsv_mode`` with one right-hand side, reading
+    only the triangle of D that mode uses (strict lower for l/lt; upper with
+    the pivots for u/ut, which also divide)."""
     w = bk.wvec.double().cpu().numpy()
     r = bk.rvec.double().cpu().numpy()
-    k, wb, rb = bk.pidx.shape[0], bk.wb, bk.rb
+    k, wb = bk.wvec.shape[0], bk.wb
+    if distinct is None:
+        distinct = int(bk.uidx.unique().numel())
     s1 = w * (w - 1) / 2                         # Σ_t (w-t-1)
     s2 = (w - 1) * w * (2 * w - 1) / 6           # Σ_t (w-t-1)²
-    pf = (8 * float((w * w + 2 * r * w).sum())
-          + 8 * k * ((wb + rb) * wb + wb * rb),
+    pf = (20 * float((w * w + 2 * r * w).sum()),
           float((2 * s2 + s1 + r * w + 4 * r * s1).sum()))
-    su = (8 * float((2 * r * w).sum()) + 8 * k * rb * rb,
+    su = (float((12 * 2 * r * w + 4 * r * r).sum()) + 16.0 * distinct,
           float((2 * w * r * r).sum()))
     piv = w if trsv_mode in ("u", "ut") else 0 * w
     bt = (8 * float((s1 + piv + w).sum()) + 8 * k * wb,
@@ -904,11 +949,42 @@ def _panel_work(bk, trsv_mode="l"):
     return {"panel_factor": pf, "schur_update": su, "block_trsv": bt}
 
 
+def _pf_blocks(r, rb):
+    """Blocks that panel_factor runs for a lane of r live sub-rows in a
+    bucket of rb (its launch: tiles of up to 128 items, sub-rows then U
+    columns; a tile past tile 0 runs only if it holds a live item)."""
+    tpb = 32
+    while tpb < 2 * rb and tpb < 128:
+        tpb *= 2
+    tiles = -(-2 * rb // tpb) if rb > 0 else 1
+    return 1 + sum(1 for y in range(1, tiles)
+                   if r > 0 and (y * tpb < r or rb < (y + 1) * tpb
+                                 and y * tpb < rb + r))
+
+
+def _lu_yardstick(Pm):
+    """torch.linalg.lu_factor_ex(pivot=False) on the masked tall [D; L_sub]
+    panels of each bucket: the P half of panel_factor only, 1x1 pivots, no
+    clamp (the nearest PyTorch call; none computes panel_factor).  Device
+    ms summed over the buckets, or None with the reason."""
+    import torch
+    run = lambda: [torch.linalg.lu_factor_ex(P, pivot=False) for P in Pm]
+    try:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t > 30.0:
+            return None, "over 30 s per factorization: not timed again"
+        return _sum_ms(run, reps=2), None
+    except (RuntimeError, ValueError) as exc:   # not offered for this shape
+        return None, str(exc).splitlines()[0][:200]
+
+
 def panel_kernel_phase(dev, art, val, ng, seed, out):
-    """panel_factor, schur_update and block_trsv against their plain versions
-    on the main path's panels (the direct path's analysis ``art`` of
-    ``poisson2d(ng)`` with values ``val``), and their summed device time
-    over one factorization."""
+    """panel_factor and the fused schur_update (both in place in C) and
+    block_trsv against their plain versions on the main path's panels (the
+    direct path's analysis ``art`` of ``poisson2d(ng)`` with values
+    ``val``), and their summed device time over one factorization."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import supernode as ksn
@@ -917,10 +993,11 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
     buckets = [bk for lvl in art.snode.schedule for bk in lvl]
     say(f"  panel shapes of the direct path's poisson2d({ng}): "
         f"{len(buckets)} buckets in {len(art.snode.schedule)} levels")
+    sink = art.nnzF
     C = torch.zeros(art.nnzF + 2, dtype=torch.float64, device=dev)
     C.index_add_(0, art.a2f, val)
     C[art.nnzF + 1] = 1.0
-    C[art.nnzF] = 7.25                   # pad slots gather NaN-free garbage
+    C[sink] = 7.25                       # pad slots read NaN-free garbage
     tau64 = math.sqrt(np.finfo(np.float64).eps) * float(val.abs().max())
 
     def ragged(bk):
@@ -929,47 +1006,54 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
         return bool((~live).any() and (w[live] < bk.wb).any()
                     and (r[live] < bk.rb).any())
 
-    widest = max(buckets, key=lambda b: (b.wb * b.rb, b.pidx.shape[0]))
-    most = max(buckets, key=lambda b: (b.pidx.shape[0], b.wb * b.rb))
+    nk_of = lambda b: b.wvec.shape[0]
+    widest = max(buckets, key=lambda b: (b.wb * b.rb, nk_of(b)))
+    most = max(buckets, key=lambda b: (nk_of(b), b.wb * b.rb))
     cands = [b for b in buckets if ragged(b)] or \
         [b for b in buckets if bool((b.wvec == 0).any())]
-    rag = max(cands, key=lambda b: (b.wb * b.rb, b.pidx.shape[0]))
+    rag = max(cands, key=lambda b: (b.wb * b.rb, nk_of(b)))
     cases = (("widest", widest), ("most lanes", most), ("ragged", rag))
     errs = {k: [] for k in PANEL_KERNELS}
     abs_err = dict.fromkeys(PANEL_KERNELS, 0.0)
     shapes = []
     for label, bk in cases:
-        k, wb = bk.pidx.shape[0], bk.wb
+        k, wb = nk_of(bk), bk.wb
+        slots = (bk.pidx, bk.qidx, bk.wvec, bk.rvec)
         aw = torch.arange(wb, device=dev)
         pair_bkm = (aw[None, :] % 2 == 0) & (aw[None, :] + 1 < bk.wvec[:, None])
         shapes.append(f"{label} (k={k}, wb={wb}, rb={bk.rb})")
         for dt in (torch.float64, torch.float32):
             tag = str(dt)[6:]
             tau = torch.tensor(tau64, dtype=dt, device=dev)
-            P0, Q0 = C[bk.pidx].to(dt), C[bk.qidx].to(dt)
+            C0 = C.to(dt)
             for pairs in (False, True):
                 bkm = pair_bkm if pairs else bk.bkm
-                Pk, Qk, nk = ksn.panel_factor(P0, Q0, bk.wvec, bk.rvec, tau,
-                                              bkm, pairs=pairs, guard=True)
+                Ck, Cp = C0.clone(), C0.clone()
+                nk = ksn.panel_factor_inplace(Ck, *slots, tau, bkm,
+                                              pairs=pairs, guard=True)
                 torch.cuda.synchronize()
-                Pp, Qp, npl = ref.sn_panel_factor_ref(
-                    P0, Q0, bk.wvec, bk.rvec, tau, bkm, pairs=pairs,
-                    guard=True)
-                e, ea = rel_err([Pk, Qk], [Pp, Qp], [Pp, Qp])
-                check(float(nk) == float(npl),
+                npl = ref.sn_panel_factor_inplace_ref(
+                    Cp, *slots, tau, bkm, pairs=pairs, guard=True)
+                e, ea = rel_err([Ck], [Cp], [Cp])
+                check(float(nk) == float(npl) and float(Ck[sink]) == 7.25,
                       f"panel_factor {label} {tag} pairs={pairs}: clamp "
-                      f"count {float(nk):.0f} equals the plain version's")
+                      f"count {float(nk):.0f} equals the plain version's, "
+                      f"sink untouched")
                 errs["panel_factor"].append((tag, e))
                 if tag == "float64":
                     abs_err["panel_factor"] = max(abs_err["panel_factor"], ea)
-                S = ksn.schur_update(Pk, Qk)
+                Sk, Sp = Ck.clone(), Ck.clone()
+                ksn.schur_update_inplace(Sk, *slots, bk.uidx, bk.uoff)
                 torch.cuda.synchronize()
-                e, ea = rel_err([S], [ref.sn_schur_ref(Pk, Qk)],
-                                [ref.sn_schur_ref(Pk.abs(), Qk.abs())])
+                ref.sn_schur_inplace_ref(Sp, *slots, bk.uidx)
+                e, ea = rel_err([Sk], [Sp], [Sp])
+                check(float(Sk[sink]) == 7.25,
+                      f"schur_update {label} {tag} pairs={pairs}: sink "
+                      f"untouched")
                 errs["schur_update"].append((tag, e))
                 if tag == "float64":
                     abs_err["schur_update"] = max(abs_err["schur_update"], ea)
-                D = Pk[:, :wb, :]
+                D = ref.sn_gather(Ck, bk.pidx)[:, :wb, :]
                 for mode in ("l", "lt", "u", "ut"):
                     for m in (1, 64):
                         y = torch.tensor(rng.normal(size=(k, wb, m)),
@@ -984,34 +1068,99 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
                         if tag == "float64":
                             abs_err["block_trsv"] = max(
                                 abs_err["block_trsv"], ea)
-    # -- time: one bucket of each case, and summed over one factorization --
-    acc = torch.zeros((), dtype=torch.float64, device=dev)
+                del Ck, Cp, Sk, Sp
+    # -- the whole factorization, kernels against plain, REPEATS times with
+    #    one `work` vector: the split lanes' cross-block protocol (the last
+    #    block of a lane writes D back and resets its counter) must give the
+    #    plain version's C every time and leave the counters at zero.  The
+    #    first run also records each bucket's panels as they enter
+    #    panel_factor (Cin) and the factors (Cf): the timed runs below start
+    #    from these, the main path's own values.
     tau = torch.tensor(tau64, dtype=torch.float64, device=dev)
-    ins = [(C[bk.pidx], C[bk.qidx]) for bk in buckets]
-    facs = [ksn.panel_factor(P, Q, bk.wvec, bk.rvec, tau, bk.bkm, nbad=acc)
-            for (P, Q), bk in zip(ins, buckets)]
-    Ds = [P[:, :bk.wb, :] for (P, _, _), bk in zip(facs, buckets)]
+    work = torch.zeros(max(nk_of(b) for b in buckets), dtype=torch.int32,
+                       device=dev)
+    split = sum(1 for bk in buckets for r in bk.rvec.tolist()
+                if _pf_blocks(r, bk.rb) > 1)
+
+    def factor(Cx, plain, Cin=None):
+        nb = torch.zeros((), dtype=Cx.dtype, device=dev)
+        for bk in buckets:
+            slots = (bk.pidx, bk.qidx, bk.wvec, bk.rvec)
+            if Cin is not None:
+                for t in (bk.pidx, bk.qidx):
+                    Cin[t.long()] = Cx[t.long()]
+            if plain:
+                nb += ref.sn_panel_factor_inplace_ref(
+                    Cx, *slots, tau, bk.bkm, pairs=bk.pairs)
+                ref.sn_schur_inplace_ref(Cx, *slots, bk.uidx)
+            else:
+                ksn.panel_factor_inplace(Cx, *slots, tau, bk.bkm,
+                                         pairs=bk.pairs, nbad=nb, work=work)
+                ksn.schur_update_inplace(Cx, *slots, bk.uidx, bk.uoff)
+        return float(nb)
+
+    Cp = C.clone()
+    nb_plain = factor(Cp, True)
+    Cin = C.clone()
+    rep_err = []
+    for rep in range(REPEATS):
+        Cf = C.clone()
+        nb_k = factor(Cf, False, Cin if rep == 0 else None)
+        torch.cuda.synchronize()
+        e, _ = rel_err([Cf], [Cp], [Cp])
+        rep_err.append(e)
+        check(e <= TOL_KERNEL["float64"] and nb_k == nb_plain
+              and float(Cf[sink]) == 7.25 and int(work.abs().sum()) == 0,
+              f"factorization {rep + 1}/{REPEATS} of poisson2d({ng}) on the "
+              f"kernels (one work vector; {split} lanes split over several "
+              f"blocks) matches the plain one ({e:.2e} <= "
+              f"{TOL_KERNEL['float64']:.0e}), clamp count {nb_k:.0f} == "
+              f"{nb_plain:.0f}, sink untouched, work counters back at zero")
+    del Cp
+    # -- time: one bucket of each case, and summed over one factorization,
+    #    each pass from the main path's values (panel_factor from Cin,
+    #    schur_update from Cf), restored off the clock
+    acc = torch.zeros((), dtype=torch.float64, device=dev)
+    Cw = C.clone()
+    reset = {"panel_factor": lambda: Cw.copy_(Cin),
+             "schur_update": lambda: Cw.copy_(Cf), "block_trsv": None}
+    lu_panels = [ref.sn_panel_mask(ref.sn_gather(Cin, bk.pidx),
+                                   ref.sn_gather(Cin, bk.qidx), bk.wvec,
+                                   bk.rvec)[0] for bk in buckets]
+    panels = [ref.sn_panel_mask(ref.sn_gather(Cf, bk.pidx),
+                                ref.sn_gather(Cf, bk.qidx), bk.wvec, bk.rvec)
+              for bk in buckets]
+    livepos = [torch.nonzero(ref.sn_target_mask(bk.rvec, bk.rb, dev)
+                             .reshape(-1))[:, 0] for bk in buckets]
+    distinct = {id(bk): int(bk.uidx.unique().numel()) for bk in buckets}
+    Ds = [ref.sn_gather(Cf, bk.pidx)[:, :bk.wb, :] for bk in buckets]
     Dm = [ref.sn_block_mask(D, bk.wvec) for D, bk in zip(Ds, buckets)]
-    ys = [torch.tensor(rng.normal(size=(bk.pidx.shape[0], bk.wb, 1)),
-                       device=dev) for bk in buckets]
+    ys = [torch.tensor(rng.normal(size=(nk_of(bk), bk.wb, 1)), device=dev)
+          for bk in buckets]
 
     def run(name, idx, impl):
         def one(i):
             bk = buckets[i]
+            slots = (bk.pidx, bk.qidx, bk.wvec, bk.rvec)
             if name == "panel_factor":
-                P, Q = ins[i]
                 if impl == "kernel":
-                    return ksn.panel_factor(P, Q, bk.wvec, bk.rvec, tau,
-                                            bk.bkm, nbad=acc)
-                return ref.sn_panel_factor_ref(P, Q, bk.wvec, bk.rvec, tau,
-                                               bk.bkm)
+                    return ksn.panel_factor_inplace(
+                        Cw, *slots, tau, bk.bkm, pairs=bk.pairs, nbad=acc,
+                        work=work)
+                return ref.sn_panel_factor_inplace_ref(Cw, *slots, tau,
+                                                       bk.bkm, pairs=bk.pairs)
             if name == "schur_update":
-                P, Q, _ = facs[i]
                 if impl == "kernel":
-                    return ksn.schur_update(P, Q)
+                    return ksn.schur_update_inplace(Cw, *slots, bk.uidx,
+                                                    bk.uoff)
                 if impl == "plain":
-                    return ref.sn_schur_ref(P, Q)
-                return torch.bmm(P[:, bk.wb:, :], Q)
+                    return ref.sn_schur_inplace_ref(Cw, *slots, bk.uidx)
+                P, Q = panels[i]
+                S = torch.bmm(P[:, bk.wb:, :], Q)        # the GEMM half
+                if impl == "library":
+                    return S
+                return Cw.index_add_(0, bk.uidx, S.reshape(-1).index_select(
+                    0, livepos[i]), alpha=-1)
             if impl == "kernel":
                 return ksn.block_trsv(Ds[i], ys[i], bk.wvec, bk.bkm, mode="l")
             if impl == "plain":
@@ -1025,26 +1174,43 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
     allidx = range(len(buckets))
     for name in PANEL_KERNELS:
         per_case = []
+        rs = reset[name]
         for label, bk in cases:
             i = next(j for j, b in enumerate(buckets) if b is bk)
-            b_, f_ = _panel_work(bk)[name]
+            b_, f_ = _panel_work(bk, distinct=distinct[id(bk)])[name]
             bms, bby = bound_ms(b_, f_, "float64")
             lib = None if name == "panel_factor" else \
                 cuda_ms(run(name, [i], "library"), 20)
             per_case.append(dict(
-                case=label, k=bk.pidx.shape[0], wb=bk.wb, rb=bk.rb,
-                ms=cuda_ms(run(name, [i], "kernel"), 20),
-                plain_ms=_sum_ms(run(name, [i], "plain"), reps=3),
+                case=label, k=nk_of(bk), wb=bk.wb, rb=bk.rb,
+                ms=cuda_ms(run(name, [i], "kernel"), 20, reset=rs),
+                plain_ms=_sum_ms(run(name, [i], "plain"), reps=3, reset=rs),
                 library_ms=lib, bound_ms=bms, bound_by=bby))
-        work = [_panel_work(bk)[name] for bk in buckets]
-        tb = sum(w[0] for w in work)
-        tf = sum(w[1] for w in work)
+        work_b = [_panel_work(bk, distinct=distinct[id(bk)])[name]
+                  for bk in buckets]
+        tb = sum(w[0] for w in work_b)
+        tf = sum(w[1] for w in work_b)
         bms, bby = bound_ms(tb, tf, "float64")
-        ms = _sum_ms(run(name, allidx, "kernel"))
-        plain = _sum_ms(run(name, allidx, "plain"), reps=2)
-        lib = None if name == "panel_factor" else \
-            _sum_ms(run(name, allidx, "library"))
-        wall = wall_ms(run(name, allidx, "kernel"), 3)
+        ms = _sum_ms(run(name, allidx, "kernel"), reset=rs)
+        plain = _sum_ms(run(name, allidx, "plain"), reps=2, reset=rs)
+        wall = wall_ms(run(name, allidx, "kernel"), 3, reset=rs)
+        extra, lib = {}, None
+        if name == "schur_update":       # no one call computes the fusion
+            extra = dict(
+                bmm_ms=_sum_ms(run(name, allidx, "library")),
+                bmm_index_add_ms=_sum_ms(run(name, allidx, "library+add"),
+                                         reset=rs))
+            lib_txt = (f"none (bmm alone {extra['bmm_ms']:.4f} ms, bmm + "
+                       f"index_add_ {extra['bmm_index_add_ms']:.4f} ms)")
+        elif name == "panel_factor":
+            lu_ms, why = _lu_yardstick(lu_panels)
+            extra = dict(lu_factor_ex_ms=lu_ms, lu_factor_ex_note=why)
+            lib_txt = ("none (lu_factor_ex, P half only, 1x1 pivots, no "
+                       "clamp: " + (f"{lu_ms:.4f} ms)" if lu_ms is not None
+                                    else f"not timed: {why})"))
+        else:
+            lib = _sum_ms(run(name, allidx, "library"))
+            lib_txt = f"{lib:.4f} ms"
         worst = {}
         for tag, e in errs[name]:
             worst[tag] = max(worst.get(tag, 0.0), e)
@@ -1055,11 +1221,12 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
                    + (", 1 sweep (mode l, m=1)" if name == "block_trsv"
                       else ", 1 factorization")),
             cases=per_case, max_rel_err=max(worst.values()),
-            max_abs_err=abs_err[name])
+            **(dict(repeat_rel_err=rep_err, split_lanes=split)
+               if name == "panel_factor" else {}),
+            max_abs_err=abs_err[name], **extra)
         say(f"  {name:13s} summed over {len(buckets)} buckets: {ms:.4f} ms "
             f"(host wall {wall:.3f} ms, plain {plain:.3f} ms, bound "
-            f"{bms:.4f} ms by {bby}, library "
-            f"{'-' if lib is None else '%.4f ms' % lib}); "
+            f"{bms:.4f} ms by {bby}, library {lib_txt}); "
             + "; ".join(f"{t} rel err {e:.2e} (limit {TOL_KERNEL[t]:.0e})"
                         for t, e in worst.items()))
         for c in per_case:
@@ -1067,12 +1234,13 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
             say(f"    {c['case']:10s} (k={c['k']}, wb={c['wb']}, "
                 f"rb={c['rb']}): {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} "
                 f"ms, bound {c['bound_ms']:.4f} ms by {c['bound_by']}, "
-                f"library {'-' if lib_c is None else '%.4f ms' % lib_c}")
+                f"{'bmm' if name == 'schur_update' else 'library'} "
+                f"{'-' if lib_c is None else '%.4f ms' % lib_c}")
         for t, e in worst.items():
             check(e <= TOL_KERNEL[t], f"{name} {t} matches its plain version "
                   f"at {', '.join(shapes)} ({e:.2e} <= {TOL_KERNEL[t]:.0e})")
     out["panel_kernel_phase"] = dict(n_buckets=len(buckets), kernels=res)
-    del ins, facs, Ds, Dm, ys, C
+    del panels, lu_panels, livepos, Ds, Dm, ys, C, Cw, Cin, Cf
     torch.cuda.empty_cache()
     return res
 
@@ -1166,6 +1334,19 @@ def direct_path(dev, ng, seed, out, keep):
         os.path.join(OUT, "direct_solve_trace.json"))
     busy = {"factorize": kern["factorize"][1] / fact_wall,
             "solve": kern["solve"][1] / solve_ms}
+    # the factorization's device ops: the two panel kernels once per
+    # bucket, and only the set-up besides (assembly, pivot scale, counters)
+    ftop = kern["factorize"][2]
+    fk = {key: [(ms, c) for ms, c, name in ftop if pat in name]
+          for key, pat in (("panel_factor", "panel_factor_kernel"),
+                           ("schur_update", "schur_kernel"))}
+    fact_kernels = {key: dict(launches=sum(c for _, c in v),
+                              ms=sum(ms for ms, _ in v))
+                    for key, v in fk.items()}
+    others = [(ms, c, name) for ms, c, name in ftop
+              if "panel_factor_kernel" not in name
+              and "schur_kernel" not in name]
+    n_others = sum(c for _, c, _ in others)
     say(f"  direct path poisson2d({ng}) (n={n}): backend={plan.cfg.backend} "
         f"method={plan.cfg.method} supernodal={art.snode is not None} "
         f"buckets={nb} levels={len(art.snode.schedule)} "
@@ -1182,6 +1363,13 @@ def direct_path(dev, ng, seed, out, keep):
             f"in {wall:.1f} ms of wall (device busy {busy[stage]:.0%}); "
             + "; ".join(f"{name[:60]} {ms:.2f} ms ×{c}"
                         for ms, c, name in top[:5]))
+    say(f"  factorize trace: panel_factor ×"
+        f"{fact_kernels['panel_factor']['launches']} "
+        f"{fact_kernels['panel_factor']['ms']:.4f} ms, schur_update ×"
+        f"{fact_kernels['schur_update']['launches']} "
+        f"{fact_kernels['schur_update']['ms']:.4f} ms; {n_others} other "
+        f"device ops: " + "; ".join(f"{name[:50]} ×{c}"
+                                    for _, c, name in others))
     say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}; "
         f"block_trsv by mode {json.dumps(modes)}")
     say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}; "
@@ -1214,6 +1402,12 @@ def direct_path(dev, ng, seed, out, keep):
           f"direct path: panel_factor and schur_update launched once per "
           f"bucket ({launches['panel_factor']}, {launches['schur_update']} "
           f"== {nb})")
+    check(fact_kernels["panel_factor"]["launches"] == nb
+          and fact_kernels["schur_update"]["launches"] == nb
+          and n_others <= 32,
+          f"direct path: a refactorization runs panel_factor and "
+          f"schur_update once per bucket and {n_others} other device ops "
+          f"(<= 32: no per-bucket gather, scatter or index_add_)")
     check(launches["block_trsv"] == 4 * nb,
           f"direct path: block_trsv launched 4 × buckets "
           f"({launches['block_trsv']} == {4 * nb})")
@@ -1231,6 +1425,7 @@ def direct_path(dev, ng, seed, out, keep):
         first_solve_s=t3 - t2, backward_s=t4 - t3, solve_ms=solve_ms,
         refactorize_solve_s=t6 - t5, cg_run_s=t8 - t7, true_residual=relres,
         refactorize_wall_ms=fact_wall, device_busy=busy,
+        factorize_kernels=fact_kernels, factorize_other_ops=n_others,
         kernel_breakdown={k: dict(kernels=v[0], kernel_ms=v[1], top=v[2])
                           for k, v in kern.items()},
         grad_rel_diff=gerr, plan_nbytes=nbytes, peak_gb=peak,
@@ -1764,31 +1959,45 @@ def lm_path(dev, seed, out):
 
 # ---------------------------------------------------------------------------
 
+#: the kernels whose registers, shared memory and spills the script prints
+KERNEL_ENTRIES = ("sell_spmv_kernel", "panel_factor_kernel", "schur_kernel",
+                  "tc_kernel", "simt_kernel")
+
+
+def _targs(mangled):
+    """Template arguments of a mangled kernel name, as C++ writes them:
+    ``dLi32ELb0E`` → ``double, 32, false``."""
+    import re
+    names = {"d": "double", "f": "float"}
+    return ", ".join(
+        names[t] if t else (("false", "true")[int(v)] if b == "b" else v)
+        for t, b, v in re.findall(r"([df])|L([ib])(\d+)E?", mangled))
+
+
 def ptxas_report(log, sources):
-    """One line per kernel of ``sources`` from nvcc's ``-Xptxas -v`` output:
-    registers, static shared memory and spills (the flash kernels' dynamic
-    shared memory beside them)."""
+    """One line per kernel of ``KERNEL_ENTRIES`` in ``sources`` from nvcc's
+    ``-Xptxas -v`` output: registers, static shared memory and spills (the
+    flash kernels' dynamic shared memory beside them)."""
     import re
     from repro_torch.kernels import _build
-    entries, src = [], None
+    entries, src, cur = [], None, None
     for ln in log.splitlines():
         if ln.startswith("== nvcc"):
-            src = ln.split()[2]
-        elif src not in sources:
-            continue
+            src, cur = ln.split()[2], None
         elif "Compiling entry function" in ln:
-            m = re.search(r"(sell_spmv_kernel|tc_kernel|simt_kernel)I(?:Li)?"
-                          r"(\w+?)E", ln)
-            entries.append(dict(name=f"{m.group(1)}<{m.group(2)}>" if m
-                                else ln.split("'")[1], spill="", regs="?",
-                                smem="0"))
-        elif entries and "spill" in ln:
-            entries[-1]["spill"] = ln.strip()
-        elif entries and "Used" in ln and "registers" in ln:
-            entries[-1]["regs"] = re.search(r"Used (\d+) registers",
-                                            ln).group(1)
+            m = re.search(r"\d(" + "|".join(KERNEL_ENTRIES) + r")I(\w+?)EEv",
+                          ln)
+            cur = None
+            if src in sources and m is not None:
+                cur = dict(name=f"{m.group(1)}<{_targs(m.group(2))}>",
+                           spill="", regs="?", smem="0")
+                entries.append(cur)
+        elif cur is not None and "spill" in ln:
+            cur["spill"] = ln.strip()
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["regs"] = re.search(r"Used (\d+) registers", ln).group(1)
             m = re.search(r"(\d+) bytes smem", ln)
-            entries[-1]["smem"] = m.group(1) if m else "0"
+            cur["smem"] = m.group(1) if m else "0"
     out = []
     for e in entries:
         dyn = ""
@@ -1833,7 +2042,7 @@ def main():
         fh.write(_build.BUILD_LOG)
     say(f"kernel build: {build_s:.2f} s (nvcc: "
         f"{_build.LAST_BUILD_SECONDS if _build.LAST_BUILD_SECONDS is not None else 'cached'})")
-    for line in ptxas_report(_build.BUILD_LOG, ("spmv_bell.cu",
+    for line in ptxas_report(_build.BUILD_LOG, ("spmv_bell.cu", "supernode.cu",
                                                 "flash_attention.cu")):
         say(line)
     out = dict(card=card, build_s=build_s,

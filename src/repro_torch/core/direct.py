@@ -13,18 +13,20 @@ only where it runs — when no supernodal program is emitted, or for
 8 GB).  Their step count and update count still fill ``stats``.
 
 ``to_device(art, device)`` places the artifacts on a device once, at
-analyze time: index arrays as int64 (the type torch indexing takes), plus
-per-bucket masks and row splits the sweeps read.
+analyze time: the panel slot tables as int32 (the kernels read them), the
+extend-add targets as a live-only int32 table with per-lane offsets, the
+other index arrays as int64, plus per-bucket masks and row splits the
+sweeps read.
 
 ``numeric_factor(dart, val)`` — the setup stage.  Supernodal: per bucket,
-gather the panels from ``C``, factor them (``panel_factor`` kernel),
-scatter them back, form the Schur update (``schur_update`` kernel) and
-extend-add it with ``index_add_``.  Otherwise the scalar packed scan, a
-Python loop over its steps (ILU(0), and patterns the supernodal gate
-declines).  ``factored_solve(dart, C, b)`` — the solve stage: supernodal
-sweeps (``block_trsv`` kernel + panel GEMVs in ``torch.einsum``) or the
-scalar sweeps; ``b`` may be (n,) or (n, m).  ``factor_slogdet`` —
-(sign, log|det A|) from the factors, pair aware.
+two kernels that work on ``C`` in place through the slot tables:
+``panel_factor`` factors the panels, ``schur_update`` subtracts the Schur
+product straight from the ancestors' slots (the extend-add).  Otherwise
+the scalar packed scan, a Python loop over its steps (ILU(0), and patterns
+the supernodal gate declines).  ``factored_solve(dart, C, b)`` — the solve
+stage: supernodal sweeps (``block_trsv`` kernel + panel GEMVs in
+``torch.einsum``) or the scalar sweeps; ``b`` may be (n,) or (n, m).
+``factor_slogdet`` — (sign, log|det A|) from the factors, pair aware.
 
 Storage layout of the factor vector ``C`` (length ``nnzF + 2``), as in the
 reference::
@@ -32,13 +34,14 @@ reference::
     C[0:n]              pivots  U[k,k]              (permuted order)
     C[n:n+nnzL]         L entries, column-major     (unit diagonal implicit)
     C[n+nnzL:nnzF]      U entries, mirror-aligned   (U[j,k] at mirror of L[k,j])
-    C[nnzF]             scratch 0  (padding sink for scatter/gather)
+    C[nnzF]             scratch 0  (the pads' slot; never written)
     C[nnzF+1]           scratch 1  (padding divisor — keeps pads NaN-free)
 
-The scalar program reads ``C[nnzF]`` as a scratch zero; the supernodal one
-dumps pad writes there, so one ``C`` only ever runs one of the programs.
-On CUDA the extend-add ``index_add_`` sums sibling lanes' updates with
-atomics, so f64 factors can differ in the last bits from run to run.
+The scalar program reads ``C[nnzF]`` as a scratch zero; the supernodal
+one's pad slots all name it, and its kernels read them masked and never
+write them.  On CUDA ``schur_update`` sums sibling lanes' updates into a
+shared target with atomics, so f64 factors can differ in the last bits from
+run to run.
 """
 from __future__ import annotations
 
@@ -92,7 +95,9 @@ class SnodeBucket(NamedTuple):
     arrays address ``C``: ``pidx`` (k, wb+rb, wb) the P panel, ``qidx``
     (k, wb, rb) the U panel, ``uidx`` (k, rb, rb) the extend-add targets,
     ``rows`` (k, wb+rb) permuted row ids (pads → n), ``bkm`` (k, wb) pair
-    starts.  The trailing fields are set by :func:`to_device` only:
+    starts.  On the device (:func:`to_device`) ``uidx`` is live-only: the
+    concatenated r×r blocks of the lanes, lane l's at ``uoff[l]``.  The
+    trailing fields are set by :func:`to_device` only: ``uoff`` (k+1,),
     ``didx`` the diagonal-block slots, ``rows_b``/``rows_s`` the two halves
     of ``rows``, ``tw`` (k, wb, 1) the true-column mask and ``pmask``
     (k, rb, wb) / ``qmask`` (k, wb, rb) the panel masks of the sweeps."""
@@ -106,6 +111,7 @@ class SnodeBucket(NamedTuple):
     wvec: np.ndarray         # (k,) true widths
     rvec: np.ndarray         # (k,) true sub-row counts
     bkm: np.ndarray
+    uoff: Optional[torch.Tensor] = None
     didx: Optional[torch.Tensor] = None
     rows_b: Optional[torch.Tensor] = None
     rows_s: Optional[torch.Tensor] = None
@@ -1154,17 +1160,30 @@ def _program_on(p, device):
     return None if p is None else type(p)(*[_on(a, device) for a in p])
 
 
+def _live_targets(bk: SnodeBucket) -> Tuple[np.ndarray, np.ndarray]:
+    """The extend-add targets of a (numpy) bucket without their pads: lane
+    l's r_l × r_l block of ``uidx``, row-major, lanes concatenated, and the
+    (k+1,) lane offsets."""
+    from ..kernels.ref import sn_target_mask
+    r = bk.rvec.astype(np.int64)
+    live = sn_target_mask(torch.from_numpy(r), bk.rb, "cpu").numpy()
+    return (np.ascontiguousarray(bk.uidx[live], dtype=np.int32),
+            np.concatenate([[0], np.cumsum(r * r)]))
+
+
 def _bucket_on(bk: SnodeBucket, device) -> SnodeBucket:
     wb, rb = bk.wb, bk.rb
     tw = np.arange(wb)[None, :] < bk.wvec[:, None]
     ta = np.arange(rb)[None, :] < bk.rvec[:, None]
+    tgt, uoff = _live_targets(bk)
+    i32 = torch.int32
     return bk._replace(
-        pidx=_on(bk.pidx, device), qidx=_on(bk.qidx, device),
-        uidx=_on(bk.uidx.reshape(-1), device), rows=_on(bk.rows, device),
-        wvec=_on(bk.wvec, device, torch.int32),
-        rvec=_on(bk.rvec, device, torch.int32),
+        pidx=_on(bk.pidx, device, i32), qidx=_on(bk.qidx, device, i32),
+        uidx=_on(tgt, device, i32), uoff=_on(uoff, device),
+        rows=_on(bk.rows, device),
+        wvec=_on(bk.wvec, device, i32), rvec=_on(bk.rvec, device, i32),
         bkm=_on(bk.bkm, device, torch.bool),
-        didx=_on(bk.pidx[:, :wb, :], device),
+        didx=_on(bk.pidx[:, :wb, :], device, i32),
         rows_b=_on(bk.rows[:, :wb], device),
         rows_s=_on(bk.rows[:, wb:], device),
         tw=_on(tw[:, :, None], device, torch.bool),
@@ -1174,12 +1193,18 @@ def _bucket_on(bk: SnodeBucket, device) -> SnodeBucket:
 
 def to_device(art: DirectArtifacts, device) -> DirectArtifacts:
     """The artifacts with every array on ``device`` — done once per pattern
-    at analyze time, never per factorization or solve.  Index arrays become
-    int64 (``uidx`` flattened for ``index_add_``), ``wvec``/``rvec`` int32
-    and ``bkm`` bool for the kernels."""
+    at analyze time, never per factorization or solve.  The panel kernels'
+    slot tables (``pidx``, ``qidx``, ``didx``) become int32 and ``uidx`` the
+    live-only int32 target table with its int64 lane offsets ``uoff``
+    (:func:`_live_targets`; every slot of ``C`` fits in int32), ``wvec``/
+    ``rvec`` int32 and ``bkm`` bool; the other index arrays int64 (the type
+    torch indexing takes)."""
     device = torch.device(device)
     sn = art.snode
     if sn is not None:
+        if art.nnzF + 2 > np.iinfo(np.int32).max:
+            raise ValueError(f"direct: {art.nnzF + 2} factor slots exceed "
+                             f"the panel kernels' int32 slot indices")
         sn = sn._replace(
             schedule=tuple(tuple(_bucket_on(bk, device) for bk in lvl)
                            for lvl in sn.schedule),
@@ -1217,20 +1242,23 @@ def _warn_perturbed(n_bad: int, tau: float) -> None:
 
 def _snode_numeric(art: DirectArtifacts, C: torch.Tensor, tau, guard: bool):
     """The supernodal factorization schedule over the assembled C, level by
-    level.  Pad slots all point at the scratch sink: colliding pad writes
-    are masked values and every later gather re-masks, so the sink's value
-    is never observed.  Returns (C, nbad) with nbad a device scalar."""
+    level, two kernels per bucket, both in place in C: ``panel_factor``,
+    then ``schur_update`` into the ancestors' slots.  Within a level this is
+    sound: a bucket's lanes own disjoint columns, and its extend-add targets
+    lie in ancestors, which are on higher levels.  Pad slots all name the
+    scratch sink, which is read masked and never written.  Returns (C, nbad)
+    with nbad a device scalar."""
     from ..kernels import supernode as ksn
     nbad = torch.zeros((), dtype=C.dtype, device=C.device)
+    k_max = max(bk.wvec.shape[0] for lvl in art.snode.schedule for bk in lvl)
+    work = torch.zeros(k_max, dtype=torch.int32, device=C.device)
     for lvl in art.snode.schedule:
         for bk in lvl:
-            P, Q, _ = ksn.panel_factor(C[bk.pidx], C[bk.qidx], bk.wvec,
-                                       bk.rvec, tau, bk.bkm, pairs=bk.pairs,
-                                       guard=guard, nbad=nbad)
-            S = ksn.schur_update(P, Q)
-            C[bk.pidx] = P
-            C[bk.qidx] = Q
-            C.index_add_(0, bk.uidx, S.reshape(-1), alpha=-1)
+            ksn.panel_factor_inplace(C, bk.pidx, bk.qidx, bk.wvec, bk.rvec,
+                                     tau, bk.bkm, pairs=bk.pairs, guard=guard,
+                                     nbad=nbad, work=work)
+            ksn.schur_update_inplace(C, bk.pidx, bk.qidx, bk.wvec, bk.rvec,
+                                     bk.uidx, bk.uoff)
     return C, nbad
 
 
@@ -1307,14 +1335,15 @@ def _sn_sweep(bk: SnodeBucket, C, y, mode: str):
     solve with pivots); ``"ut"``/``"lt"`` the transposed mirrors on the same
     factors.  Every write to the scratch row is a masked zero."""
     from ..kernels import supernode as ksn
+    from ..kernels.ref import sn_gather
     wb = bk.wb
     if mode in ("l", "lt"):
-        P = C[bk.pidx]
+        P = sn_gather(C, bk.pidx)
         D = P[:, :wb, :]
         Pp = torch.where(bk.pmask, P[:, wb:, :], 0.0)
     else:
-        D = C[bk.didx]
-        Qm = torch.where(bk.qmask, C[bk.qidx], 0.0)
+        D = sn_gather(C, bk.didx)
+        Qm = torch.where(bk.qmask, sn_gather(C, bk.qidx), 0.0)
     m = y.shape[1]
     if mode == "l":
         yb = ksn.block_trsv(D, y[bk.rows_b], bk.wvec, bk.bkm, mode=mode,

@@ -54,7 +54,7 @@ _SIGNATURES = {
     "fused_step": [_I, _I, _PP, _PP, _PP, _P, _P, _P, _L, _I, _P],
     "sn_panel_factor": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P],
-    "sn_schur_update": [_I, _P, _P, _P, _I, _I, _I, _P],
+    "sn_schur_update": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "sn_block_trsv": [_I, _I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P],
     "flash_attention_f32": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
                             _I, _P],

@@ -1,32 +1,53 @@
 // Supernodal panel kernels of the sparse direct solver, on Hopper:
-// panel_factor, schur_update and block_trsv.
+// panel_factor, schur_update (fused with the extend-add) and block_trsv.
 //
 // Replaces the TPU kernels of repro/kernels/supernode.py: panel_factor (its
 // pallas_call at supernode.py:73), schur_update (:123) and block_trsv
 // (:158).  The TPU versions run one supernode lane per grid step with the
-// whole (wb+rb, wb) panel and its (wb, rb) U panel resident in VMEM and call
-// the reference's single-lane bodies on them.  A Hopper block has at most
-// 227 KB of shared memory, and the widest bucket of poisson2d(316) is
-// (wb, rb) = (32, 1024): P is 270 KB and Q 262 KB in f64.  So:
+// whole (wb+rb, wb) panel and its (wb, rb) U panel resident in VMEM; the
+// reference's numeric loop gathers the panels from the factor vector C,
+// scatters them back and scatter-adds the Schur product S into the
+// ancestors' slots.  Here the two factorization kernels read and write C
+// in place through the bucket's int32 slot tables (pidx (k, wb+rb, wb),
+// qidx (k, wb, rb)): no panel is gathered or scattered by a separate pass,
+// and no pad slot is written.
 //
-// * panel_factor: one block per lane.  Only the masked (wb x wb) diagonal
-//   block D sits in shared memory (<= 8 KB); it is factored in order over t,
-//   1x1 or as a static 2x2 Bunch-Kaufman pair, exactly as the reference's
-//   sn_panel_factor_body.  After that the rb sub-panel rows and the rb U
-//   columns are independent of each other: one thread per sub-row replays
-//   the column eliminations on its row (l = P[i,t]/d_t or the 2x2 solve,
-//   P[i,j] -= l*U[t,j]) on a copy of the row in its slice of shared
-//   memory (<= 34 KB per block), one thread per U column
-//   replays Q[a,c] -= L[a,t]*Q[t,c].  Both read the final D (its row t past
-//   the diagonal is U[t,:] as it stood at step t, its column t below the
-//   diagonal is L[:,t]) and stream through device memory.  Pad rows,
-//   columns and lanes are masked here, since gathered pad slots hold
-//   garbage.  Each lane adds its count of clamped pivots to one device
-//   scalar (nbad), read on the host once per factorization.
-// * schur_update: a tiled batched GEMM S = L_sub (rb x wb) * U (wb x rb).
-//   The grid runs over (lane group, 32x32 output tile); the L_sub rows and
-//   U columns of a tile, for the whole depth wb <= 32, sit in shared memory
-//   in one stage.  Buckets with rb < 32 put several lanes in one block.
+// * panel_factor: grid (lane, item tile).  A lane's rb sub-panel rows and
+//   rb U columns are independent of each other once the (wb x wb) diagonal
+//   block D is factored, so they are cut into tiles of up to 128 items, one
+//   thread per item: a one-lane (32, 1024) bucket runs on 16 blocks, not one.
+//   Each block first stages the slot tables of D and of its items in shared
+//   memory with coalesced loads, then loads the values (each load level
+//   issued unrolled, so a block waits for two memory latencies, not one per
+//   element).  The block factors the masked D in shared memory, all threads
+//   at once — per step t a column scale, a barrier, the rank-1 update of
+//   the trailing block (one column a thread), a barrier — 1x1 with the
+//   clamp or as a static 2x2 Bunch-Kaufman pair, exactly as the reference's
+//   sn_panel_factor_body.  Then each thread keeps its row or column x[WBC]
+//   in registers (the t/j loops unroll on the compile-time width, so
+//   nothing is runtime-indexed) and replays the column eliminations against
+//   the final D: l = x[t]/d_t or the 2x2 solve, x[j] -= l*U[t,j] for a row;
+//   x[a] -= L[a,t]*x[t] for a column.  Consecutive items hold consecutive
+//   slots, so the value loads and stores are coalesced.  Every block of a
+//   lane reads D; the last one to have read it (a per-lane counter in
+//   `work`, reset by that block) writes the factored D back and adds the
+//   lane's clamped-pivot count to nbad.  No block reads C after it has
+//   counted itself, and the items of a lane's blocks are disjoint slots, so
+//   no block can read a value another block of the launch wrote.  What
+//   bounds it on the card is not
+//   bytes but the serial chain of its 2*wb dependent steps, each with an
+//   f64 division, and the fixed cost of a launch (PERF.md, kernel table).
+// * schur_update: C[tgt(l,i,j)] -= sum_c L_sub[l,i,c] * U[l,c,j] for every
+//   live lane l and i, j < r_l.  The grid runs over (lane group, 32x32
+//   output tile); tiles at or beyond r_l exit, buckets with rb < 32 put
+//   several lanes in one block.  The tile's L_sub rows and U columns, for
+//   the whole depth w <= 32, are gathered from C into shared memory; each
+//   sum runs over c in order with explicit fma(), and goes out through
+//   atomicAdd(&C[t], -s): sibling lanes may share a target.  The targets
+//   are the live-only int32 table (per lane an r x r block at offset
+//   toff[l]), so no pad product is formed and no atomic lands on the
+//   scratch sink.  Atomics sum siblings in no fixed order: f64 factors can
+//   differ in the last bits from run to run.
 // * block_trsv: one warp per (lane, right-hand side); thread i holds x[i]
 //   (wb <= 32), the masked block D sits in shared memory, and x[t] is
 //   broadcast with __shfl_sync.  Modes l / lt / u / ut and the pair branch
@@ -38,8 +59,12 @@
 //
 // Bounds (f64 at 3.35 TB/s): panel_factor and block_trsv read and write
 // their panels once and do O(wb) flops per word: bytes.  schur_update does
-// 2*wb flops per output word; at wb = 32, 64 flops per 8 bytes written
-// plus the panels read, below the card's f64 balance point: bytes as well.
+// 2*w flops per target, which it reads and writes once with its 4-byte
+// index (20 bytes): 64 flops per 20 bytes at w = 32, below the card's f64
+// balance point (~10 flops per byte), so bytes as well.  Tensor cores are
+// not used: at wb <= 32 neither kernel is bound by its operations, and
+// -fmad=false forbids the contraction an f64 mma would make of the factor's
+// a - b*c updates.
 #include "common.cuh"
 
 #include <float.h>
@@ -78,272 +103,460 @@ __device__ __forceinline__ T pair_det(T a, T b, T c, T e, bool* bad) {
 // panel_factor
 // ---------------------------------------------------------------------------
 
-constexpr int kPfThreads = 128;
-constexpr int kOneByOne = 0, kPairStart = 1, kPairSecond = 2;
+constexpr int kPfMaxThreads = 128;
 
+template <typename T, int WBC>
+struct PanelShared {
+  T D[WBC][WBC + 1];                   // the factored diagonal block
+  T deff[WBC], detc[WBC];              // 1x1 divisor, clamped pair det
+  unsigned one, pair;                  // steps t that are 1x1 / pair starts
+  int last;                            // this block writes D back
+  int32_t didx[WBC * WBC];             // D's slots in C
+  int32_t idx[kPfMaxThreads][WBC + 1]; // each item's slots in C
+};
+
+// Grid (lane, tile of up to 128 items); thread it of a tile takes sub-row
+// it, or U column it - rb, of the lane.  The slot tables of D and of the
+// tile come in first, coalesced (consecutive threads on consecutive
+// words), into shared memory; then the items' values and D, every load of
+// a level independent and unrolled: a block waits for two memory
+// latencies, not one per element.
 template <typename T, int WBC, bool PAIRS>
-__global__ void __launch_bounds__(kPfThreads)
-panel_factor_kernel(const T* __restrict__ P, const T* __restrict__ Q,
-                    T* __restrict__ Po, T* __restrict__ Qo,
+__global__ void __launch_bounds__(kPfMaxThreads)
+panel_factor_kernel(T* __restrict__ C, const int32_t* __restrict__ pidx,
+                    const int32_t* __restrict__ qidx,
                     const int32_t* __restrict__ wvec,
                     const int32_t* __restrict__ rvec,
                     const T* __restrict__ tau_p,
                     const uint8_t* __restrict__ bkm, T* __restrict__ nbad,
-                    int wb, int rb, int guard) {
-  __shared__ T D[WBC][WBC + 1];
-  __shared__ T xs[kPfThreads][WBC + 1];      // f64, WBC = 32: 33.8 KB
-  __shared__ T deff_s[WBC], dc_s[WBC], detc_s[WBC];
-  __shared__ int kind_s[WBC];
+                    int32_t* __restrict__ work, int wb, int rb, int guard) {
+  __shared__ PanelShared<T, WBC> sm;
   const int lane = blockIdx.x;
+  const int tile = blockIdx.y;
+  const int tpb = blockDim.x;
   const int tid = threadIdx.x;
   const int w = wvec[lane];
   const int r = rvec[lane];
-  const T tau = *tau_p;
-  const size_t m = (size_t)wb + rb;
-  const T* p = P + (size_t)lane * m * wb;
-  const T* q = Q + (size_t)lane * wb * rb;
-  T* po = Po + (size_t)lane * m * wb;
-  T* qo = Qo + (size_t)lane * wb * rb;
-  const uint8_t* bk = bkm + (size_t)lane * wb;
+  // items: sub-rows 0..rb-1, then U columns rb..2rb-1; the first r of each
+  // half are live
+  auto holds = [&](int y) {
+    const int a = y * tpb;
+    return r > 0 && (a < r || (a < rb + r && a + tpb > rb));
+  };
+  if (tile != 0 && !holds(tile)) return;
+  int npart = 0;                        // blocks of this lane that run
+  for (int y = 0; y < (int)gridDim.y; ++y) npart += (y == 0 || holds(y));
 
-  // 1. the masked diagonal block: pad rows/cols zero, unit pad diagonal
-  for (int e = tid; e < wb * wb; e += kPfThreads) {
-    const int i = e / wb, j = e % wb;
-    const T v = (i < w && j < w) ? p[e] : T(0);
-    D[i][j] = v + ((i == j && j >= w) ? T(1) : T(0));
+  const size_t m = (size_t)wb + rb;
+  const int32_t* pl = pidx + (size_t)lane * m * wb;
+  const int32_t* ql = qidx + (size_t)lane * wb * rb;
+  const int it0 = tile * tpb;
+  const int it = it0 + tid;
+  const bool is_row = it < rb;
+  const int q = is_row ? it : it - rb;
+  const bool has = it < 2 * rb && q < r;
+
+  // 1. slot tables: D's, the tile's sub-rows' (one contiguous run), and this
+  //    thread's U column (consecutive threads, consecutive columns)
+  const int nd = wb * wb;
+#pragma unroll
+  for (int k = 0; k < (WBC * WBC + 31) / 32; ++k) {
+    const int e = tid + k * tpb;
+    if (e < nd) sm.didx[e] = pl[e];
+  }
+  const int nrow = max(0, min(it0 + tpb, r) - it0);    // live sub-rows of the tile
+  const int32_t* prow = pl + ((size_t)wb + it0) * wb;
+#pragma unroll
+  for (int k = 0; k < WBC; ++k) {
+    const int e = tid + k * tpb;
+    if (e < nrow * wb) {
+      const int i = wb == WBC ? e / WBC : e / wb;
+      sm.idx[i][e - i * wb] = prow[e];
+    }
+  }
+  if (!is_row && has) {
+#pragma unroll
+    for (int j = 0; j < WBC; ++j)
+      if (j < w) sm.idx[tid][j] = ql[(size_t)j * rb + q];
+  }
+  const T tau = *tau_p;
+  __syncthreads();
+
+  // 2. values: this thread's item (masked as the plain version masks P, Q)
+  //    and the block's share of the masked D (pad rows/cols zero, unit pad
+  //    diagonal; zero past wb)
+  T x[WBC];
+#pragma unroll
+  for (int j = 0; j < WBC; ++j) {
+    const T v = (has && j < w) ? C[sm.idx[tid][j]] : T(0);
+    x[j] = is_row ? v + T(0) : v;
+  }
+#pragma unroll
+  for (int k = 0; k < (WBC * WBC + 31) / 32; ++k) {
+    const int e = tid + k * tpb;
+    if (e < WBC * WBC) {
+      const int i = e / WBC, j = e % WBC;
+      T v = T(0);
+      if (i < wb && j < wb)
+        v = ((i < w && j < w) ? C[sm.didx[i * wb + j]] : T(0))
+            + ((i == j && j >= w) ? T(1) : T(0));
+      sm.D[i][j] = v;
+    }
+  }
+  __syncthreads();
+  // This block has read all it reads of C (its values are in registers and
+  // shared memory); from here on it only writes C, to its own items.  The
+  // last block of the lane to count itself writes D back: by then every
+  // block of the lane has counted itself, so has read D.  The fences make
+  // the count a release (reads before it) and, in the last block, an
+  // acquire (D's writes after it).  The last block resets the counter for
+  // the next bucket, which runs after this launch in stream order.
+  T nb = T(0);
+  if (tid == 0) {
+    int last = 1;
+    if (npart > 1) {
+      __threadfence();
+      last = atomicAdd(work + lane, 1) == npart - 1;
+      if (last) {
+        work[lane] = 0;
+        __threadfence();
+      }
+    }
+    sm.last = last;
+  }
+
+  // 3. factor D by the whole block, in shared memory: per step a column
+  //    scale, a barrier, the rank-1 (or pair: rank-2) update of the trailing
+  //    block — thread (rg, tj) takes column t+1+tj of rows t+1+rg, t+1+rg+ng,
+  //    ... — and a barrier
+  {
+    const int tj = tid & 31, rg = tid >> 5, ng = tpb >> 5;
+    unsigned bk = 0u, one = 0u, pair = 0u;
+    if (PAIRS) {
+#pragma unroll
+      for (int t = 0; t < WBC; ++t)
+        if (t < wb && bkm[(size_t)lane * wb + t] != 0) bk |= 1u << t;
+    }
+    for (int t = 0; t < wb; ++t) {
+      const bool start = PAIRS && ((bk >> t) & 1u);
+      const bool second = PAIRS && t > 0 && ((bk >> (t - 1)) & 1u);
+      if (second && !start) continue;          // eliminated with its start
+      if (!start) {
+        const T d = sm.D[t][t];
+        const bool bad1 = guard && absv(d) < tau;
+        const T dc = bad1 ? (d < T(0) ? -tau : tau) : d;
+        nb += bad1 ? T(1) : T(0);
+        const int i = t + 1 + tid;
+        const T colL = i < wb ? sm.D[i][t] / dc : T(0);
+        __syncthreads();                       // all have read D[t][t]
+        if (i < wb) sm.D[i][t] = colL;
+        if (tid == 0) {
+          sm.D[t][t] = dc;
+          sm.deff[t] = dc;
+          sm.detc[t] = T(1);
+        }
+        __syncthreads();
+        const int j = t + 1 + tj;
+        if (j < wb) {
+          const T u = sm.D[t][j];
+          for (int ii = t + 1 + rg; ii < wb; ii += ng)
+            sm.D[ii][j] = sm.D[ii][j] - sm.D[ii][t] * u;
+        }
+        one |= 1u << t;
+      } else {
+        // t1 = t + 1 inside the block; t itself at the last column, where
+        // no row lies below the pair
+        const int t1 = min(t + 1, wb - 1);
+        const T a = sm.D[t][t], b = sm.D[t][t1];
+        const T c = sm.D[t1][t], e = sm.D[t1][t1];
+        bool bad2;
+        const T dt = pair_det(a, b, c, e, &bad2);
+        nb += bad2 ? T(1) : T(0);
+        const int i = t1 + 1 + tid;
+        T lu = T(0), lv = T(0);
+        if (i < wb) {
+          const T u = sm.D[i][t], v = sm.D[i][t1];
+          lu = (u * e - v * c) / dt;
+          lv = (v * a - u * b) / dt;
+        }
+        __syncthreads();
+        if (i < wb) {
+          sm.D[i][t] = lu;
+          sm.D[i][t1] = lv;
+        }
+        if (tid == 0) {
+          sm.deff[t] = T(1);
+          sm.detc[t] = dt;
+        }
+        __syncthreads();
+        const int j = t1 + 1 + tj;
+        if (j < wb) {
+          const T u1 = sm.D[t][j], u2 = sm.D[t1][j];
+          for (int ii = t1 + 1 + rg; ii < wb; ii += ng)
+            sm.D[ii][j] = sm.D[ii][j] - sm.D[ii][t] * u1 - sm.D[ii][t1] * u2;
+        }
+        pair |= 1u << t;
+      }
+      __syncthreads();
+    }
+    if (tid == 0) {
+      sm.one = one;
+      sm.pair = pair;
+    }
   }
   __syncthreads();
 
-  // 2. factor D in order over t: thread 0 picks the step, all update
-  constexpr int kPer = (WBC * WBC + kPfThreads - 1) / kPfThreads;
-  T nb = T(0);
-  for (int t = 0; t < wb; ++t) {
-    if (tid == 0) {
-      const bool start = PAIRS && bk[t] != 0;
-      const bool second = PAIRS && t > 0 && bk[t - 1] != 0;
-      const T d = D[t][t];
-      const bool bad1 = guard && absv(d) < tau;
-      const T dc = bad1 ? (d < T(0) ? -tau : tau) : d;
-      dc_s[t] = dc;
-      deff_s[t] = (start || second) ? T(1) : dc;
-      if (start) {
-        const int t1 = min(t + 1, wb - 1);
-        bool bad2;
-        detc_s[t] = pair_det(D[t][t], D[t][t1], D[t1][t], D[t1][t1], &bad2);
-        kind_s[t] = kPairStart;
-        nb += bad2 ? T(1) : T(0);
-      } else if (second) {
-        kind_s[t] = kPairSecond;
-      } else {
-        kind_s[t] = kOneByOne;
-        nb += bad1 ? T(1) : T(0);
-      }
-    }
-    __syncthreads();
-    const int kind = kind_s[t];
-    if (kind == kPairSecond) continue;   // uniform across the block
-    T nv[kPer];
+  // eliminate this thread's row or column against the final D (row t past
+  // the diagonal is U[t,:], column t below it L[:,t])
+  if (has) {
+    const unsigned one = sm.one, pair = PAIRS ? sm.pair : 0u;
+    if (is_row) {
 #pragma unroll
-    for (int c = 0; c < kPer; ++c) {
-      const int e = tid + c * kPfThreads;
-      if (e >= wb * wb) break;
-      const int i = e / wb, j = e % wb;
-      T v;
-      if (kind == kOneByOne) {
-        const T colL = i > t ? D[i][t] / deff_s[t] : T(0);
-        const T ur = j > t ? D[t][j] : T(0);
-        v = D[i][j] - colL * ur;
-        if (j == t) v = i > t ? colL : D[i][t];
-        if (i == t && j == t) v = dc_s[t];
-      } else {
-        const int t1 = min(t + 1, wb - 1);
-        const T a = D[t][t], b = D[t][t1], cc = D[t1][t], ee = D[t1][t1];
-        const T dt = detc_s[t];
-        const bool below = i > t1;
-        const T u = below ? D[i][t] : T(0);
-        const T vv = below ? D[i][t1] : T(0);
-        const T lu = (u * ee - vv * cc) / dt;
-        const T lv = (vv * a - u * b) / dt;
-        const T u1 = j > t1 ? D[t][j] : T(0);
-        const T u2 = j > t1 ? D[t1][j] : T(0);
-        v = D[i][j] - lu * u1 - lv * u2;
-        if (j == t) v = below ? lu : D[i][t];
-        if (j == t1) v = below ? lv : D[i][t1];
-      }
-      nv[c] = v;
-    }
-    __syncthreads();
+      for (int t = 0; t < WBC; ++t) {
+        if (t < wb) {
+          if ((one >> t) & 1u) {
+            const T colL = x[t] / sm.deff[t];
 #pragma unroll
-    for (int c = 0; c < kPer; ++c) {
-      const int e = tid + c * kPfThreads;
-      if (e >= wb * wb) break;
-      D[e / wb][e % wb] = nv[c];
-    }
-    __syncthreads();
-  }
-  // clamp counts are small integers: the atomic sum is exact in any order
-  if (tid == 0 && nb != T(0)) atomicAdd(nbad, nb);
-  for (int e = tid; e < wb * wb; e += kPfThreads) po[e] = D[e / wb][e % wb];
-
-  // 3. sub-panel rows (items < rb) and U columns (items >= rb), independent
-  //    of each other: each thread replays the eliminations on its own row
-  //    or column, kept in its slice of shared memory (runtime-indexed, so
-  //    registers would spill)
-  T* x = xs[tid];
-  for (int it = tid; it < 2 * rb; it += kPfThreads) {
-    if (it < rb) {
-      const int i = it;
-      const T* prow = p + ((size_t)wb + i) * wb;
-      const bool rok = i < r;
-      for (int j = 0; j < wb; ++j)
-        x[j] = (rok && j < w) ? prow[j] + T(0) : T(0);
-      for (int t = 0; t < wb; ++t) {
-        const int kind = kind_s[t];
-        if (kind == kOneByOne) {
-          const T colL = x[t] / deff_s[t];
-          for (int j = 0; j < wb; ++j)
-            x[j] = x[j] - colL * (j > t ? D[t][j] : T(0));
-          x[t] = colL;
-        } else if (PAIRS && kind == kPairStart) {
-          const int t1 = min(t + 1, wb - 1);
-          const T a = D[t][t], b = D[t][t1], cc = D[t1][t], ee = D[t1][t1];
-          const T dt = detc_s[t];
-          const T u = x[t], vv = x[t1];
-          const T lu = (u * ee - vv * cc) / dt;
-          const T lv = (vv * a - u * b) / dt;
-          for (int j = 0; j < wb; ++j)
-            x[j] = x[j] - lu * (j > t1 ? D[t][j] : T(0))
-                   - lv * (j > t1 ? D[t1][j] : T(0));
-          x[t] = lu;
-          x[t1] = lv;
+            for (int j = t + 1; j < WBC; ++j) x[j] = x[j] - colL * sm.D[t][j];
+            x[t] = colL;
+          } else if (PAIRS && ((pair >> t) & 1u)) {
+            // columns past t1 = t at the last column are beyond wb
+            const int tn = t + 1 < WBC ? t + 1 : t;
+            const bool nx = t + 1 < wb;
+            const int t1 = nx ? t + 1 : t;
+            const T a = sm.D[t][t], b = sm.D[t][t1];
+            const T cc = sm.D[t1][t], ee = sm.D[t1][t1];
+            const T dt = sm.detc[t];
+            const T u = x[t], vv = nx ? x[tn] : x[t];
+            const T lu = (u * ee - vv * cc) / dt;
+            const T lv = (vv * a - u * b) / dt;
+#pragma unroll
+            for (int j = t + 2; j < WBC; ++j)
+              x[j] = x[j] - lu * sm.D[t][j] - lv * sm.D[t1][j];
+            x[t] = lu;
+            if (nx) x[tn] = lv; else x[t] = lv;
+          }
         }
       }
-      T* orow = po + ((size_t)wb + i) * wb;
-      for (int j = 0; j < wb; ++j) orow[j] = x[j];
     } else {
-      const int c = it - rb;
-      const bool cok = c < r;
-      for (int a = 0; a < wb; ++a)
-        x[a] = (a < w && cok) ? q[(size_t)a * rb + c] : T(0);
-      for (int t = 0; t < wb; ++t) {
-        const int kind = kind_s[t];
-        if (kind == kOneByOne) {
-          const T yt = x[t];
-          for (int a = 0; a < wb; ++a)
-            x[a] = x[a] - (a > t ? D[a][t] : T(0)) * yt;
-        } else if (PAIRS && kind == kPairStart) {
-          const int t1 = min(t + 1, wb - 1);
-          const T yt = x[t], yt1 = x[t1];
-          for (int a = 0; a < wb; ++a)
-            x[a] = x[a] - (a > t1 ? D[a][t] : T(0)) * yt
-                   - (a > t1 ? D[a][t1] : T(0)) * yt1;
+#pragma unroll
+      for (int t = 0; t < WBC; ++t) {
+        if (t < wb) {
+          if ((one >> t) & 1u) {
+            const T yt = x[t];
+#pragma unroll
+            for (int a = t + 1; a < WBC; ++a) x[a] = x[a] - sm.D[a][t] * yt;
+          } else if (PAIRS && ((pair >> t) & 1u)) {
+            const int tn = t + 1 < WBC ? t + 1 : t;
+            const bool nx = t + 1 < wb;
+            const int t1 = nx ? t + 1 : t;
+            const T yt = x[t], yt1 = nx ? x[tn] : x[t];
+#pragma unroll
+            for (int a = t + 2; a < WBC; ++a)
+              x[a] = x[a] - sm.D[a][t] * yt - sm.D[a][t1] * yt1;
+          }
         }
       }
-      for (int a = 0; a < wb; ++a) qo[(size_t)a * rb + c] = x[a];
     }
+#pragma unroll
+    for (int j = 0; j < WBC; ++j)
+      if (j < w) C[sm.idx[tid][j]] = x[j];
+  }
+
+  // the lane's last block writes D and the lane's clamp count (clamp counts
+  // are small integers: the atomic sum is exact in any order)
+  if (sm.last) {
+    for (int e = tid; e < nd; e += tpb) {
+      const int i = e / wb, j = e - i * wb;
+      if (i < w && j < w) C[sm.didx[e]] = sm.D[i][j];
+    }
+    if (tid == 0 && nb != T(0)) atomicAdd(nbad, nb);
   }
 }
 
 template <typename T, int WBC>
-int launch_pf(const void* P, const void* Q, void* Po, void* Qo, const void* wvec,
-              const void* rvec, const void* tau, const void* bkm, void* nbad, int k,
-              int wb, int rb, int pairs, int guard, cudaStream_t s) {
+int launch_pf(void* C, const void* pidx, const void* qidx, const void* wvec,
+              const void* rvec, const void* tau, const void* bkm, void* nbad,
+              void* work, int k, int wb, int rb, int pairs, int guard, cudaStream_t s) {
+  int tpb = 32;
+  while (tpb < 2 * rb && tpb < kPfMaxThreads) tpb *= 2;
+  const int tiles = rb > 0 ? (2 * rb + tpb - 1) / tpb : 1;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(k, tiles);
   if (pairs)
-    panel_factor_kernel<T, WBC, true><<<k, kPfThreads, 0, s>>>(
-        (const T*)P, (const T*)Q, (T*)Po, (T*)Qo, (const int32_t*)wvec,
-        (const int32_t*)rvec, (const T*)tau, (const uint8_t*)bkm, (T*)nbad, wb, rb,
-        guard);
+    panel_factor_kernel<T, WBC, true><<<grid, tpb, 0, s>>>(
+        (T*)C, (const int32_t*)pidx, (const int32_t*)qidx, (const int32_t*)wvec,
+        (const int32_t*)rvec, (const T*)tau, (const uint8_t*)bkm, (T*)nbad,
+        (int32_t*)work, wb, rb, guard);
   else
-    panel_factor_kernel<T, WBC, false><<<k, kPfThreads, 0, s>>>(
-        (const T*)P, (const T*)Q, (T*)Po, (T*)Qo, (const int32_t*)wvec,
-        (const int32_t*)rvec, (const T*)tau, (const uint8_t*)bkm, (T*)nbad, wb, rb,
-        guard);
+    panel_factor_kernel<T, WBC, false><<<grid, tpb, 0, s>>>(
+        (T*)C, (const int32_t*)pidx, (const int32_t*)qidx, (const int32_t*)wvec,
+        (const int32_t*)rvec, (const T*)tau, (const uint8_t*)bkm, (T*)nbad,
+        (int32_t*)work, wb, rb, guard);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int panel_factor_t(const void* P, const void* Q, void* Po, void* Qo, const void* wvec,
+int panel_factor_t(void* C, const void* pidx, const void* qidx, const void* wvec,
                    const void* rvec, const void* tau, const void* bkm, void* nbad,
-                   int k, int wb, int rb, int pairs, int guard, cudaStream_t s) {
-  if (wb <= 2)
-    return launch_pf<T, 2>(P, Q, Po, Qo, wvec, rvec, tau, bkm, nbad, k, wb, rb, pairs, guard, s);
-  if (wb <= 4)
-    return launch_pf<T, 4>(P, Q, Po, Qo, wvec, rvec, tau, bkm, nbad, k, wb, rb, pairs, guard, s);
-  if (wb <= 8)
-    return launch_pf<T, 8>(P, Q, Po, Qo, wvec, rvec, tau, bkm, nbad, k, wb, rb, pairs, guard, s);
-  if (wb <= 16)
-    return launch_pf<T, 16>(P, Q, Po, Qo, wvec, rvec, tau, bkm, nbad, k, wb, rb, pairs, guard, s);
-  return launch_pf<T, 32>(P, Q, Po, Qo, wvec, rvec, tau, bkm, nbad, k, wb, rb, pairs, guard, s);
+                   void* work, int k, int wb, int rb, int pairs, int guard,
+                   cudaStream_t s) {
+#define REPRO_PF(WBC)                                                          \
+  return launch_pf<T, WBC>(C, pidx, qidx, wvec, rvec, tau, bkm, nbad, work, k, \
+                           wb, rb, pairs, guard, s)
+  if (wb <= 2) REPRO_PF(2);
+  if (wb <= 4) REPRO_PF(4);
+  if (wb <= 8) REPRO_PF(8);
+  if (wb <= 16) REPRO_PF(16);
+  REPRO_PF(32);
+#undef REPRO_PF
 }
 
 // ---------------------------------------------------------------------------
-// schur_update
+// schur_update, fused with the extend-add
 // ---------------------------------------------------------------------------
 
 constexpr int kSchurThreads = 256;
 constexpr int kTile = 32;
+constexpr int kSchurOut = kTile * kTile / kSchurThreads;   // outputs a thread
+constexpr int kSchurBatch = 8;                             // loads in flight
 constexpr int kSchurSmem = 48 * 1024;
 
+// Grid (lane group, output tile).  Output o = tid + q*256 of the block is
+// (lane l, row i, column j) of its lanes' tiles; with 32 x 32 tiles (one
+// lane per block) a thread's kSchurOut outputs share column j and read
+// U[., j] once.  Every global load is issued in batches, so a block pays a few
+// memory latencies, not one per element: the targets first (they need only
+// r), then the panel slots, then the panel values.
 template <typename T>
 __global__ void __launch_bounds__(kSchurThreads)
-schur_kernel(const T* __restrict__ P, const T* __restrict__ Q, T* __restrict__ S,
-             int k, int wb, int rb, int td, int tiles, int lpb) {
+schur_kernel(T* __restrict__ C, const int32_t* __restrict__ pidx,
+             const int32_t* __restrict__ qidx, const int32_t* __restrict__ wvec,
+             const int32_t* __restrict__ rvec, const int32_t* __restrict__ tgt,
+             const long long* __restrict__ toff, int k, int wb, int rb, int td,
+             int tiles, int lpb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* As = reinterpret_cast<T*>(smem_raw);     // [lpb][td][wb]: L_sub rows
-  T* Bs = As + (size_t)lpb * td * wb;         // [lpb][wb][td]: U columns
+  const int wp = wb + 1;
+  T* As = reinterpret_cast<T*>(smem_raw);     // [lpb][td][wb+1]: L_sub rows
+  T* Bs = As + (size_t)lpb * td * wp;         // [lpb][wb][td]: U columns
   const int tid = threadIdx.x;
   const int lane0 = blockIdx.x * lpb;
   const int i0 = (blockIdx.y / tiles) * td;
   const int j0 = (blockIdx.y % tiles) * td;
-  const size_t m = (size_t)wb + rb;
-  const int na = lpb * td * wb;
-  for (int e = tid; e < na; e += kSchurThreads) {
-    const int l = e / (td * wb), rem = e % (td * wb);
-    const int i = rem / wb, c = rem % wb;
-    const int lane = lane0 + l;
-    As[e] = (lane < k && i0 + i < rb)
-                ? P[((size_t)lane * m + wb + i0 + i) * wb + c] : T(0);
+  if (lpb == 1) {                             // a tile past the lane's r
+    const int r = rvec[lane0];
+    if (i0 >= r || j0 >= r || wvec[lane0] == 0) return;
   }
-  for (int e = tid; e < na; e += kSchurThreads) {
-    const int l = e / (wb * td), rem = e % (wb * td);
-    const int c = rem / td, j = rem % td;
-    const int lane = lane0 + l;
-    Bs[e] = (lane < k && j0 + j < rb)
-                ? Q[((size_t)lane * wb + c) * rb + j0 + j] : T(0);
+  const size_t m = (size_t)wb + rb;
+
+  // 1. this thread's outputs and their targets
+  int ol[kSchurOut], oi[kSchurOut], oj[kSchurOut], ot[kSchurOut];
+#pragma unroll
+  for (int q = 0; q < kSchurOut; ++q) {
+    const int e = tid + q * kSchurThreads;
+    ol[q] = e / (td * td);
+    const int rem = e % (td * td);
+    oi[q] = rem / td;
+    oj[q] = rem % td;
+    const int lane = lane0 + ol[q];
+    ot[q] = -1;
+    if (ol[q] < lpb && lane < k) {
+      const int r = rvec[lane];
+      if (i0 + oi[q] < r && j0 + oj[q] < r)
+        ot[q] = tgt[toff[lane] + (long long)(i0 + oi[q]) * r + j0 + oj[q]];
+    }
+  }
+
+  // 2. gather the tile's L_sub rows and U columns from C (consecutive
+  //    threads on consecutive slots)
+  const int na = lpb * td * wb;
+  for (int e0 = 0; e0 < 2 * na; e0 += kSchurBatch * kSchurThreads) {
+    int sl[kSchurBatch];
+#pragma unroll
+    for (int q = 0; q < kSchurBatch; ++q) {
+      const int e = e0 + q * kSchurThreads + tid;
+      sl[q] = -1;
+      if (e < na) {
+        const int l = e / (td * wb), rem = e % (td * wb);
+        const int c = rem / td, i = rem % td;
+        const int lane = lane0 + l;
+        if (lane < k && c < wvec[lane] && i0 + i < rvec[lane])
+          sl[q] = pidx[((size_t)lane * m + wb + i0 + i) * wb + c];
+      } else if (e < 2 * na) {
+        const int f = e - na;
+        const int l = f / (wb * td), rem = f % (wb * td);
+        const int c = rem / td, j = rem % td;
+        const int lane = lane0 + l;
+        if (lane < k && c < wvec[lane] && j0 + j < rvec[lane])
+          sl[q] = qidx[((size_t)lane * wb + c) * rb + j0 + j];
+      }
+    }
+    T v[kSchurBatch];
+#pragma unroll
+    for (int q = 0; q < kSchurBatch; ++q) v[q] = sl[q] >= 0 ? C[sl[q]] : T(0);
+#pragma unroll
+    for (int q = 0; q < kSchurBatch; ++q) {
+      const int e = e0 + q * kSchurThreads + tid;
+      if (e < na) {
+        const int l = e / (td * wb), rem = e % (td * wb);
+        As[((size_t)l * td + rem % td) * wp + rem / td] = v[q];
+      } else if (e < 2 * na) {
+        Bs[e - na] = v[q];
+      }
+    }
   }
   __syncthreads();
-  const int no = lpb * td * td;
-  for (int e = tid; e < no; e += kSchurThreads) {
-    const int l = e / (td * td), rem = e % (td * td);
-    const int i = rem / td, j = rem % td;
-    const int lane = lane0 + l;
-    if (lane >= k || i0 + i >= rb || j0 + j >= rb) continue;
-    const T* a = As + ((size_t)l * td + i) * wb;
-    const T* b = Bs + (size_t)l * wb * td + j;
-    T acc = T(0);
-    for (int c = 0; c < wb; ++c) acc = fmav(a[c], b[(size_t)c * td], acc);
-    S[((size_t)lane * rb + i0 + i) * rb + j0 + j] = acc;
+
+  // 3. the sums, in order over c with explicit fma, out through atomics
+  T acc[kSchurOut];
+#pragma unroll
+  for (int q = 0; q < kSchurOut; ++q) acc[q] = T(0);
+  if (td == kTile) {                          // one lane: a column j per thread
+    const int w = wvec[lane0];
+    const T* b = Bs + oj[0];
+    for (int c = 0; c < w; ++c) {
+      const T bc = b[(size_t)c * td];
+#pragma unroll
+      for (int q = 0; q < kSchurOut; ++q)
+        acc[q] = fmav(As[(size_t)oi[q] * wp + c], bc, acc[q]);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kSchurOut; ++q) {
+      if (ot[q] < 0) continue;
+      const int w = wvec[lane0 + ol[q]];
+      const T* a = As + ((size_t)ol[q] * td + oi[q]) * wp;
+      const T* b = Bs + (size_t)ol[q] * wb * td + oj[q];
+      for (int c = 0; c < w; ++c) acc[q] = fmav(a[c], b[(size_t)c * td], acc[q]);
+    }
   }
+#pragma unroll
+  for (int q = 0; q < kSchurOut; ++q)
+    if (ot[q] >= 0) atomicAdd(C + ot[q], -acc[q]);
 }
 
 template <typename T>
-int schur_t(const void* P, const void* Q, void* S, int k, int wb, int rb,
-            cudaStream_t s) {
+int schur_t(void* C, const void* pidx, const void* qidx, const void* wvec,
+            const void* rvec, const void* tgt, const void* toff, int k, int wb,
+            int rb, cudaStream_t s) {
   const int td = rb < kTile ? rb : kTile;
   const int tiles = (rb + td - 1) / td;
+  const size_t lane_smem = (size_t)td * (2 * wb + 1) * sizeof(T);
   int lpb = 1;
-  if (rb < kTile) {
+  if (rb < kTile) {                           // lpb * td^2 <= 1024 outputs
     lpb = (kTile * kTile) / (rb * rb);
-    const int cap = kSchurSmem / (2 * td * wb * (int)sizeof(T));
+    const int cap = (int)(kSchurSmem / lane_smem);
     if (lpb > cap) lpb = cap;
     if (lpb < 1) lpb = 1;
   }
-  const size_t smem = (size_t)2 * lpb * td * wb * sizeof(T);
+  const size_t smem = lpb * lane_smem;
   if (smem > (size_t)kSchurSmem || (long long)tiles * tiles > 65535)
     return (int)cudaErrorInvalidValue;
   dim3 grid((k + lpb - 1) / lpb, tiles * tiles);
   schur_kernel<T><<<grid, kSchurThreads, smem, s>>>(
-      (const T*)P, (const T*)Q, (T*)S, k, wb, rb, td, tiles, lpb);
+      (T*)C, (const int32_t*)pidx, (const int32_t*)qidx, (const int32_t*)wvec,
+      (const int32_t*)rvec, (const int32_t*)tgt, (const long long*)toff, k, wb,
+      rb, td, tiles, lpb);
   return (int)cudaGetLastError();
 }
 
@@ -479,26 +692,27 @@ int block_trsv_t(int mode, int pairs, const void* D, long long dstride, const vo
 
 }  // namespace
 
-REPRO_EXPORT int sn_panel_factor(int f64, const void* P, const void* Q, void* Po,
-                                 void* Qo, const void* wvec, const void* rvec,
-                                 const void* tau, const void* bkm, void* nbad, int k,
-                                 int wb, int rb, int pairs, int guard, void* stream) {
+REPRO_EXPORT int sn_panel_factor(int f64, void* C, const void* pidx, const void* qidx,
+                                 const void* wvec, const void* rvec, const void* tau,
+                                 const void* bkm, void* nbad, void* work, int k, int wb,
+                                 int rb, int pairs, int guard, void* stream) {
   if (k <= 0) return 0;
   if (wb < 1 || wb > 32 || rb < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return f64 ? panel_factor_t<double>(P, Q, Po, Qo, wvec, rvec, tau, bkm, nbad, k, wb,
-                                      rb, pairs, guard, s)
-             : panel_factor_t<float>(P, Q, Po, Qo, wvec, rvec, tau, bkm, nbad, k, wb,
-                                     rb, pairs, guard, s);
+  return f64 ? panel_factor_t<double>(C, pidx, qidx, wvec, rvec, tau, bkm, nbad, work,
+                                      k, wb, rb, pairs, guard, s)
+             : panel_factor_t<float>(C, pidx, qidx, wvec, rvec, tau, bkm, nbad, work,
+                                     k, wb, rb, pairs, guard, s);
 }
 
-REPRO_EXPORT int sn_schur_update(int f64, const void* P, const void* Q, void* S, int k,
-                                 int wb, int rb, void* stream) {
+REPRO_EXPORT int sn_schur_update(int f64, void* C, const void* pidx, const void* qidx,
+                                 const void* wvec, const void* rvec, const void* tgt,
+                                 const void* toff, int k, int wb, int rb, void* stream) {
   if (k <= 0 || rb <= 0) return 0;
   if (wb < 1 || wb > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return f64 ? schur_t<double>(P, Q, S, k, wb, rb, s)
-             : schur_t<float>(P, Q, S, k, wb, rb, s);
+  return f64 ? schur_t<double>(C, pidx, qidx, wvec, rvec, tgt, toff, k, wb, rb, s)
+             : schur_t<float>(C, pidx, qidx, wvec, rvec, tgt, toff, k, wb, rb, s);
 }
 
 REPRO_EXPORT int sn_block_trsv(int f64, int mode, int pairs, const void* D,

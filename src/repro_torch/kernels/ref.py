@@ -135,23 +135,30 @@ def sn_pair_det(a, b, c, e):
     return detc, bad
 
 
+def sn_live_masks(wvec, rvec, wb, rb, device):
+    """Live entries of a bucket's panels: (pmask (k, wb+rb, wb), qmask
+    (k, wb, rb)) — rows/columns within the true sizes (w, r)."""
+    w = wvec.to(device).long()[:, None, None]
+    r = rvec.to(device).long()[:, None, None]
+    ri = torch.arange(wb + rb, device=device)[None, :, None]
+    cj = torch.arange(wb, device=device)[None, None, :]
+    pmask = torch.where(ri < wb, ri < w, (ri - wb) < r) & (cj < w)
+    qa = torch.arange(wb, device=device)[None, :, None]
+    qc = torch.arange(rb, device=device)[None, None, :]
+    return pmask, (qa < w) & (qc < r)
+
+
 def sn_panel_mask(P, Q, wvec, rvec):
     """Zero pad rows/cols of gathered (P, Q) lanes; unit pad diagonal."""
     k, m, wb = P.shape
-    rb = Q.shape[2]
     dev = P.device
+    pmask, qmask = sn_live_masks(wvec, rvec, wb, Q.shape[2], dev)
     w = wvec.to(dev).long()[:, None, None]
-    r = rvec.to(dev).long()[:, None, None]
     ri = torch.arange(m, device=dev)[None, :, None]
     cj = torch.arange(wb, device=dev)[None, None, :]
-    tw = cj < w
-    row_ok = torch.where(ri < wb, ri < w, (ri - wb) < r)
-    P = torch.where(row_ok & tw, P, 0.0)
+    P = torch.where(pmask, P, 0.0)
     P = P + torch.where((ri == cj) & (cj >= w), 1.0, 0.0).to(P.dtype)
-    qa = torch.arange(wb, device=dev)[None, :, None]
-    qc = torch.arange(rb, device=dev)[None, None, :]
-    Q = torch.where((qa < w) & (qc < r), Q, 0.0)
-    return P, Q
+    return P, torch.where(qmask, Q, 0.0)
 
 
 def sn_block_mask(D, wvec):
@@ -244,6 +251,53 @@ def sn_schur_ref(P, Q):
     returns (k, rb, rb), scatter-subtracted into the trailing slots."""
     wb = Q.shape[1]
     return torch.einsum("kiw,kwr->kir", P[:, wb:, :], Q)
+
+
+def sn_gather(C, idx):
+    """``C[idx]`` through ``index_select``, which takes int32 slot tables as
+    they are."""
+    return C.index_select(0, idx.reshape(-1)).view(idx.shape)
+
+
+def sn_panel_factor_inplace_ref(C, pidx, qidx, wvec, rvec, tau, bkm, *,
+                                pairs=False, guard=True):
+    """:func:`sn_panel_factor_ref` on the factor vector ``C`` in place:
+    gather the panels through the slot tables ``pidx`` (k, wb+rb, wb) and
+    ``qidx`` (k, wb, rb), factor them, write the live entries back; pad
+    slots keep their values.  Returns nbad."""
+    Pg, Qg = sn_gather(C, pidx), sn_gather(C, qidx)
+    P, Q, nbad = sn_panel_factor_ref(Pg, Qg, wvec, rvec, tau, bkm,
+                                     pairs=pairs, guard=guard)
+    pmask, qmask = sn_live_masks(wvec, rvec, P.shape[2], Q.shape[2],
+                                 C.device)
+    C[pidx] = torch.where(pmask, P, Pg)
+    C[qidx] = torch.where(qmask, Q, Qg)
+    return nbad
+
+
+def sn_target_mask(rvec, rb, device):
+    """(k, rb, rb) bool: the live entries of a bucket's Schur block S,
+    i, j < r_l.  The live-only target table lists them in this mask's
+    row-major order: lane by lane, each lane's r × r block row by row."""
+    r = rvec.to(device).long()[:, None, None]
+    ar = torch.arange(rb, device=device)
+    return (ar[None, :, None] < r) & (ar[None, None, :] < r)
+
+
+def sn_schur_inplace_ref(C, pidx, qidx, wvec, rvec, tgt):
+    """The Schur update fused with the extend-add, in place: S = L_sub · U
+    (:func:`sn_schur_ref`) on the masked factored panels gathered from
+    ``C``, then ``C[tgt] -= S`` over the live entries (:func:`sn_target_mask`,
+    in the live-only target table's order; the pads are dropped)."""
+    P, Q = sn_panel_mask(sn_gather(C, pidx), sn_gather(C, qidx), wvec, rvec)
+    S = sn_schur_ref(P, Q).reshape(-1)
+    live = sn_target_mask(rvec, qidx.shape[2], C.device).reshape(-1)
+    # each live entry's place in the table, the pads parked one past its end
+    # (a scatter, not S[live]: no host sync)
+    n = tgt.numel()
+    dest = torch.where(live, torch.cumsum(live, 0) - 1, n)
+    C.index_add_(0, tgt, S.new_zeros(n + 1).index_copy_(0, dest, S)[:n],
+                 alpha=-1)
 
 
 def sn_trsv_ref(D, y, wvec, bkm, *, mode, pairs=False):

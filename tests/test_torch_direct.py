@@ -162,6 +162,73 @@ def test_factor_solves_and_slogdet_match_reference(case, opts):
         assert_close(lt, lr, rtol=1e-12)
 
 
+def _drift_pattern(ng=24):
+    rows, cols, _ = tpoisson.vc_pattern(ng)
+    v = (rpoisson.vc_coefficients(np.ones((ng, ng))).reshape(5, -1)
+         * np.array([1.0, 1.3, 0.7, 1.0, 1.0])[:, None]).reshape(-1)
+    return np.asarray(rows), np.asarray(cols), np.asarray(v), ng * ng
+
+
+@pytest.mark.parametrize("case", ["poisson2d", "drift"])
+def test_live_target_table_matches_reference_uidx(case):
+    """to_device's int32 live-only extend-add targets are the reference's
+    uidx with its pad entries (all on the scratch sink) dropped, lane by
+    lane."""
+    row, col, _, n = _poisson(40) if case == "poisson2d" else _drift_pattern()
+    ra = rd.symbolic_factor(row, col, n, supernodal="on")
+    ta = td.to_device(td.symbolic_factor(row, col, n, supernodal="on"), CPU)
+    n_live = 0
+    for lr, lt in zip(ra.snode.schedule, ta.snode.schedule):
+        for br, bt in zip(lr, lt):
+            uidx, r = np.asarray(br.uidx), np.asarray(br.rvec)
+            assert bt.uidx.dtype == torch.int32 and bt.pidx.dtype == torch.int32
+            off = np_of(bt.uoff)
+            assert off[0] == 0 and off[-1] == bt.uidx.numel()
+            for l, rl in enumerate(r):
+                np.testing.assert_array_equal(
+                    np_of(bt.uidx[off[l]:off[l + 1]]),
+                    uidx[l, :rl, :rl].reshape(-1))
+                pads = np.ones(uidx.shape[1:], bool)
+                pads[:rl, :rl] = False
+                assert (uidx[l][pads] == ra.nnzF).all()
+            n_live += int((r.astype(np.int64) ** 2).sum())
+    assert n_live == sum(bt.uidx.numel() for lt in ta.snode.schedule
+                         for bt in lt) > 0
+
+
+@pytest.mark.parametrize("case", ["poisson2d", "poisson2d-pairs", "saddle",
+                                  "drift"])
+def test_inplace_factorization_matches_reference_and_spares_the_sink(case):
+    """The port's supernodal factorization on the CPU — gather, plain
+    factor, scatter, plain Schur, live-only extend-add, in place in C —
+    gives the reference's numeric_factor output (f64, 1e-12 of its scale),
+    pairs off and on, and never writes the scratch sink."""
+    if case == "saddle":
+        row, col, val, _, n = _saddle(18, 8)
+    elif case == "drift":
+        row, col, val, n = _drift_pattern()
+    else:
+        row, col, val, n = _poisson(24)
+    kw = {"supernodal": "on"}
+    if case in ("poisson2d-pairs", "saddle"):
+        kw["pivot_blocks"] = "auto"
+    ra = rd.symbolic_factor(row, col, n, **kw)
+    ta = td.to_device(td.symbolic_factor(row, col, n, **kw), CPU)
+    assert any(bk.pairs for lvl in ta.snode.schedule for bk in lvl) \
+        == ("pivot_blocks" in kw)
+    Cr = np.asarray(rd.numeric_factor(ra, jnp.asarray(val)))
+    v = torch.tensor(val)
+    C = torch.zeros(ta.nnzF + 2, dtype=torch.float64)
+    C.index_add_(0, ta.a2f, v)
+    C[ta.nnzF + 1] = 1.0
+    C[ta.nnzF] = 7.25                       # sentinel in the scratch sink
+    C, nbad = td._snode_numeric(ta, C, td._pivot_tau(v, None), True)
+    assert float(C[ta.nnzF]) == 7.25
+    assert float(nbad) == 0.0
+    scale = np.abs(Cr[:-2]).max()
+    assert np.abs(np_of(C)[:-2] - Cr[:-2]).max() <= 1e-12 * scale
+
+
 def test_indefinite_pairs_solve_without_perturbation():
     row, col, val, A, n = _saddle(18, 8)
     b = np.random.default_rng(2).standard_normal(n)

@@ -211,10 +211,15 @@ def test_kernel_wrappers_count_no_cpu_launches():
     w = torch.full((3,), 2, dtype=torch.int32)
     r = torch.full((3,), 4, dtype=torch.int32)
     bk = torch.zeros(3, 2, dtype=torch.bool)
-    P, Q, _ = tsn.panel_factor(P, Q, w, r, 1e-8, bk)
-    tsn.schur_update(P, Q)
-    tsn.block_trsv(P[:, :2, :], torch.ones(3, 2, dtype=torch.float64), w,
-                   bk, mode="u")
+    C = torch.cat([P.reshape(-1), Q.reshape(-1), torch.zeros(48)]).double()
+    pidx = torch.arange(36, dtype=torch.int32).view(3, 6, 2)
+    qidx = torch.arange(36, 60, dtype=torch.int32).view(3, 2, 4)
+    tsn.panel_factor_inplace(C, pidx, qidx, w, r, 1e-8, bk)
+    tsn.schur_update_inplace(C, pidx, qidx, w, r,
+                             torch.arange(60, 108, dtype=torch.int32),
+                             torch.arange(0, 64, 16))
+    tsn.block_trsv(C[:36].view(3, 6, 2)[:, :2, :],
+                   torch.ones(3, 2, dtype=torch.float64), w, bk, mode="u")
     from repro_torch.kernels.flash_attention import flash_attention
     qkv = torch.ones(2, 5, 16)
     flash_attention(qkv, qkv, qkv, causal=True)
