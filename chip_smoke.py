@@ -37,7 +37,9 @@ What it does, in order:
    unknowns, f64), ``sla.solve`` auto-routed to the supernodal LDLᵀ, ∂Σu²/∂val
    against a CG run at tol 1e-12, then a ``with_values`` refactorization,
    whose profiler trace must hold ``panel_factor`` and ``schur_update`` once
-   per bucket and no per-bucket gather, scatter or ``index_add_``;
+   per bucket and no per-bucket gather, scatter or ``index_add_``; the
+   solve + backward launch ``sn_sweep`` 4 × buckets times, and a solve's
+   trace holds at most 2 × buckets sweep launches and 16 other device ops;
 9. LU path: the non-symmetric drift ``poisson2d(128)``, auto → direct/LU,
    solution and ∂/∂val against the dense backend (adjoint on ut/lt sweeps);
 10. indefinite path: a dense-block saddle point (n = 512) with static 2x2
@@ -45,16 +47,20 @@ What it does, in order:
     against torch.linalg;
 11. ILU path: ``poisson2d(100)``, CG with ``precond="ilu"`` against Jacobi;
 12. panel kernels: panel_factor and schur_update (fused with the
-    extend-add; both in place in the factor vector) and block_trsv against
-    their plain versions on copies of the direct path's own C for
-    ``poisson2d(316)`` (its widest bucket, the bucket with the most lanes,
-    a ragged bucket; garbage in the scratch sink, which must stay as it
-    was), every slot of C compared, f32 and f64, pairs off and on,
-    block_trsv in its four modes with 1 and 64 right-hand sides; then
+    extend-add; both in place in the factor vector) and sn_sweep (one
+    bucket of a sweep in place in y) against their plain versions on
+    copies of the direct path's own C for ``poisson2d(316)`` (its widest
+    bucket, the bucket with the most lanes, a ragged bucket; garbage in the
+    scratch sink and the scratch row of y, which must stay as they were),
+    every slot of C and every row of y compared, f32 and f64, pairs off and
+    on, sn_sweep and the standalone block_trsv (the same kernel with no
+    sub-rows) in their four modes with 1 and 64 right-hand sides; then
     their summed time over one factorization (one mode-l sweep for
-    block_trsv) against the bound, with ``torch.bmm`` and bmm +
-    ``index_add_`` beside schur_update and ``lu_factor_ex`` (no pivoting)
-    beside panel_factor;
+    sn_sweep, y restored before every pass) against the bound, with
+    ``torch.bmm`` and bmm + ``index_add_`` beside schur_update,
+    ``lu_factor_ex`` (no pivoting) beside panel_factor, and
+    ``solve_triangular`` and solve_triangular + bmm + ``index_add_``
+    beside sn_sweep;
 13. flash kernels: flash_attention against its plain version (f32, on the
     same inputs, over chunks of bh; elementwise, |o − plain| ≤
     2e-5·|plain| + 2e-5 in f32 and ≤ 8e-3·|plain| + 1e-3 in bf16, with the
@@ -77,6 +83,10 @@ What it does, in order:
     S 128; decode runs no kernel): f32 logits within 2e-4 of max |logits|,
     bf16 greedy tokens agreeing on ≥ 95% of the positions (the bf16
     forward on the tensor-core kernel, the f32 one on the SIMT kernel);
+15. on-card tests: ``python -m pytest --noconftest -p no:cacheprovider -q
+    tests/test_torch_on_card.py`` (``PYTHONPATH=src``), every hand-written
+    kernel against its plain version over the tests' shape sweeps; fails
+    on any failure or skip, or on no pass;
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Every failed check raises (exit code 1).  Without a CUDA device it
@@ -176,10 +186,13 @@ for _f in FUSED:
     KERNEL_SOURCES[_f] = ("src/repro_torch/kernels/csrc/solve_step.cu",
                           "src/repro/kernels/solve_step.py:92")
 for _f, _line in (("panel_factor", 73), ("schur_update", 123),
-                  ("block_trsv", 158)):
+                  ("sn_sweep", 158)):
     KERNEL_SOURCES[_f] = ("src/repro_torch/kernels/csrc/supernode.cu",
                           f"src/repro/kernels/supernode.py:{_line}")
-PANEL_KERNELS = ("panel_factor", "schur_update", "block_trsv")
+PANEL_KERNELS = ("panel_factor", "schur_update", "sn_sweep")
+ON_CARD_TESTS = "tests/test_torch_on_card.py"
+SOLVE_OTHER_OPS = 16                 # a direct solve's device ops besides
+                                     # its sweep launches (set-up, residual)
 for _f in ("flash_attention", "flash_attention_f32"):
     KERNEL_SOURCES[_f] = ("src/repro_torch/kernels/csrc/flash_attention.cu",
                           "src/repro/kernels/flash_attention.py:84")
@@ -921,7 +934,7 @@ def _sum_ms(fn, reps=5, reset=None):
                    spin_ms=3.0 * _enqueue_ms(fn, reset) + 2.0)
 
 
-def _panel_work(bk, trsv_mode="l", distinct=None):
+def _panel_work(bk, distinct=None, sdistinct=None):
     """(bytes, flops) per kernel that one bucket's true sizes need, f64,
     each input read once and each output written once.  panel_factor reads
     and writes its panels in place in C: w² + 2rw words, each with its
@@ -929,24 +942,35 @@ def _panel_work(bk, trsv_mode="l", distinct=None):
     with their slots, 12 B), one int32 index per live target (r² of them,
     4 B), and reads and writes each distinct target once (``distinct``, the
     bucket's distinct addresses: sibling lanes share some; 16 B).
-    block_trsv: one solve in ``trsv_mode`` with one right-hand side, reading
-    only the triangle of D that mode uses (strict lower for l/lt; upper with
-    the pivots for u/ut, which also divide)."""
+    sn_sweep: one mode-l sweep step with one right-hand side: the strict
+    lower triangle of D and L_sub with their slots (12 B a value), y_b read
+    and written with its row id (20 B a live block row), each distinct row
+    of y_s read and written once (``sdistinct``: sibling lanes share
+    ancestor rows; 16 B) with a row id per live sub-row (4 B), and w, r per
+    lane (8 B)."""
     w = bk.wvec.double().cpu().numpy()
     r = bk.rvec.double().cpu().numpy()
-    k, wb = bk.wvec.shape[0], bk.wb
+    k = bk.wvec.shape[0]
     if distinct is None:
         distinct = int(bk.uidx.unique().numel())
+    if sdistinct is None:
+        sdistinct = _sweep_distinct(bk)
     s1 = w * (w - 1) / 2                         # Σ_t (w-t-1)
     s2 = (w - 1) * w * (2 * w - 1) / 6           # Σ_t (w-t-1)²
     pf = (20 * float((w * w + 2 * r * w).sum()),
           float((2 * s2 + s1 + r * w + 4 * r * s1).sum()))
     su = (float((12 * 2 * r * w + 4 * r * r).sum()) + 16.0 * distinct,
           float((2 * w * r * r).sum()))
-    piv = w if trsv_mode in ("u", "ut") else 0 * w
-    bt = (8 * float((s1 + piv + w).sum()) + 8 * k * wb,
-          float((2 * s1 + piv).sum()))
-    return {"panel_factor": pf, "schur_update": su, "block_trsv": bt}
+    sw = (float((12 * (s1 + r * w) + 20 * w + 4 * r).sum()) + 16.0 * sdistinct
+          + 8.0 * k, float((2 * s1 + 2 * r * w).sum()))
+    return {"panel_factor": pf, "schur_update": su, "sn_sweep": sw}
+
+
+def _sweep_distinct(bk):
+    """The distinct rows of y that a bucket's live sub-rows name."""
+    rows = bk.rows.cpu().numpy()[:, bk.wb:]
+    live = np.arange(bk.rb)[None, :] < bk.rvec.cpu().numpy()[:, None]
+    return int(np.unique(rows[live]).size)
 
 
 def _pf_blocks(r, rb):
@@ -982,9 +1006,10 @@ def _lu_yardstick(Pm):
 
 def panel_kernel_phase(dev, art, val, ng, seed, out):
     """panel_factor and the fused schur_update (both in place in C) and
-    block_trsv against their plain versions on the main path's panels (the
-    direct path's analysis ``art`` of ``poisson2d(ng)`` with values
-    ``val``), and their summed device time over one factorization."""
+    sn_sweep (in place in y) against their plain versions on the main
+    path's panels (the direct path's analysis ``art`` of ``poisson2d(ng)``
+    with values ``val``), and their summed device time over one
+    factorization (one mode-l sweep for sn_sweep)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import supernode as ksn
@@ -1015,6 +1040,8 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
     cases = (("widest", widest), ("most lanes", most), ("ragged", rag))
     errs = {k: [] for k in PANEL_KERNELS}
     abs_err = dict.fromkeys(PANEL_KERNELS, 0.0)
+    trsv_errs = []                       # block_trsv: sn_sweep, no sub-rows
+    n = art.n
     shapes = []
     for label, bk in cases:
         k, wb = nk_of(bk), bk.wb
@@ -1022,6 +1049,15 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
         aw = torch.arange(wb, device=dev)
         pair_bkm = (aw[None, :] % 2 == 0) & (aw[None, :] + 1 < bk.wvec[:, None])
         shapes.append(f"{label} (k={k}, wb={wb}, rb={bk.rb})")
+        # the rows of y that no live entry of the bucket names (row n, the
+        # scratch, among them): a sweep must leave them as they were
+        named = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        live = torch.cat([aw[None, :] < bk.wvec[:, None],
+                          torch.arange(bk.rb, device=dev)[None, :]
+                          < bk.rvec[:, None]], 1)
+        named[bk.rows[live].long()] = True
+        keep = ~named
+        kept = True
         for dt in (torch.float64, torch.float32):
             tag = str(dt)[6:]
             tau = torch.tensor(tau64, dtype=dt, device=dev)
@@ -1054,6 +1090,7 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
                 if tag == "float64":
                     abs_err["schur_update"] = max(abs_err["schur_update"], ea)
                 D = ref.sn_gather(Ck, bk.pidx)[:, :wb, :]
+                sbk = bk._replace(bkm=bkm, pairs=pairs)
                 for mode in ("l", "lt", "u", "ut"):
                     for m in (1, 64):
                         y = torch.tensor(rng.normal(size=(k, wb, m)),
@@ -1063,12 +1100,27 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
                         torch.cuda.synchronize()
                         xp = ref.sn_trsv_ref(D, y, bk.wvec, bkm, mode=mode,
                                              pairs=pairs)
-                        e, ea = rel_err([x], [xp], [xp])
-                        errs["block_trsv"].append((tag, e))
+                        trsv_errs.append((tag, rel_err([x], [xp], [xp])[0]))
+                        Y0 = torch.tensor(rng.normal(size=(n + 1, m)),
+                                          dtype=dt, device=dev)
+                        Y0[n] = 7.25
+                        wk, pt = ksn.sweep_buffers([sbk], m, dt, dev)
+                        Yk = ksn.sn_sweep_inplace(Ck, Y0.clone(), sbk, mode,
+                                                  work=wk, part=pt)
+                        torch.cuda.synchronize()
+                        Yp = ref.sn_sweep_inplace_ref(
+                            Ck, Y0.clone(), sbk.pidx, sbk.qidx, sbk.rows,
+                            sbk.wvec, sbk.rvec, bkm, mode=mode, pairs=pairs)
+                        e, ea = rel_err([Yk], [Yp], [Yp])
+                        errs["sn_sweep"].append((tag, e))
                         if tag == "float64":
-                            abs_err["block_trsv"] = max(
-                                abs_err["block_trsv"], ea)
+                            abs_err["sn_sweep"] = max(abs_err["sn_sweep"], ea)
+                        kept = kept and torch.equal(Yk[keep], Y0[keep]) \
+                            and int(wk.abs().sum()) == 0
                 del Ck, Cp, Sk, Sp
+        check(kept, f"sn_sweep {label}: every row of y that no live entry "
+              f"names ({int(keep.sum())}, the scratch row among them) kept "
+              f"bit for bit, work counters back at zero after every launch")
     # -- the whole factorization, kernels against plain, REPEATS times with
     #    one `work` vector: the split lanes' cross-block protocol (the last
     #    block of a lane writes D back and resets its counter) must give the
@@ -1076,6 +1128,10 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
     #    first run also records each bucket's panels as they enter
     #    panel_factor (Cin) and the factors (Cf): the timed runs below start
     #    from these, the main path's own values.
+    worst_trsv = max(e for _, e in trsv_errs)
+    check(all(e <= TOL_KERNEL[t] for t, e in trsv_errs),
+          f"block_trsv (sn_sweep with no sub-rows) matches sn_trsv_ref in "
+          f"l/lt/u/ut, m = 1 and 64 ({worst_trsv:.2e})")
     tau = torch.tensor(tau64, dtype=torch.float64, device=dev)
     work = torch.zeros(max(nk_of(b) for b in buckets), dtype=torch.int32,
                        device=dev)
@@ -1117,13 +1173,19 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
               f"{TOL_KERNEL['float64']:.0e}), clamp count {nb_k:.0f} == "
               f"{nb_plain:.0f}, sink untouched, work counters back at zero")
     del Cp
-    # -- time: one bucket of each case, and summed over one factorization,
-    #    each pass from the main path's values (panel_factor from Cin,
-    #    schur_update from Cf), restored off the clock
+    # -- time: one bucket of each case, and summed over one factorization
+    #    (one mode-l sweep), each pass from the main path's values
+    #    (panel_factor from Cin, schur_update from Cf, sn_sweep on Cf from
+    #    one y), restored off the clock
     acc = torch.zeros((), dtype=torch.float64, device=dev)
     Cw = C.clone()
+    Y0 = torch.tensor(rng.normal(size=(n + 1, 1)), device=dev)
+    Y0[n] = 0.0
+    Yw = Y0.clone()
     reset = {"panel_factor": lambda: Cw.copy_(Cin),
-             "schur_update": lambda: Cw.copy_(Cf), "block_trsv": None}
+             "schur_update": lambda: Cw.copy_(Cf),
+             "sn_sweep": lambda: Yw.copy_(Y0)}
+    sw_work, sw_part = ksn.sweep_buffers(buckets, 1, torch.float64, dev)
     lu_panels = [ref.sn_panel_mask(ref.sn_gather(Cin, bk.pidx),
                                    ref.sn_gather(Cin, bk.qidx), bk.wvec,
                                    bk.rvec)[0] for bk in buckets]
@@ -1133,10 +1195,12 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
     livepos = [torch.nonzero(ref.sn_target_mask(bk.rvec, bk.rb, dev)
                              .reshape(-1))[:, 0] for bk in buckets]
     distinct = {id(bk): int(bk.uidx.unique().numel()) for bk in buckets}
-    Ds = [ref.sn_gather(Cf, bk.pidx)[:, :bk.wb, :] for bk in buckets]
-    Dm = [ref.sn_block_mask(D, bk.wvec) for D, bk in zip(Ds, buckets)]
-    ys = [torch.tensor(rng.normal(size=(nk_of(bk), bk.wb, 1)), device=dev)
-          for bk in buckets]
+    sdistinct = {id(bk): _sweep_distinct(bk) for bk in buckets}
+    Dm = [ref.sn_block_mask(P[:, :bk.wb, :], bk.wvec)
+          for (P, _), bk in zip(panels, buckets)]
+    rows_b = [bk.rows[:, :bk.wb].long() for bk in buckets]
+    rows_s = [bk.rows[:, bk.wb:].reshape(-1).long() for bk in buckets]
+    ys = [Y0[r] for r in rows_b]
 
     def run(name, idx, impl):
         def one(i):
@@ -1162,12 +1226,20 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
                 return Cw.index_add_(0, bk.uidx, S.reshape(-1).index_select(
                     0, livepos[i]), alpha=-1)
             if impl == "kernel":
-                return ksn.block_trsv(Ds[i], ys[i], bk.wvec, bk.bkm, mode="l")
+                return ksn.sn_sweep_inplace(Cf, Yw, bk, "l", work=sw_work,
+                                            part=sw_part)
             if impl == "plain":
-                return ref.sn_trsv_ref(Ds[i], ys[i], bk.wvec, bk.bkm,
-                                       mode="l")
-            return torch.linalg.solve_triangular(Dm[i], ys[i], upper=False,
-                                                 unitriangular=True)
+                return ref.sn_sweep_inplace_ref(
+                    Cf, Yw, bk.pidx, bk.qidx, bk.rows, bk.wvec, bk.rvec,
+                    bk.bkm, mode="l", pairs=bk.pairs)
+            if impl == "library":                    # the trsv half
+                return torch.linalg.solve_triangular(
+                    Dm[i], ys[i], upper=False, unitriangular=True)
+            x = torch.linalg.solve_triangular(       # the whole function
+                Dm[i], Yw[rows_b[i]], upper=False, unitriangular=True)
+            Yw[rows_b[i]] = x
+            return Yw.index_add_(0, rows_s[i], torch.bmm(
+                panels[i][0][:, bk.wb:, :], x).reshape(-1, 1), alpha=-1)
         return lambda: [one(i) for i in idx]
 
     res = {}
@@ -1177,7 +1249,8 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
         rs = reset[name]
         for label, bk in cases:
             i = next(j for j, b in enumerate(buckets) if b is bk)
-            b_, f_ = _panel_work(bk, distinct=distinct[id(bk)])[name]
+            b_, f_ = _panel_work(bk, distinct[id(bk)],
+                                 sdistinct[id(bk)])[name]
             bms, bby = bound_ms(b_, f_, "float64")
             lib = None if name == "panel_factor" else \
                 cuda_ms(run(name, [i], "library"), 20)
@@ -1186,7 +1259,7 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
                 ms=cuda_ms(run(name, [i], "kernel"), 20, reset=rs),
                 plain_ms=_sum_ms(run(name, [i], "plain"), reps=3, reset=rs),
                 library_ms=lib, bound_ms=bms, bound_by=bby))
-        work_b = [_panel_work(bk, distinct=distinct[id(bk)])[name]
+        work_b = [_panel_work(bk, distinct[id(bk)], sdistinct[id(bk)])[name]
                   for bk in buckets]
         tb = sum(w[0] for w in work_b)
         tf = sum(w[1] for w in work_b)
@@ -1208,9 +1281,18 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
             lib_txt = ("none (lu_factor_ex, P half only, 1x1 pivots, no "
                        "clamp: " + (f"{lu_ms:.4f} ms)" if lu_ms is not None
                                     else f"not timed: {why})"))
-        else:
-            lib = _sum_ms(run(name, allidx, "library"))
-            lib_txt = f"{lib:.4f} ms"
+        else:                            # nor the fused sweep step
+            extra = dict(
+                solve_triangular_ms=_sum_ms(run(name, allidx, "library"),
+                                            reset=rs),
+                solve_triangular_bmm_index_add_ms=_sum_ms(
+                    run(name, allidx, "library+add"), reset=rs),
+                block_trsv_rel_err=worst_trsv)
+            lib_txt = (f"none (solve_triangular alone "
+                       f"{extra['solve_triangular_ms']:.4f} ms, + bmm + "
+                       f"index_add_ "
+                       f"{extra['solve_triangular_bmm_index_add_ms']:.4f} "
+                       f"ms)")
         worst = {}
         for tag, e in errs[name]:
             worst[tag] = max(worst.get(tag, 0.0), e)
@@ -1218,7 +1300,7 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
             ms=ms, wall_ms=wall, plain_ms=plain, library_ms=lib,
             bytes=tb, flops=tf, dtype="float64", bound_ms=bms, bound_by=bby,
             shape=(f"poisson2d({ng}): {len(buckets)} buckets"
-                   + (", 1 sweep (mode l, m=1)" if name == "block_trsv"
+                   + (", 1 sweep (mode l, m=1)" if name == "sn_sweep"
                       else ", 1 factorization")),
             cases=per_case, max_rel_err=max(worst.values()),
             **(dict(repeat_rel_err=rep_err, split_lanes=split)
@@ -1229,18 +1311,19 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
             f"{bms:.4f} ms by {bby}, library {lib_txt}); "
             + "; ".join(f"{t} rel err {e:.2e} (limit {TOL_KERNEL[t]:.0e})"
                         for t, e in worst.items()))
+        yardstick = {"schur_update": "bmm",
+                     "sn_sweep": "solve_triangular"}.get(name, "library")
         for c in per_case:
             lib_c = c["library_ms"]
             say(f"    {c['case']:10s} (k={c['k']}, wb={c['wb']}, "
                 f"rb={c['rb']}): {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} "
                 f"ms, bound {c['bound_ms']:.4f} ms by {c['bound_by']}, "
-                f"{'bmm' if name == 'schur_update' else 'library'} "
-                f"{'-' if lib_c is None else '%.4f ms' % lib_c}")
+                f"{yardstick} {'-' if lib_c is None else '%.4f ms' % lib_c}")
         for t, e in worst.items():
             check(e <= TOL_KERNEL[t], f"{name} {t} matches its plain version "
                   f"at {', '.join(shapes)} ({e:.2e} <= {TOL_KERNEL[t]:.0e})")
     out["panel_kernel_phase"] = dict(n_buckets=len(buckets), kernels=res)
-    del panels, lu_panels, livepos, Ds, Dm, ys, C, Cw, Cin, Cf
+    del panels, lu_panels, livepos, Dm, ys, C, Cw, Cin, Cf, Y0, Yw
     torch.cuda.empty_cache()
     return res
 
@@ -1265,9 +1348,9 @@ def _kernel_breakdown(fn, trace):
     return sum(c for _, c, _ in top), sum(ms for ms, _, _ in top), top
 
 
-def _trsv_modes():
+def _sweep_modes():
     from repro_torch.kernels import supernode as ksn
-    return dict(ksn.TRSV_MODE_LAUNCHES)
+    return dict(ksn.SWEEP_MODE_LAUNCHES)
 
 
 def direct_path(dev, ng, seed, out, keep):
@@ -1301,7 +1384,7 @@ def direct_path(dev, ng, seed, out, keep):
     _sync(dev)
     t4 = time.perf_counter()
     launches, stats = _counts()
-    modes = _trsv_modes()
+    modes = _sweep_modes()
     peak = _peak(dev)
     art = plan.artifacts["direct"]
     nb = sum(len(lvl) for lvl in art.snode.schedule) \
@@ -1347,6 +1430,15 @@ def direct_path(dev, ng, seed, out, keep):
               if "panel_factor_kernel" not in name
               and "schur_kernel" not in name]
     n_others = sum(c for _, c, _ in others)
+    # a solve's device ops: one sn_sweep launch per bucket and sweep, and
+    # only the set-up and the residual besides
+    stop = kern["solve"][2]
+    solve_sweeps = sum(c for _, c, name in stop if "sn_sweep_kernel" in name)
+    solve_sweep_ms = sum(ms for ms, _, name in stop
+                         if "sn_sweep_kernel" in name)
+    solve_others = [(ms, c, name) for ms, c, name in stop
+                    if "sn_sweep_kernel" not in name]
+    n_solve_others = sum(c for _, c, _ in solve_others)
     say(f"  direct path poisson2d({ng}) (n={n}): backend={plan.cfg.backend} "
         f"method={plan.cfg.method} supernodal={art.snode is not None} "
         f"buckets={nb} levels={len(art.snode.schedule)} "
@@ -1370,8 +1462,12 @@ def direct_path(dev, ng, seed, out, keep):
         f"{fact_kernels['schur_update']['ms']:.4f} ms; {n_others} other "
         f"device ops: " + "; ".join(f"{name[:50]} ×{c}"
                                     for _, c, name in others))
+    say(f"  solve trace: sn_sweep ×{solve_sweeps} {solve_sweep_ms:.4f} ms; "
+        f"{n_solve_others} other device ops: "
+        + "; ".join(f"{name[:50]} ×{c}" for _, c, name in solve_others)
+        + f"; device busy {busy['solve']:.1%} of the solve's wall")
     say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}; "
-        f"block_trsv by mode {json.dumps(modes)}")
+        f"sn_sweep by mode {json.dumps(modes)}")
     say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}; "
         "after with_values "
         + json.dumps({k: v for k, v in stats2.items() if v}))
@@ -1408,9 +1504,17 @@ def direct_path(dev, ng, seed, out, keep):
           f"direct path: a refactorization runs panel_factor and "
           f"schur_update once per bucket and {n_others} other device ops "
           f"(<= 32: no per-bucket gather, scatter or index_add_)")
-    check(launches["block_trsv"] == 4 * nb,
-          f"direct path: block_trsv launched 4 × buckets "
-          f"({launches['block_trsv']} == {4 * nb})")
+    check(launches["sn_sweep"] == 4 * nb
+          and modes["l"] + modes["ut"] == modes["u"] + modes["lt"] == 2 * nb,
+          f"direct path: solve + backward launched sn_sweep 4 × buckets "
+          f"({launches['sn_sweep']} == {4 * nb}): once per bucket in each "
+          f"of the two sweeps of each solve ({json.dumps(modes)}; the "
+          f"symmetric adjoint runs l / u again)")
+    check(solve_sweeps <= 2 * nb and n_solve_others <= SOLVE_OTHER_OPS,
+          f"direct path: a solve runs {solve_sweeps} sn_sweep launches (<= "
+          f"2 × {nb}) and {n_solve_others} other device ops (<= "
+          f"{SOLVE_OTHER_OPS}: no per-bucket gather, where, einsum or "
+          f"index_add_)")
     check(stats2["analyze"] == 1 and stats2["factorize"] == 2
           and rel3 <= TOL_DIRECT_RES,
           f"direct path: with_values refactorizes without re-analysis "
@@ -1426,10 +1530,12 @@ def direct_path(dev, ng, seed, out, keep):
         refactorize_solve_s=t6 - t5, cg_run_s=t8 - t7, true_residual=relres,
         refactorize_wall_ms=fact_wall, device_busy=busy,
         factorize_kernels=fact_kernels, factorize_other_ops=n_others,
+        solve_sweeps=solve_sweeps, solve_sweep_ms=solve_sweep_ms,
+        solve_other_ops=n_solve_others,
         kernel_breakdown={k: dict(kernels=v[0], kernel_ms=v[1], top=v[2])
                           for k, v in kern.items()},
         grad_rel_diff=gerr, plan_nbytes=nbytes, peak_gb=peak,
-        launches=launches, trsv_modes=modes, plan_stats=stats,
+        launches=launches, sweep_modes=modes, plan_stats=stats,
         plan_stats_after_with_values=stats2)
     keep.update(art=art, val=A0.val)
     del A, A0, u, u2, u3, info, val, val2, plan, art
@@ -1460,12 +1566,12 @@ def lu_path(dev, ng, seed, out):
     u = sla.solve(B.with_values(leaf), b)
     _sync(dev)
     t1 = time.perf_counter()
-    fwd = _trsv_modes()
+    fwd = _sweep_modes()
     (u * u).sum().backward()
     _sync(dev)
     t2 = time.perf_counter()
     launches, stats = _counts()
-    modes = _trsv_modes()
+    modes = _sweep_modes()
     plan = B.plan()
     leaf2 = v0.clone().requires_grad_(True)
     t3 = time.perf_counter()
@@ -1479,7 +1585,7 @@ def lu_path(dev, ng, seed, out):
         f"method={plan.cfg.method}; forward {t1 - t0:.3f} s, backward "
         f"{t2 - t1:.3f} s; dense backend {t4 - t3:.3f} s; solution rel diff "
         f"{uerr:.3e}, val-gradient rel diff {gerr:.3e}")
-    say(f"  block_trsv by mode: forward {json.dumps(fwd)}, forward + "
+    say(f"  sn_sweep by mode: forward {json.dumps(fwd)}, forward + "
         f"backward {json.dumps(modes)}")
     say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}")
     check(plan.cfg.backend == "direct" and plan.cfg.method == "lu",
@@ -1491,12 +1597,12 @@ def lu_path(dev, ng, seed, out):
           and stats["transpose_shared"] == 1,
           "LU path: analyze == 1, factorize == 1, transpose_shared == 1")
     check(fwd["ut"] == fwd["lt"] == 0 and modes["ut"] > 0 and modes["lt"] > 0,
-          f"LU path: the backward ran block_trsv in modes ut ({modes['ut']}) "
+          f"LU path: the backward ran sn_sweep in modes ut ({modes['ut']}) "
           f"and lt ({modes['lt']})")
     out["lu_path"] = dict(ng=ng, n=n, forward_s=t1 - t0, backward_s=t2 - t1,
                           dense_run_s=t4 - t3, solution_rel_diff=uerr,
                           grad_rel_diff=gerr, launches=launches,
-                          trsv_modes_forward=fwd, trsv_modes=modes,
+                          sweep_modes_forward=fwd, sweep_modes=modes,
                           plan_stats=stats)
     del A0, B, u, u2, leaf, leaf2, plan
     torch.cuda.empty_cache()
@@ -1536,6 +1642,7 @@ def indefinite_path(dev, m, k, seed, out):
     _sync(dev)
     t1 = time.perf_counter()
     launches, stats = _counts()
+    modes = _sweep_modes()
     plan = T.plan(backend="direct", method="lu")
     npairs = plan.artifacts["direct"].snode.stats["n_pair_pivots"]
     xd = torch.linalg.solve(Adt, b)
@@ -1551,7 +1658,8 @@ def indefinite_path(dev, m, k, seed, out):
         f"transposed {xterr:.3e}; slogdet sign {float(sign):+.0f} "
         f"(torch {float(sd):+.0f}), log|det| rel diff {lerr:.3e}, gradient "
         f"rel diff {gerr:.3e}")
-    say(f"  PLAN_STATS {json.dumps({k2: v for k2, v in stats.items() if v})}")
+    say(f"  PLAN_STATS {json.dumps({k2: v for k2, v in stats.items() if v})}"
+        f"; sn_sweep by mode {json.dumps(modes)}")
     check(npairs > 0, f"indefinite path: {npairs} static 2x2 pivots, no "
           f"perturbation warning")
     check(xerr <= TOL_DENSE and xterr <= TOL_DENSE,
@@ -1561,11 +1669,13 @@ def indefinite_path(dev, m, k, seed, out):
           f"indefinite path: slogdet sign and log|det| ({lerr:.2e} <= 1e-10)")
     check(gerr <= TOL_DENSE, f"indefinite path: slogdet gradient matches "
           f"A⁻ᵀ on the pattern ({gerr:.2e} <= {TOL_DENSE:.0e})")
+    check(min(modes.values()) > 0, f"indefinite path: sn_sweep ran in all "
+          f"four modes, with pairs ({json.dumps(modes)})")
     out["indefinite_path"] = dict(
         m=m, k=k, n=n, pair_pivots=npairs, seconds=t1 - t0,
         solve_rel_diff=xerr, transposed_rel_diff=xterr,
         logdet_rel_diff=lerr, grad_rel_diff=gerr, launches=launches,
-        plan_stats=stats)
+        sweep_modes=modes, plan_stats=stats)
     del T, Adt, plan
     torch.cuda.empty_cache()
     return launches
@@ -1958,10 +2068,52 @@ def lm_path(dev, seed, out):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the on-card tests
+# ---------------------------------------------------------------------------
+
+def on_card_tests(out):
+    """``tests/test_torch_on_card.py`` under pytest in a child process on
+    this card (``--noconftest``: the repo's conftest imports jax), its
+    counts read from the junit XML; any failure, error or skip, or no pass,
+    fails the phase."""
+    import xml.etree.ElementTree as ET
+    xml = os.path.join(OUT, "on_card_tests.xml")
+    if os.path.exists(xml):
+        os.remove(xml)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", ON_CARD_TESTS, f"--junitxml={xml}"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t
+    with open(os.path.join(OUT, "on_card_tests.log"), "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    counts = dict(tests=0, failures=0, errors=0, skipped=0)
+    if os.path.exists(xml):
+        root = ET.parse(xml).getroot()
+        suite = root if root.tag == "testsuite" else root.find("testsuite")
+        counts = {k: int(suite.get(k, 0)) for k in counts}
+    passed = counts["tests"] - counts["failures"] - counts["errors"] \
+        - counts["skipped"]
+    tail = proc.stdout.strip().splitlines()[-1:] or ["(no output)"]
+    say(f"  {ON_CARD_TESTS}: {passed} passed, {counts['failures']} failed, "
+        f"{counts['errors']} errors, {counts['skipped']} skipped in "
+        f"{secs:.1f} s (pytest exit {proc.returncode}; {tail[0]})")
+    out["on_card_tests"] = dict(passed=passed, seconds=secs,
+                                returncode=proc.returncode, **counts)
+    check(proc.returncode == 0 and passed > 0 and counts["failures"] == 0
+          and counts["errors"] == 0 and counts["skipped"] == 0,
+          f"on-card tests: {passed} passed, none failed or skipped")
+
+
+# ---------------------------------------------------------------------------
 
 #: the kernels whose registers, shared memory and spills the script prints
 KERNEL_ENTRIES = ("sell_spmv_kernel", "panel_factor_kernel", "schur_kernel",
-                  "tc_kernel", "simt_kernel")
+                  "sn_sweep_kernel", "tc_kernel", "simt_kernel")
 
 
 def _targs(mangled):
@@ -2101,6 +2253,7 @@ def main():
         path_launches[k] = path_launches.get(k, 0) + v
     for k, v in path_launches.items():
         check(v > 0, f"{k} launched on the paths ({v} times)")
+    phase("on-card tests", on_card_tests, out)
 
     kernels = []
     for name, r in kres.items():

@@ -24,8 +24,9 @@ two kernels that work on ``C`` in place through the slot tables:
 product straight from the ancestors' slots (the extend-add).  Otherwise
 the scalar packed scan, a Python loop over its steps (ILU(0), and patterns
 the supernodal gate declines).  ``factored_solve(dart, C, b)`` — the solve
-stage: supernodal sweeps (``block_trsv`` kernel + panel GEMVs in
-``torch.einsum``) or the scalar sweeps; ``b`` may be (n,) or (n, m).
+stage: supernodal sweeps, one ``sn_sweep`` kernel per bucket and sweep
+(block solve, panel GEMV and scatter / gather, in place in the solution),
+or the scalar sweeps; ``b`` may be (n,) or (n, m).
 ``factor_slogdet`` — (sign, log|det A|) from the factors, pair aware.
 
 Storage layout of the factor vector ``C`` (length ``nnzF + 2``), as in the
@@ -96,11 +97,8 @@ class SnodeBucket(NamedTuple):
     (k, wb, rb) the U panel, ``uidx`` (k, rb, rb) the extend-add targets,
     ``rows`` (k, wb+rb) permuted row ids (pads → n), ``bkm`` (k, wb) pair
     starts.  On the device (:func:`to_device`) ``uidx`` is live-only: the
-    concatenated r×r blocks of the lanes, lane l's at ``uoff[l]``.  The
-    trailing fields are set by :func:`to_device` only: ``uoff`` (k+1,),
-    ``didx`` the diagonal-block slots, ``rows_b``/``rows_s`` the two halves
-    of ``rows``, ``tw`` (k, wb, 1) the true-column mask and ``pmask``
-    (k, rb, wb) / ``qmask`` (k, wb, rb) the panel masks of the sweeps."""
+    concatenated r×r blocks of the lanes, lane l's at ``uoff[l]`` (set by
+    :func:`to_device` only, (k+1,))."""
     wb: int
     rb: int
     pairs: bool
@@ -112,12 +110,6 @@ class SnodeBucket(NamedTuple):
     rvec: np.ndarray         # (k,) true sub-row counts
     bkm: np.ndarray
     uoff: Optional[torch.Tensor] = None
-    didx: Optional[torch.Tensor] = None
-    rows_b: Optional[torch.Tensor] = None
-    rows_s: Optional[torch.Tensor] = None
-    tw: Optional[torch.Tensor] = None
-    pmask: Optional[torch.Tensor] = None
-    qmask: Optional[torch.Tensor] = None
 
 
 class SnodeProgram(NamedTuple):
@@ -126,12 +118,15 @@ class SnodeProgram(NamedTuple):
     factorization and the L/Uᵀ sweeps, descending for U/Lᵀ.  ``pair_cols``
     (p, 2) permuted pivot columns of the 2x2 pairs, ``pair_off`` (p, 2) the
     C slots of their raw b and c entries, ``unpaired`` (n,) the columns
-    owned by 1x1 pivots (read by :func:`factor_slogdet`)."""
+    owned by 1x1 pivots (read by :func:`factor_slogdet`).  ``buffers``
+    (set by :func:`to_device`) holds the sweep kernel's work buffers, made
+    at the first solve and kept (:func:`_sweep_buffers`)."""
     schedule: tuple
     pair_cols: np.ndarray
     pair_off: np.ndarray
     unpaired: np.ndarray
     stats: dict              # n_snodes, mean_width, panel_fraction, n_groups
+    buffers: Optional[dict] = None
 
 
 class DirectArtifacts(NamedTuple):
@@ -1172,33 +1167,28 @@ def _live_targets(bk: SnodeBucket) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _bucket_on(bk: SnodeBucket, device) -> SnodeBucket:
-    wb, rb = bk.wb, bk.rb
-    tw = np.arange(wb)[None, :] < bk.wvec[:, None]
-    ta = np.arange(rb)[None, :] < bk.rvec[:, None]
+    from ..kernels.supernode import check_sweep_bucket
     tgt, uoff = _live_targets(bk)
     i32 = torch.int32
-    return bk._replace(
+    out = bk._replace(
         pidx=_on(bk.pidx, device, i32), qidx=_on(bk.qidx, device, i32),
         uidx=_on(tgt, device, i32), uoff=_on(uoff, device),
-        rows=_on(bk.rows, device),
+        rows=_on(bk.rows, device, i32),
         wvec=_on(bk.wvec, device, i32), rvec=_on(bk.rvec, device, i32),
-        bkm=_on(bk.bkm, device, torch.bool),
-        didx=_on(bk.pidx[:, :wb, :], device, i32),
-        rows_b=_on(bk.rows[:, :wb], device),
-        rows_s=_on(bk.rows[:, wb:], device),
-        tw=_on(tw[:, :, None], device, torch.bool),
-        pmask=_on(ta[:, :, None] & tw[:, None, :], device, torch.bool),
-        qmask=_on(tw[:, :, None] & ta[:, None, :], device, torch.bool))
+        bkm=_on(bk.bkm, device, torch.bool))
+    check_sweep_bucket(out, device)
+    return out
 
 
 def to_device(art: DirectArtifacts, device) -> DirectArtifacts:
     """The artifacts with every array on ``device`` — done once per pattern
     at analyze time, never per factorization or solve.  The panel kernels'
-    slot tables (``pidx``, ``qidx``, ``didx``) become int32 and ``uidx`` the
-    live-only int32 target table with its int64 lane offsets ``uoff``
-    (:func:`_live_targets`; every slot of ``C`` fits in int32), ``wvec``/
-    ``rvec`` int32 and ``bkm`` bool; the other index arrays int64 (the type
-    torch indexing takes)."""
+    slot tables (``pidx``, ``qidx``) and the sweep's row ids (``rows``)
+    become int32 and ``uidx`` the live-only int32 target table with its
+    int64 lane offsets ``uoff`` (:func:`_live_targets`; every slot of ``C``
+    fits in int32), ``wvec``/``rvec`` int32 and ``bkm`` bool, checked once
+    here for the sweep kernel; the other index arrays int64 (the type torch
+    indexing takes)."""
     device = torch.device(device)
     sn = art.snode
     if sn is not None:
@@ -1210,7 +1200,7 @@ def to_device(art: DirectArtifacts, device) -> DirectArtifacts:
                            for lvl in sn.schedule),
             pair_cols=_on(sn.pair_cols, device),
             pair_off=_on(sn.pair_off, device),
-            unpaired=_on(sn.unpaired, device, torch.bool))
+            unpaired=_on(sn.unpaired, device, torch.bool), buffers={})
     return art._replace(
         perm=_on(art.perm, device), ipos=_on(art.ipos, device),
         a2f=_on(art.a2f, device),
@@ -1328,59 +1318,36 @@ def _sweep(C, y, program: PackedSweep, use_upos: bool, divide: bool):
     return y
 
 
-def _sn_sweep(bk: SnodeBucket, C, y, mode: str):
-    """One bucket of a supernodal sweep.  ``"l"``: forward unit-L (block
-    solve, then the L-panel GEMV scattered into the sub-rows); ``"u"``:
-    backward U (U-panel GEMV gathered from the sub-rows, then the block
-    solve with pivots); ``"ut"``/``"lt"`` the transposed mirrors on the same
-    factors.  Every write to the scratch row is a masked zero."""
+def _sweep_buffers(sn: SnodeProgram, m: int, dtype, device):
+    """The ``sn_sweep`` work / part buffers for up to m right-hand sides,
+    made once per plan and dtype and grown with m (every launch leaves the
+    counters at zero, so the next solve reuses them)."""
     from ..kernels import supernode as ksn
-    from ..kernels.ref import sn_gather
-    wb = bk.wb
-    if mode in ("l", "lt"):
-        P = sn_gather(C, bk.pidx)
-        D = P[:, :wb, :]
-        Pp = torch.where(bk.pmask, P[:, wb:, :], 0.0)
-    else:
-        D = sn_gather(C, bk.didx)
-        Qm = torch.where(bk.qmask, sn_gather(C, bk.qidx), 0.0)
-    m = y.shape[1]
-    if mode == "l":
-        yb = ksn.block_trsv(D, y[bk.rows_b], bk.wvec, bk.bkm, mode=mode,
-                            pairs=bk.pairs)
-        upd = torch.einsum("kaw,kwm->kam", Pp, yb)
-        y[bk.rows_b] = torch.where(bk.tw, yb, 0.0)
-        y.index_add_(0, bk.rows_s.reshape(-1), upd.reshape(-1, m), alpha=-1)
-    elif mode == "u":
-        xb0 = y[bk.rows_b] - torch.einsum("ktr,krm->ktm", Qm, y[bk.rows_s])
-        xb = ksn.block_trsv(D, xb0, bk.wvec, bk.bkm, mode=mode,
-                            pairs=bk.pairs)
-        y[bk.rows_b] = torch.where(bk.tw, xb, 0.0)
-    elif mode == "ut":
-        yb = ksn.block_trsv(D, y[bk.rows_b], bk.wvec, bk.bkm, mode=mode,
-                            pairs=bk.pairs)
-        upd = torch.einsum("ktr,ktm->krm", Qm, yb)
-        y[bk.rows_b] = torch.where(bk.tw, yb, 0.0)
-        y.index_add_(0, bk.rows_s.reshape(-1), upd.reshape(-1, m), alpha=-1)
-    else:                                   # "lt"
-        xb0 = y[bk.rows_b] - torch.einsum("kaw,kam->kwm", Pp, y[bk.rows_s])
-        xb = ksn.block_trsv(D, xb0, bk.wvec, bk.bkm, mode=mode,
-                            pairs=bk.pairs)
-        y[bk.rows_b] = torch.where(bk.tw, xb, 0.0)
-    return y
+    have = sn.buffers.get(dtype)
+    if have is None or have[0] < m:
+        have = sn.buffers[dtype] = (m,) + ksn.sweep_buffers(
+            [bk for lvl in sn.schedule for bk in lvl], m, dtype, device)
+    return have[1:]
 
 
 def _snode_solve(art: DirectArtifacts, C, y, transposed: bool):
     """Supernodal sweeps (forward or transposed) on the panel factors —
-    ascending levels for L/Uᵀ, descending for U/Lᵀ."""
+    ascending levels for L/Uᵀ, descending for U/Lᵀ — one ``sn_sweep``
+    launch per bucket and sweep, in place in y.  Within a level this is
+    sound: a bucket's lanes own disjoint block rows, and the rows they
+    scatter into or gather from lie in ancestors, on higher levels."""
+    from ..kernels import supernode as ksn
     sched = art.snode.schedule
     first, second = ("ut", "lt") if transposed else ("l", "u")
+    work = part = None
+    if y.device.type != "cpu":
+        work, part = _sweep_buffers(art.snode, y.shape[1], C.dtype, y.device)
     for lvl in sched:
         for bk in lvl:
-            y = _sn_sweep(bk, C, y, first)
+            ksn.sn_sweep_inplace(C, y, bk, first, work=work, part=part)
     for lvl in reversed(sched):
         for bk in lvl:
-            y = _sn_sweep(bk, C, y, second)
+            ksn.sn_sweep_inplace(C, y, bk, second, work=work, part=part)
     return y
 
 
@@ -1396,8 +1363,9 @@ def factored_solve(art: DirectArtifacts, C: torch.Tensor, b: torch.Tensor,
         vec = b.dim() == 1
         B = b.detach().reshape(b.shape[0], -1)
         n = art.n
-        y = torch.zeros(n + 1, B.shape[1], dtype=B.dtype, device=B.device)
-        y[:n] = B[art.perm]
+        y = B.new_empty(n + 1, B.shape[1])
+        torch.index_select(B, 0, art.perm, out=y[:n])
+        y[n] = 0.0
         if art.snode is not None:
             y = _snode_solve(art, C, y, transposed)
         else:

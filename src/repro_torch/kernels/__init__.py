@@ -19,6 +19,6 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for counts in _COUNTERS + (supernode.TRSV_MODE_LAUNCHES,):
+    for counts in _COUNTERS + (supernode.SWEEP_MODE_LAUNCHES,):
         for k in counts:
             counts[k] = 0

@@ -55,7 +55,8 @@ _SIGNATURES = {
     "sn_panel_factor": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P],
     "sn_schur_update": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "sn_block_trsv": [_I, _I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P],
+    "sn_sweep": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                 _I, _I, _P],
     "flash_attention_f32": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
                             _I, _P],
     "flash_attention_bf16": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,

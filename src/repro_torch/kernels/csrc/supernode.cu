@@ -1,9 +1,11 @@
 // Supernodal panel kernels of the sparse direct solver, on Hopper:
-// panel_factor, schur_update (fused with the extend-add) and block_trsv.
+// panel_factor, schur_update (fused with the extend-add) and sn_sweep (the
+// block solve fused with its panel GEMV and scatter / gather).
 //
 // Replaces the TPU kernels of repro/kernels/supernode.py: panel_factor (its
 // pallas_call at supernode.py:73), schur_update (:123) and block_trsv
-// (:158).  The TPU versions run one supernode lane per grid step with the
+// (:158), with the reference's per-bucket sweep step around block_trsv
+// (_sn_sweep_fn in repro/core/direct.py).  The TPU versions run one supernode lane per grid step with the
 // whole (wb+rb, wb) panel and its (wb, rb) U panel resident in VMEM; the
 // reference's numeric loop gathers the panels from the factor vector C,
 // scatters them back and scatter-adds the Schur product S into the
@@ -48,21 +50,47 @@
 //   toff[l]), so no pad product is formed and no atomic lands on the
 //   scratch sink.  Atomics sum siblings in no fixed order: f64 factors can
 //   differ in the last bits from run to run.
-// * block_trsv: one warp per (lane, right-hand side); thread i holds x[i]
-//   (wb <= 32), the masked block D sits in shared memory, and x[t] is
-//   broadcast with __shfl_sync.  Modes l / lt / u / ut and the pair branch
-//   of the reference's sn_trsv_body; y is (k, wb, m) with m >= 1.
+// * sn_sweep: one bucket of a triangular sweep, in place in the solution
+//   y (n+1, m), the factors read from C through pidx / qidx and y through
+//   the lanes' int32 row ids.  Modes l (x = L_D^-1 y_b, then y_s -= L_sub x)
+//   and ut (x = U_D^-T y_b, then y_s -= U^T x) solve, then scatter; u
+//   (x = U_D^-1 (y_b - U y_s)) and lt (x = L_D^-T (y_b - L_sub^T y_s))
+//   gather, then solve.  Grid (lane, tile of up to 128 items, group of 4
+//   right-hand sides); an item is a sub-row (l, lt) or a U column (u, ut),
+//   one thread each, holding its w values in registers (unrolled on the
+//   compile-time width WBC >= wb): consecutive items hold consecutive
+//   slots, so the value loads are coalesced.  A block issues all its index
+//   loads at once (L_sub's slot table as one coalesced run, staged in
+//   shared memory), then all its value loads, so it waits for a few memory
+//   latencies, not one per element.  Each block stages the triangle of D
+//   its mode reads, and solves the wb <= 32 block one warp per right-hand
+//   side (thread i holds x[i], x[t] broadcast with __shfl_sync; the pair
+//   branch of the reference's sn_trsv_body).  To scatter, every block of a
+//   lane solves, the last one to have read y[rows_b] (a per-lane counter
+//   in `work`, as panel_factor's) writes x there, and each item subtracts
+//   its dot product from y[rows_s] with atomicAdd: sibling lanes share
+//   ancestor rows.  To gather, each warp sums its items' w products at once
+//   by a transposing butterfly (31 shuffles at WBC = 32), each block then
+//   over its warps in order, writes the sums to a workspace, and the lane's
+//   last block adds them in tile order, solves and writes y[rows_b]: the
+//   result does not depend on the order the blocks ran.  Within a launch
+//   the lanes own disjoint rows_b and their rows_s lie in ancestors, on
+//   other levels, so no block reads a row another block of the launch
+//   writes.  Pads (w < wb, r < rb, all-pad lanes, rows naming the scratch
+//   row) are masked in the kernel and never written.  What bounds it on
+//   the card is a launch's fixed cost and the block solve's serial chain of
+//   wb steps (each with an f64 division in u / ut), not its bytes.
 //
 // The file is compiled with -fmad=false (see _build.py) so that no a - b*c
 // is contracted into an FMA: the factor and solve keep the reference's
 // per-element rounding.  schur_update sums with explicit fma().
 //
-// Bounds (f64 at 3.35 TB/s): panel_factor and block_trsv read and write
+// Bounds (f64 at 3.35 TB/s): panel_factor and sn_sweep read (and write)
 // their panels once and do O(wb) flops per word: bytes.  schur_update does
 // 2*w flops per target, which it reads and writes once with its 4-byte
 // index (20 bytes): 64 flops per 20 bytes at w = 32, below the card's f64
 // balance point (~10 flops per byte), so bytes as well.  Tensor cores are
-// not used: at wb <= 32 neither kernel is bound by its operations, and
+// not used: at wb <= 32 no kernel here is bound by its operations, and
 // -fmad=false forbids the contraction an f64 mma would make of the factor's
 // a - b*c updates.
 #include "common.cuh"
@@ -561,43 +589,39 @@ int schur_t(void* C, const void* pidx, const void* qidx, const void* wvec,
 }
 
 // ---------------------------------------------------------------------------
-// block_trsv
+// sn_sweep: one bucket of a supernodal triangular sweep, in place in y
 // ---------------------------------------------------------------------------
 
 constexpr int kModeL = 0, kModeLT = 1, kModeU = 2, kModeUT = 3;
-constexpr int kTrsvWarps = 4;
+constexpr int kSwMaxThreads = 128;        // items (sub-rows / U columns) a block
+constexpr int kSwWarps = kSwMaxThreads / 32;
+constexpr int kSwRhs = 4;                 // right-hand sides a block
 
-template <typename T, int MODE, bool PAIRS>
-__global__ void __launch_bounds__(32 * kTrsvWarps)
-block_trsv_kernel(const T* __restrict__ D, long long dstride,
-                  const T* __restrict__ y, T* __restrict__ x,
-                  const int32_t* __restrict__ wvec,
-                  const uint8_t* __restrict__ bkm, int wb, int m) {
-  __shared__ T Ds[32][33];
-  __shared__ uint8_t bks[32];
-  const int lane = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int w = wvec[lane];
-  const T* d = D + (size_t)lane * dstride;
-  const uint8_t* bk = bkm + (size_t)lane * wb;
-  for (int e = tid; e < wb * wb; e += blockDim.x) {
-    const int i = e / wb, j = e % wb;
-    T v = (i < w && j < w) ? d[e] : T(0);
-    v = v + ((i == j && i >= w) ? T(1) : T(0));
-    // pair-start subdiagonal holds raw c: identity in the unit factor
-    if (PAIRS && (MODE == kModeL || MODE == kModeLT) && i == j + 1 && bk[j])
-      v = T(0);
-    Ds[i][j] = v;
-  }
-  for (int e = tid; e < wb; e += blockDim.x) bks[e] = PAIRS ? bk[e] : 0;
-  __syncthreads();
-  const int li = tid & 31;
-  const int col = blockIdx.y * (blockDim.x >> 5) + (tid >> 5);
-  if (col >= m) return;                      // whole warps leave together
+// entries of D a thread stages: a block has at least WBC^2 / value threads
+template <int WBC>
+struct SweepDPer {
+  static constexpr int value = WBC * WBC <= 256 ? (WBC * WBC + 31) / 32 : 8;
+};
+
+template <typename T, int WBC>
+struct SweepShared {
+  T D[WBC][WBC + 1];                      // the masked diagonal block
+  T x[kSwRhs][WBC];                       // x0, then x, per right-hand side
+  T red[kSwWarps][kSwRhs][WBC];           // per-warp sums (u, lt)
+  int32_t idx[kSwMaxThreads][WBC + 1];    // the tile's L_sub slots (l, lt)
+  int last;                               // this block writes y[rows_b]
+};
+
+// The masked block solve of one right-hand side by one warp: thread li holds
+// x[li] (wb <= WBC <= 32) and x[t] is broadcast with __shfl_sync.  Modes l /
+// lt / u / ut and the pair branch of the reference's sn_trsv_body; D is the
+// block as the caller staged it (pads zero with a unit diagonal, a pair
+// start's subdiagonal zero in l / lt).
+template <typename T, int WBC, int MODE, bool PAIRS>
+__device__ __forceinline__ T warp_solve(T (*Ds)[WBC + 1], unsigned bk, T xv,
+                                        int li, int wb) {
   const unsigned full = 0xffffffffu;
-  const size_t base = (size_t)lane * wb * m + col;
   const bool in = li < wb;
-  T xv = (in && li < w) ? y[base + (size_t)li * m] : T(0);
   if (MODE == kModeL) {
     for (int t = 0; t < wb; ++t) {
       const T xt = __shfl_sync(full, xv, t);
@@ -612,8 +636,8 @@ block_trsv_kernel(const T* __restrict__ D, long long dstride,
   } else {
     for (int s = 0; s < wb; ++s) {
       const int t = MODE == kModeU ? wb - 1 - s : s;
-      const bool start = PAIRS && bks[t] != 0;
-      const bool second = PAIRS && t > 0 && bks[t - 1] != 0;
+      const bool start = PAIRS && ((bk >> t) & 1u);
+      const bool second = PAIRS && t > 0 && ((bk >> (t - 1)) & 1u);
       if (second) continue;                  // solved with its pair start
       if (!start) {
         const T xt1 = __shfl_sync(full, xv, t) / Ds[t][t];
@@ -646,48 +670,326 @@ block_trsv_kernel(const T* __restrict__ D, long long dstride,
       }
     }
   }
-  if (in) x[base + (size_t)li * m] = xv;
+  return xv;
+}
+
+// Sum over the warp's 32 lanes of v[t] * f for every t < WBC at once: lane
+// li returns the sum for t = li mod WBC.  Each halving step keeps one half
+// of a lane's values, sends the other to its partner and adds what it
+// receives (WBC - 1 shuffles); a butterfly over the lane groups ends it.
+// The order of the sums is fixed.
+template <typename T, int WBC>
+__device__ __forceinline__ T warp_transpose_sum(const T (&v)[WBC], T f, int li) {
+  const unsigned full = 0xffffffffu;
+  constexpr int kH = WBC / 2;             // WBC >= 2
+  T a[kH];
+  const bool up0 = li & kH;
+#pragma unroll
+  for (int j = 0; j < kH; ++j) {
+    const T lo = v[j] * f, hi = v[j + kH] * f;
+    a[j] = (up0 ? hi : lo) + __shfl_xor_sync(full, up0 ? lo : hi, kH);
+  }
+#pragma unroll
+  for (int s = kH / 2; s >= 1; s >>= 1) {
+    const bool up = li & s;
+#pragma unroll
+    for (int j = 0; j < s; ++j) {
+      const T lo = a[j], hi = a[j + s];
+      a[j] = (up ? hi : lo) + __shfl_xor_sync(full, up ? lo : hi, s);
+    }
+  }
+#pragma unroll
+  for (int o = WBC; o < 32; o <<= 1) a[0] = a[0] + __shfl_xor_sync(full, a[0], o);
+  return a[0];
+}
+
+// Grid (lane, item tile, right-hand-side group).  Item it of a tile is
+// sub-row a = it of the lane (l, lt: a row of L_sub) or U column j = it (u,
+// ut); a group is kSwRhs columns of y.  y is (n+1, m) row-major; rows
+// (k, wb+rb) its row ids: the block's rows_b, then the sub-rows' rows_s.
+// WBC is the compile-time width (wb <= WBC): the item's values live in
+// registers, unrolled over it.
+template <typename T, int WBC, int MODE, bool PAIRS>
+__global__ void __launch_bounds__(kSwMaxThreads)
+sn_sweep_kernel(const T* __restrict__ C, T* __restrict__ y,
+                const int32_t* __restrict__ pidx, const int32_t* __restrict__ qidx,
+                const int32_t* __restrict__ rows, const int32_t* __restrict__ wvec,
+                const int32_t* __restrict__ rvec, const uint8_t* __restrict__ bkm,
+                int32_t* __restrict__ work, T* __restrict__ part, int wb, int rb,
+                int m) {
+  constexpr bool kScatter = MODE == kModeL || MODE == kModeUT;
+  constexpr bool kLower = MODE == kModeL || MODE == kModeLT;
+  constexpr int kDPer = SweepDPer<WBC>::value;
+  __shared__ SweepShared<T, WBC> sm;
+  const int lane = blockIdx.x, tile = blockIdx.y, grp = blockIdx.z;
+  const int tpb = blockDim.x, tid = threadIdx.x;
+  const int li = tid & 31, wid = tid >> 5, nw = tpb >> 5;
+  const int w = wvec[lane], r = rvec[lane];
+  const int it0 = tile * tpb;
+  // an all-pad lane does nothing; a tile past the live items does not run
+  if (w == 0 || (tile > 0 && it0 >= r)) return;
+  const int npart = r > tpb ? (r + tpb - 1) / tpb : 1;    // blocks that run
+  const int col0 = grp * kSwRhs;
+  const int g = min(kSwRhs, m - col0);
+  const size_t mw = (size_t)wb + rb;
+  const int32_t* pl = pidx + (size_t)lane * mw * wb;
+  const int32_t* rl = rows + (size_t)lane * mw;
+  const int32_t* ql = qidx + (size_t)lane * wb * rb + it0 + tid;   // U[., item]
+  const int item = it0 + tid;
+  const bool live = item < r;
+  const unsigned bk = PAIRS
+      ? __ballot_sync(0xffffffffu, li < wb && bkm[(size_t)lane * wb + li] != 0)
+      : 0u;
+
+  // 1. every index load of the block at once: D's slots (only the triangle
+  //    this mode reads), the tile's L_sub slots (one contiguous run,
+  //    coalesced) or the item's U slots (consecutive items, consecutive
+  //    slots), the block rows' ids and, to gather, the item's row id
+  int32_t ds[kDPer];
+#pragma unroll
+  for (int q = 0; q < kDPer; ++q) {
+    const int e = tid + q * tpb, i = e / wb, j = e - i * wb;
+    const bool need = e < wb * wb && i < w && j < w
+        && (kLower ? i > j : (i <= j || (PAIRS && i == j + 1)));
+    ds[q] = need ? pl[e] : -1;
+  }
+  int32_t sl[WBC];
+  if (kLower) {
+    const int nrow = max(0, min(it0 + tpb, r) - it0);
+    const int32_t* prow = pl + ((size_t)wb + it0) * wb;
+#pragma unroll
+    for (int k = 0; k < WBC; ++k) {
+      const int e = tid + k * tpb;
+      sl[k] = e < nrow * wb ? prow[e] : -1;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < WBC; ++c)
+      sl[c] = (live && c < w) ? ql[(size_t)c * rb] : -1;
+  }
+  int32_t xr[kSwRhs];
+#pragma unroll
+  for (int q = 0; q < kSwRhs; ++q) {
+    const int e = tid + q * tpb, t = e % wb;
+    xr[q] = (e < g * wb && t < w) ? rl[t] : -1;
+  }
+  const int rs = (!kScatter && live) ? rl[wb + item] : -1;
+
+  // 2. the tile's L_sub slots to their items (through shared memory)
+  if (kLower) {
+#pragma unroll
+    for (int k = 0; k < WBC; ++k) {
+      const int e = tid + k * tpb, i = e / wb;
+      if (sl[k] >= 0) sm.idx[i][e - i * wb] = sl[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < WBC; ++c) sl[c] = (live && c < w) ? sm.idx[tid][c] : -1;
+  }
+
+  // 3. every value load at once: D, y[rows_b], the item's w values (its row
+  //    of L_sub or column of U) and, to gather, its y[rows_s]; then D and
+  //    x0 = y_b into shared memory
+  T dv[kDPer];
+#pragma unroll
+  for (int q = 0; q < kDPer; ++q) dv[q] = ds[q] >= 0 ? C[ds[q]] : T(0);
+  T xv[kSwRhs];
+#pragma unroll
+  for (int q = 0; q < kSwRhs; ++q)
+    xv[q] = xr[q] >= 0 ? y[(size_t)xr[q] * m + col0 + (tid + q * tpb) / wb]
+                       : T(0);
+  T v[WBC];
+#pragma unroll
+  for (int c = 0; c < WBC; ++c) v[c] = sl[c] >= 0 ? C[sl[c]] : T(0);
+  T ys[kSwRhs];
+#pragma unroll
+  for (int q = 0; q < kSwRhs; ++q)
+    ys[q] = (rs >= 0 && q < g) ? y[(size_t)rs * m + col0 + q] : T(0);
+#pragma unroll
+  for (int q = 0; q < kDPer; ++q) {
+    const int e = tid + q * tpb, i = e / wb, j = e - i * wb;
+    if (e < wb * wb) {
+      T d = dv[q];
+      if (i == j && i >= w) d = T(1);
+      // a pair start's subdiagonal holds raw c: identity in the unit factor
+      if (kLower && PAIRS && i == j + 1 && ((bk >> j) & 1u)) d = T(0);
+      sm.D[i][j] = d;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kSwRhs; ++q) {
+    const int e = tid + q * tpb;
+    if (e < g * wb) sm.x[e / wb][e % wb] = xv[q];
+  }
+  __syncthreads();
+
+  if (kScatter) {
+    // 4. solve: one warp per right-hand side
+    for (int q = wid; q < g; q += nw) {
+      const T xq = warp_solve<T, WBC, MODE, PAIRS>(
+          sm.D, bk, li < wb ? sm.x[q][li] : T(0), li, wb);
+      if (li < wb) sm.x[q][li] = xq;
+    }
+    __syncthreads();
+    // 5. every block of the lane has read y[rows_b] before it counts itself
+    //    (fenced); the last one writes x there and resets the counter for the
+    //    next launch.  Nothing else of this launch reads or writes rows_b:
+    //    the scatter targets rows_s are ancestors, on other levels.
+    if (tid == 0) {
+      int last = 1;
+      if (npart > 1) {
+        int32_t* cnt = work + (size_t)lane * gridDim.z + grp;
+        __threadfence();
+        last = atomicAdd(cnt, 1) == npart - 1;
+        if (last) {
+          *cnt = 0;
+          __threadfence();
+        }
+      }
+      sm.last = last;
+    }
+    __syncthreads();
+    if (sm.last)
+      for (int e = tid; e < g * w; e += tpb) {
+        const int q = e / w, t = e - q * w;
+        y[(size_t)rl[t] * m + col0 + q] = sm.x[q][t];
+      }
+    // 6. this item's row of L_sub (or column of U) times x, subtracted from
+    //    y[rows_s[item]] atomically: sibling lanes share ancestor rows
+    if (live) {
+      T acc[kSwRhs];
+#pragma unroll
+      for (int q = 0; q < kSwRhs; ++q) acc[q] = T(0);
+#pragma unroll
+      for (int c = 0; c < WBC; ++c) {
+        if (c < w) {
+#pragma unroll
+          for (int q = 0; q < kSwRhs; ++q)
+            if (q < g) acc[q] = acc[q] + v[c] * sm.x[q][c];
+        }
+      }
+      T* yt = y + (size_t)rl[wb + item] * m + col0;
+#pragma unroll
+      for (int q = 0; q < kSwRhs; ++q)
+        if (q < g) atomicAdd(yt + q, -acc[q]);
+    }
+    return;
+  }
+
+  // gather (u, lt): 4. the tile's sum over its items for each t < w and
+  //    each right-hand side: within each warp by a transposing butterfly,
+  //    then over the warps in order
+  const bool warp_live = it0 + wid * 32 < r;
+#pragma unroll
+  for (int q = 0; q < kSwRhs; ++q) {
+    if (q < g) {
+      const T sum = warp_live ? warp_transpose_sum<T, WBC>(v, ys[q], li) : T(0);
+      if (li < w) sm.red[wid][q][li] = sum;
+    }
+  }
+  __syncthreads();
+  T* pl_part = part + ((size_t)lane * gridDim.z + grp) * gridDim.y * (kSwRhs * 32);
+  for (int e = tid; e < g * w; e += tpb) {
+    const int q = e / w, t = e - q * w;
+    T s = T(0);
+    for (int k = 0; k < nw; ++k) s = s + sm.red[k][q][t];
+    if (npart == 1)
+      sm.x[q][t] = sm.x[q][t] - s;
+    else
+      pl_part[(size_t)tile * (kSwRhs * 32) + q * 32 + t] = s;
+  }
+  // 5. several blocks: each writes its partial sums, counts itself (fenced)
+  //    and leaves; the last one adds the partials in tile order (the result
+  //    does not depend on which block came last) and goes on
+  if (npart > 1) {
+    __threadfence();                      // every writer's partials, then
+    __syncthreads();                      // the count
+    if (tid == 0) {
+      int32_t* cnt = work + (size_t)lane * gridDim.z + grp;
+      const int last = atomicAdd(cnt, 1) == npart - 1;
+      if (last) {
+        *cnt = 0;
+        __threadfence();
+      }
+      sm.last = last;
+    }
+    __syncthreads();
+    if (!sm.last) return;
+    for (int e = tid; e < g * w; e += tpb) {
+      const int q = e / w, t = e - q * w;
+      T s = T(0);
+      for (int b = 0; b < npart; ++b)
+        s = s + __ldcg(pl_part + (size_t)b * (kSwRhs * 32) + q * 32 + t);
+      sm.x[q][t] = sm.x[q][t] - s;
+    }
+  }
+  __syncthreads();
+  // 6. solve x0 = y[rows_b] - sum, one warp per right-hand side; write x
+  for (int q = wid; q < g; q += nw) {
+    const T xq = warp_solve<T, WBC, MODE, PAIRS>(
+        sm.D, bk, li < wb ? sm.x[q][li] : T(0), li, wb);
+    if (li < w) y[(size_t)rl[li] * m + col0 + q] = xq;
+  }
+}
+
+template <typename T, int WBC, int MODE>
+int launch_sweep(bool pairs, const void* C, void* y, const void* pidx,
+                 const void* qidx, const void* rows, const void* wvec,
+                 const void* rvec, const void* bkm, void* work, void* part, int k,
+                 int wb, int rb, int m, cudaStream_t s) {
+  // threads for the items (up to kSwMaxThreads) and enough for D's staging
+  int tpb = 32;
+  while ((tpb < rb || tpb * SweepDPer<WBC>::value < WBC * WBC) && tpb < kSwMaxThreads)
+    tpb *= 2;
+  const int tiles = rb > 0 ? (rb + tpb - 1) / tpb : 1;
+  const int groups = (m + kSwRhs - 1) / kSwRhs;
+  if (tiles > 65535 || groups > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(k, tiles, groups);
+#define REPRO_SW(P)                                                             \
+  sn_sweep_kernel<T, WBC, MODE, P><<<grid, tpb, 0, s>>>(                        \
+      (const T*)C, (T*)y, (const int32_t*)pidx, (const int32_t*)qidx,           \
+      (const int32_t*)rows, (const int32_t*)wvec, (const int32_t*)rvec,         \
+      (const uint8_t*)bkm, (int32_t*)work, (T*)part, wb, rb, m)
+  if (pairs)
+    REPRO_SW(true);
+  else
+    REPRO_SW(false);
+#undef REPRO_SW
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int MODE>
-void launch_trsv(bool pairs, dim3 grid, int threads, const void* D, long long dstride,
-                 const void* y, void* x, const void* wvec, const void* bkm, int wb,
-                 int m, cudaStream_t s) {
-  if (pairs)
-    block_trsv_kernel<T, MODE, true><<<grid, threads, 0, s>>>(
-        (const T*)D, dstride, (const T*)y, (T*)x, (const int32_t*)wvec,
-        (const uint8_t*)bkm, wb, m);
-  else
-    block_trsv_kernel<T, MODE, false><<<grid, threads, 0, s>>>(
-        (const T*)D, dstride, (const T*)y, (T*)x, (const int32_t*)wvec,
-        (const uint8_t*)bkm, wb, m);
+int sweep_mode(bool pairs, const void* C, void* y, const void* pidx,
+               const void* qidx, const void* rows, const void* wvec,
+               const void* rvec, const void* bkm, void* work, void* part, int k,
+               int wb, int rb, int m, cudaStream_t s) {
+#define REPRO_SWW(WBC)                                                          \
+  return launch_sweep<T, WBC, MODE>(pairs, C, y, pidx, qidx, rows, wvec, rvec,  \
+                                    bkm, work, part, k, wb, rb, m, s)
+  if (wb <= 2) REPRO_SWW(2);
+  if (wb <= 4) REPRO_SWW(4);
+  if (wb <= 8) REPRO_SWW(8);
+  if (wb <= 16) REPRO_SWW(16);
+  REPRO_SWW(32);
+#undef REPRO_SWW
 }
 
 template <typename T>
-int block_trsv_t(int mode, int pairs, const void* D, long long dstride, const void* y,
-                 void* x, const void* wvec, const void* bkm, int k, int wb, int m,
-                 cudaStream_t s) {
-  const int warps = m < kTrsvWarps ? m : kTrsvWarps;
-  dim3 grid(k, (m + warps - 1) / warps);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  const int threads = 32 * warps;
+int sweep_t(int mode, int pairs, const void* C, void* y, const void* pidx,
+            const void* qidx, const void* rows, const void* wvec, const void* rvec,
+            const void* bkm, void* work, void* part, int k, int wb, int rb, int m,
+            cudaStream_t s) {
+#define REPRO_SWM(M)                                                            \
+  return sweep_mode<T, M>(pairs != 0, C, y, pidx, qidx, rows, wvec, rvec, bkm,  \
+                          work, part, k, wb, rb, m, s)
   switch (mode) {
-    case kModeL:
-      launch_trsv<T, kModeL>(pairs, grid, threads, D, dstride, y, x, wvec, bkm, wb, m, s);
-      break;
-    case kModeLT:
-      launch_trsv<T, kModeLT>(pairs, grid, threads, D, dstride, y, x, wvec, bkm, wb, m, s);
-      break;
-    case kModeU:
-      launch_trsv<T, kModeU>(pairs, grid, threads, D, dstride, y, x, wvec, bkm, wb, m, s);
-      break;
-    case kModeUT:
-      launch_trsv<T, kModeUT>(pairs, grid, threads, D, dstride, y, x, wvec, bkm, wb, m, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case kModeL: REPRO_SWM(kModeL);
+    case kModeLT: REPRO_SWM(kModeLT);
+    case kModeU: REPRO_SWM(kModeU);
+    case kModeUT: REPRO_SWM(kModeUT);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef REPRO_SWM
 }
 
 }  // namespace
@@ -715,13 +1017,16 @@ REPRO_EXPORT int sn_schur_update(int f64, void* C, const void* pidx, const void*
              : schur_t<float>(C, pidx, qidx, wvec, rvec, tgt, toff, k, wb, rb, s);
 }
 
-REPRO_EXPORT int sn_block_trsv(int f64, int mode, int pairs, const void* D,
-                               long long dstride, const void* y, void* x,
-                               const void* wvec, const void* bkm, int k, int wb, int m,
-                               void* stream) {
+REPRO_EXPORT int sn_sweep(int f64, int mode, int pairs, const void* C, void* y,
+                          const void* pidx, const void* qidx, const void* rows,
+                          const void* wvec, const void* rvec, const void* bkm,
+                          void* work, void* part, int k, int wb, int rb, int m,
+                          void* stream) {
   if (k <= 0 || m <= 0) return 0;
-  if (wb < 1 || wb > 32) return (int)cudaErrorInvalidValue;
+  if (wb < 1 || wb > 32 || rb < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return f64 ? block_trsv_t<double>(mode, pairs, D, dstride, y, x, wvec, bkm, k, wb, m, s)
-             : block_trsv_t<float>(mode, pairs, D, dstride, y, x, wvec, bkm, k, wb, m, s);
+  return f64 ? sweep_t<double>(mode, pairs, C, y, pidx, qidx, rows, wvec, rvec, bkm,
+                               work, part, k, wb, rb, m, s)
+             : sweep_t<float>(mode, pairs, C, y, pidx, qidx, rows, wvec, rvec, bkm,
+                              work, part, k, wb, rb, m, s);
 }

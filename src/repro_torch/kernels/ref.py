@@ -378,6 +378,46 @@ def sn_trsv_ref(D, y, wvec, bkm, *, mode, pairs=False):
     return x[:, :, 0] if vec else x
 
 
+def sn_sweep_inplace_ref(C, y, pidx, qidx, rows, wvec, rvec, bkm, *, mode,
+                         pairs=False):
+    """One bucket of a supernodal triangular sweep on ``y`` (n+1, m), in
+    place: the reference's per-bucket sweep step (``_sn_sweep_fn``).
+
+    The factors are gathered from ``C`` through ``pidx`` (k, wb+rb, wb; its
+    first wb rows the diagonal block D, the rest L_sub) and ``qidx``
+    (k, wb, rb; U), masked to the true sizes; ``rows`` (k, wb+rb) are the
+    lanes' rows of ``y``, the block's y_b then the sub-rows' y_s.  ``"l"``:
+    x = L_D⁻¹ y_b, y_s −= L_sub x; ``"ut"``: x = U_D⁻ᵀ y_b, y_s −= Uᵀ x;
+    ``"u"``: x = U_D⁻¹ (y_b − U y_s); ``"lt"``: x = L_D⁻ᵀ (y_b − L_subᵀ y_s);
+    then y_b = x (:func:`sn_trsv_ref` for the block solves).  Pad rows keep
+    their values (the scatter adds an exact zero to them).  Returns y."""
+    k, mw, wb = pidx.shape
+    pmask, qmask = sn_live_masks(wvec, rvec, wb, mw - wb, C.device)
+    rows = rows.long()
+    rows_b, rows_s = rows[:, :wb], rows[:, wb:]
+    D = sn_gather(C, pidx[:, :wb, :])
+    if mode in ("l", "lt"):
+        F = torch.where(pmask[:, wb:, :], sn_gather(C, pidx[:, wb:, :]), 0.0)
+        eq = "kaw,kwm->kam" if mode == "l" else "kaw,kam->kwm"
+    else:
+        F = torch.where(qmask, sn_gather(C, qidx), 0.0)
+        eq = "ktr,ktm->krm" if mode == "ut" else "ktr,krm->ktm"
+    yb = y[rows_b]
+    tw = (torch.arange(wb, device=C.device)[None, :]
+          < wvec.to(C.device).long()[:, None])[:, :, None]
+    if mode in ("l", "ut"):
+        x = sn_trsv_ref(D, yb, wvec, bkm, mode=mode, pairs=pairs)
+        y[rows_b] = torch.where(tw, x, yb)
+        upd = torch.einsum(eq, F, x)
+        y.index_add_(0, rows_s.reshape(-1), upd.reshape(-1, y.shape[1]),
+                     alpha=-1)
+    else:
+        x = sn_trsv_ref(D, yb - torch.einsum(eq, F, y[rows_s]), wvec, bkm,
+                        mode=mode, pairs=pairs)
+        y[rows_b] = torch.where(tw, x, yb)
+    return y
+
+
 ATTN_NEG_INF = -1e30            # the reference's attention mask value
 
 

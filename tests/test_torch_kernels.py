@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX reference: the kernels' plain versions against
-the reference Pallas kernels (interpret mode on the CPU), the differentiable
-operator wrappers' backward against the reference ``custom_vjp``, and — on
-a CUDA card only — each hand-written kernel against its plain version."""
+the reference Pallas kernels (interpret mode on the CPU) and the
+differentiable operator wrappers' backward against the reference
+``custom_vjp``.  The hand-written kernels are held to these plain versions
+on a card by ``test_torch_on_card.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,54 +13,21 @@ from repro.core.sparse import build_bell as r_build_bell
 from repro.kernels import ops as rops
 from repro.kernels import solve_step as rfk
 from repro.kernels.stencil5 import Stencil5Meta as RMeta
+from repro_torch.core.direct import SnodeBucket
 from repro_torch.core.sparse import bell_to_device, build_bell
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import solve_step as tfk
 from repro_torch.kernels.stencil5 import Stencil5Meta
 
-from _torch_parity import assert_close, cuda_device, tol  # noqa: F401
-
-# kernel name → (vector-argument count, scalar-argument count)
-FUSED_SIGS = {
-    "fused_cg_update": (5, 1),
-    "fused_cg_direction": (4, 1),
-    "fused_cg_halfstep": (4, 1),
-    "fused_cheb_step": (3, 2),
-    "fused_dots2": (2, 0),
-    "fused_bicg_p": (4, 3),
-    "fused_bicg_s": (3, 1),
-    "fused_bicg_tail": (6, 2),
-}
-
-
-def _stencil_case(nx, ny, dtype, seed):
-    rng = np.random.default_rng(seed)
-    val5 = rng.normal(size=(5, nx, ny)).astype(dtype)
-    val5[1, 0, :] = 0; val5[2, -1, :] = 0
-    val5[3, :, 0] = 0; val5[4, :, -1] = 0
-    x = rng.normal(size=(nx * ny,)).astype(dtype)
-    return val5.reshape(-1), x
-
-
-def _bell_case(n, m, density, dtype, seed):
-    rng = np.random.default_rng(seed)
-    nnz = max(1, int(n * m * density))
-    row = rng.integers(0, n, nnz)
-    col = rng.integers(0, m, nnz)
-    keys = np.unique(row.astype(np.int64) * m + col)
-    row = (keys // m).astype(np.int32)
-    col = (keys % m).astype(np.int32)
-    val = rng.normal(size=len(row)).astype(dtype)
-    x = rng.normal(size=m).astype(dtype)
-    return row, col, val, x
-
+from _torch_parity import (FUSED_SIGS, assert_close, bell_case,
+                           fused_inputs, stencil_case, tol)
 
 @pytest.mark.parametrize("nx,ny,dtype,seed", [
     (3, 3, np.float64, 0), (37, 300, np.float64, 1), (37, 300, np.float32, 2),
     (70, 5, np.float32, 3), (16, 128, np.float64, 4)])
 def test_stencil5_plain_matches_reference_kernel(nx, ny, dtype, seed):
-    v, x = _stencil_case(nx, ny, dtype, seed)
+    v, x = stencil_case(nx, ny, dtype, seed)
     y_r = rops.stencil5_matvec(RMeta(nx=nx, ny=ny), jnp.asarray(v),
                                jnp.asarray(x))
     y_t = tops.stencil5_matvec(Stencil5Meta(nx=nx, ny=ny), torch.tensor(v),
@@ -71,7 +39,7 @@ def test_stencil5_plain_matches_reference_kernel(nx, ny, dtype, seed):
     (4, 4, 0.3, np.float64, 0), (200, 150, 0.05, np.float64, 1),
     (120, 90, 0.08, np.float32, 2), (37, 300, 0.01, np.float64, 3)])
 def test_bell_plain_matches_reference_kernel(n, m, density, dtype, seed):
-    row, col, val, x = _bell_case(n, m, density, dtype, seed)
+    row, col, val, x = bell_case(n, m, density, dtype, seed)
     rmeta, rcols, rperm = r_build_bell(row, col, (n, m))
     y_r = rops.bell_matvec(rmeta, rcols, rperm, jnp.asarray(val),
                            jnp.asarray(x), n)
@@ -82,19 +50,11 @@ def test_bell_plain_matches_reference_kernel(n, m, density, dtype, seed):
                                       torch.tensor(x), n), y_r, **tol(dtype))
 
 
-def _fused_inputs(name, n, dtype, seed):
-    n_vec, n_sc = FUSED_SIGS[name]
-    rng = np.random.default_rng(seed)
-    vecs = [rng.normal(size=n).astype(dtype) for _ in range(n_vec)]
-    scalars = [dtype(rng.normal()) for _ in range(n_sc)]
-    return vecs, scalars
-
-
 @pytest.mark.parametrize("name", sorted(FUSED_SIGS))
 @pytest.mark.parametrize("n,dtype", [(5, np.float64), (1029, np.float64),
                                      (1029, np.float32), (2048, np.float32)])
 def test_fused_plain_matches_reference_kernel(name, n, dtype):
-    vecs, scalars = _fused_inputs(name, n, dtype, seed=n)
+    vecs, scalars = fused_inputs(name, n, dtype, seed=n)
     out_r = getattr(rfk, name)(*[jnp.asarray(v) for v in vecs],
                                *[jnp.asarray(s) for s in scalars])
     out_t = getattr(tfk, name)(*[torch.tensor(v) for v in vecs],
@@ -140,7 +100,7 @@ def test_fused_dots_exclude_padding():
 def test_stencil5_backward_matches_reference_vjp():
     rng = np.random.default_rng(0)
     nx, ny = 21, 83
-    v, x = _stencil_case(nx, ny, np.float64, 0)
+    v, x = stencil_case(nx, ny, np.float64, 0)
     w = rng.normal(size=nx * ny)
     gr = jax.grad(lambda vv, xx: jnp.sum(jnp.asarray(w) * rops.stencil5_matvec(
         RMeta(nx=nx, ny=ny), vv, xx)), (0, 1))(jnp.asarray(v), jnp.asarray(x))
@@ -155,7 +115,7 @@ def test_stencil5_backward_matches_reference_vjp():
 @pytest.mark.parametrize("with_t_bell", [False, True])
 def test_bell_backward_matches_reference_vjp(with_t_bell):
     n, m = 120, 90
-    row, col, val, x = _bell_case(n, m, 0.08, np.float64, 1)
+    row, col, val, x = bell_case(n, m, 0.08, np.float64, 1)
     w = np.random.default_rng(2).normal(size=n)
     rmeta, rcols, rperm = r_build_bell(row, col, (n, m))
     gr = jax.grad(lambda vv, xx: jnp.sum(jnp.asarray(w) * rops.bell_matvec(
@@ -174,7 +134,7 @@ def test_bell_backward_matches_reference_vjp(with_t_bell):
 
 def test_bell_assemble_and_its_gradient_match_reference():
     n, m = 300, 517
-    row, col, val, _ = _bell_case(n, m, 0.02, np.float64, 6)
+    row, col, val, _ = bell_case(n, m, 0.02, np.float64, 6)
     rmeta, rcols, rperm = r_build_bell(row, col, (n, m), max_k=2)
     bell = bell_to_device(build_bell(row, col, (n, m), max_k=2), "cpu")
     tiles_r = rops.bell_assemble(rmeta, rperm, jnp.asarray(val))
@@ -189,7 +149,7 @@ def test_bell_assemble_and_its_gradient_match_reference():
 
 
 def test_transposed_planes_match_reference():
-    v, _ = _stencil_case(9, 14, np.float64, 5)
+    v, _ = stencil_case(9, 14, np.float64, 5)
     v5 = v.reshape(5, 9, 14)
     assert_close(tops.stencil_transpose_planes(torch.tensor(v5)),
                  rops._stencil_transpose_planes(jnp.asarray(v5)),
@@ -201,7 +161,7 @@ def test_kernel_wrappers_count_no_cpu_launches():
     kernel launch."""
     from repro_torch import kernels
     kernels.reset_launch_counts()
-    v, x = _stencil_case(8, 8, np.float64, 0)
+    v, x = stencil_case(8, 8, np.float64, 0)
     tops.stencil5_matvec(Stencil5Meta(nx=8, ny=8), torch.tensor(v),
                          torch.tensor(x))
     tfk.fused_dots2(torch.tensor(x), torch.tensor(x))
@@ -220,56 +180,15 @@ def test_kernel_wrappers_count_no_cpu_launches():
                              torch.arange(0, 64, 16))
     tsn.block_trsv(C[:36].view(3, 6, 2)[:, :2, :],
                    torch.ones(3, 2, dtype=torch.float64), w, bk, mode="u")
+    rows = torch.arange(18, dtype=torch.int32).view(3, 6)
+    sweep = SnodeBucket(wb=2, rb=4, pairs=False, pidx=pidx, qidx=qidx,
+                        uidx=None, rows=rows, wvec=w, rvec=r, bkm=bk)
+    for mode in ("l", "u"):
+        tsn.sn_sweep_inplace(C, torch.zeros(19, 2, dtype=torch.float64),
+                             sweep, mode)
     from repro_torch.kernels.flash_attention import flash_attention
     qkv = torch.ones(2, 5, 16)
     flash_attention(qkv, qkv, qkv, causal=True)
     assert set(kernels.launch_counts().values()) == {0}
-    assert set(tsn.TRSV_MODE_LAUNCHES.values()) == {0}
+    assert set(tsn.SWEEP_MODE_LAUNCHES.values()) == {0}
     assert len(kernels.launch_counts()) == 15
-
-
-# ---------------------------------------------------------------------------
-# on the card: each CUDA kernel against its plain version
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_stencil5_matches_plain(cuda_device, dtype):
-    from repro_torch.kernels.stencil5 import stencil5
-    for nx, ny in ((37, 300), (1, 1), (256, 257)):
-        v, x = _stencil_case(nx, ny, np.float64, 1)
-        v5 = torch.tensor(v, dtype=dtype, device=cuda_device).reshape(5, nx, ny)
-        x2 = torch.tensor(x, dtype=dtype, device=cuda_device).reshape(nx, ny)
-        y = stencil5(Stencil5Meta(nx=nx, ny=ny), v5, x2)
-        torch.cuda.synchronize()
-        assert_close(y, tref.stencil5_ref(v5, x2),
-                     **tol(np.float32 if dtype == torch.float32 else np.float64))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_bell_matches_plain(cuda_device, dtype):
-    n, m = 200, 150
-    row, col, val, x = _bell_case(n, m, 0.05, np.float64, 1)
-    bell = bell_to_device(build_bell(row, col, (n, m)), cuda_device)
-    vt = torch.tensor(val, dtype=dtype, device=cuda_device)
-    xt = torch.tensor(x, dtype=dtype, device=cuda_device)
-    y = tops.bell_matvec(bell, vt, xt, n)
-    torch.cuda.synchronize()
-    assert_close(y, tops.bell_matvec_ref(bell, vt, xt, n),
-                 **tol(np.float32 if dtype == torch.float32 else np.float64))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(FUSED_SIGS))
-def test_cuda_fused_matches_plain(cuda_device, name):
-    for n, dtype in ((5, np.float64), (1029, np.float32), (300_001, np.float64)):
-        vecs, scalars = _fused_inputs(name, n, dtype, seed=3)
-        vt = [torch.tensor(v, device=cuda_device) for v in vecs]
-        st = [torch.tensor(s, device=cuda_device) for s in scalars]
-        out = getattr(tfk, name)(*vt, *st)
-        torch.cuda.synchronize()
-        ref = getattr(tref, name + "_ref")(*vt, *st)
-        for a, b in zip(out, ref):
-            assert_close(a, b, rtol=1e-4 if dtype == np.float32 else 1e-10,
-                         atol=1e-3 if dtype == np.float32 else 1e-9)
