@@ -46,6 +46,24 @@ What it does, in order:
     pivot pairs, solve, transposed solve, ``slogdet`` and its gradient
     against torch.linalg;
 11. ILU path: ``poisson2d(100)``, CG with ``precond="ilu"`` against Jacobi;
+11a. MG path: the stencil path's operator (ng=2048) with CG +
+    ``precond="mg"`` (every smoothing matvec on stencil5), ∂Σu²/∂κ against
+    the same path on the plain versions of its kernels (``plain_kernels``),
+    iterations against the stencil path's Jacobi count (fewer than 1/5),
+    stencil5 launches and time of one V-cycle;
+11b. AMG path: ``poisson2d(1024)`` with ``backend="pallas"`` and CG +
+    ``precond="amg"`` (coarsest level on the panel kernels): analyze time
+    (the AMG symbolic part apart), setup, level sizes, one coarsening and
+    one Galerkin product across the solve and its backward, iterations
+    over three fresh setups (one count), at most 1/4 of the block-ELL
+    path's Jacobi count, ∂/∂val against the plain run; then the same on
+    ``graph_laplacian(2^20)`` (an unstructured random geometric graph)
+    against its own CG + Jacobi run;
+11c. GMRES / Chebyshev path: GMRES(32) + ``block_jacobi`` on the
+    transposed path's drift operator (ng=256, block-ELL kernel, tol 1e-10)
+    with its backward against the plain run, beside BiCGStab +
+    block_jacobi; CG + the plan ``chebyshev`` (Lanczos bounds, fused
+    ``fused_cheb_step``) at ``poisson2d(1024)`` with its backward;
 12. panel kernels: panel_factor and schur_update (fused with the
     extend-add; both in place in the factor vector) and sn_sweep (one
     bucket of a sweep in place in y) against their plain versions on
@@ -70,7 +88,9 @@ What it does, in order:
     causal and bidirectional (64, 2048, 64), a ragged bf16 (24, 1000, 128)
     and an uneven f32 bidirectional (2, 128 | 256, 64), then the model's
     GQA form (B 4, S 4096, H 32, K 8, d 64, q a strided slice) against the
-    plain version on expanded heads; their time, the plain version's,
+    plain version on expanded heads — in bf16, in f32 at the decode ≡
+    forward check's shape (B 2, S 128) and in f32 at the full prefill
+    shape (row 7b's SIMT kernel beside SDPA); their time, the plain version's,
     SDPA's and the bound (the bf16 tensor-core kernel and the f32 SIMT
     kernel are two rows of the kernels line);
 14. LM serving path: llama3.2-1b at full width (16 layers, d 2048, vocab
@@ -141,6 +161,17 @@ TOL_CG_REF = 1e-12                   # the CG run the direct gradient meets
 TOL_DENSE = 1e-8                     # LU / saddle vs torch.linalg, relative
 MAXITER = 30000
 SEED = 0
+# phases 11a–11c, the preconditioned Krylov path: MG on the stencil path's
+# operator (NG_STENCIL), AMG on the block-ELL path's (NG_BELL) and on an
+# unstructured graph Laplacian of the same order of n, GMRES on the
+# transposed path's drift operator (NG_TRANSPOSE) at TOL_TRANSPOSE, the plan
+# Chebyshev at NG_BELL.  The iteration ratios against Jacobi on the same
+# operator are the reference's own test assertions (tests/test_multigrid.py:
+# 30, tests/test_amg.py:52).
+MG_RATIO = 5                         # MG: fewer than 1/5 of Jacobi's
+AMG_RATIO = 4                        # AMG: at most 1/4 of Jacobi's
+N_GRAPH = 1 << 20                    # unstructured AMG case: 1,048,576 nodes
+AMG_REPEATS = 3                      # solves, each with a fresh setup
 # phase 13: (label, BH, S, T, d, dtype, causal); the first is the main
 # path's layer shape (B 4 × 32 heads, S 4096, head dim 64)
 FLASH_SHAPES = (("prefill layer", 128, 4096, 4096, 64, "bfloat16", True),
@@ -152,7 +183,10 @@ FLASH_SHAPES = (("prefill layer", 128, 4096, 4096, 64, "bfloat16", True),
 # K, d, dtype) — the bf16 prefill layer and the f32 decode ≡ forward check's
 # forward (the only f32 launches of the path; row 7b is read here)
 FLASH_GQA = (("prefill GQA", 4, 4096, 32, 8, 64, "bfloat16"),
-             ("f32 check GQA", 2, 128, 32, 8, 64, "float32"))
+             ("f32 check GQA", 2, 128, 32, 8, 64, "float32"),
+             # row 7b at the prefill's full layer shape (timed, not on the
+             # path): the f32 SIMT kernel beside SDPA
+             ("f32 prefill GQA", 4, 4096, 32, 8, 64, "float32"))
 # elementwise |o − plain| <= rtol·|plain| + atol, the plain version run in
 # f32 (p in f32) on the same inputs.  f32: the reference test's
 # 2e-5·(1 + |plain|); bf16: the output's rounding is 2^-9 relative, held at
@@ -1736,6 +1770,480 @@ def ilu_path(dev, ng, tol, maxiter, out):
 
 
 # ---------------------------------------------------------------------------
+# phases 11a–11c: the preconditioned Krylov path (MG, AMG, GMRES + block-
+# Jacobi, plan Chebyshev)
+# ---------------------------------------------------------------------------
+
+class plain_kernels:
+    """Within the block, every kernel wrapper the paths call runs its plain
+    PyTorch version (``kernels/ref.py``) on the card's tensors instead of
+    launching its kernel — the same path, the same algorithm, the plain
+    arithmetic.  The wrappers are swapped by module attribute and put back
+    on exit; no launch is counted inside."""
+
+    def __enter__(self):
+        from repro_torch.kernels import (ops, ref, solve_step, stencil5,
+                                         supernode)
+
+        def st(meta, v5, x):
+            return ref.stencil5_ref(v5, x)
+
+        def spmv(sell, vals, x, n):
+            return ref.sell_matvec_ref(sell.slice_ptr, sell.cols, vals, x, n)
+
+        def fused(name, vecs, scalars, out=None, active=None):
+            return solve_step._run_cpu(name, vecs, scalars, out, active,
+                                       solve_step.BODIES[name][3])
+
+        def pf(C, pidx, qidx, wvec, rvec, tau, bkm, *, pairs=False,
+               guard=True, nbad=None, work=None):
+            if nbad is None:
+                nbad = C.new_zeros(())
+            return nbad.add_(ref.sn_panel_factor_inplace_ref(
+                C, pidx, qidx, wvec, rvec, tau, bkm, pairs=pairs,
+                guard=guard))
+
+        def su(C, pidx, qidx, wvec, rvec, tgt, toff):
+            ref.sn_schur_inplace_ref(C, pidx, qidx, wvec, rvec, tgt)
+            return C
+
+        def sw(C, y, bk, mode, *, work=None, part=None):
+            ref.sn_sweep_inplace_ref(C, y, bk.pidx, bk.qidx, bk.rows,
+                                     bk.wvec, bk.rvec, bk.bkm, mode=mode,
+                                     pairs=bk.pairs)
+            return y
+
+        self.saved = []
+        for mod, name, fn in ((stencil5, "stencil5", st), (ops, "stencil5", st),
+                              (ops, "bell_spmv", spmv),
+                              (solve_step, "_run", fused),
+                              (supernode, "panel_factor_inplace", pf),
+                              (supernode, "schur_update_inplace", su),
+                              (supernode, "sn_sweep_inplace", sw)):
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _plain_run(make_leaf, run):
+    """The path once more inside :class:`plain_kernels`: ``run(leaf)``
+    returns the solution u; returns (∂Σu²/∂leaf, seconds, launches inside
+    — all zero if the swap held)."""
+    leaf = make_leaf()
+    _counts_reset()
+    t = time.perf_counter()
+    with plain_kernels():
+        u = run(leaf)
+        (u * u).sum().backward()
+    _sync(leaf.device)
+    dt = time.perf_counter() - t
+    launches, _ = _counts()
+    return leaf.grad.detach().clone(), dt, sum(launches.values())
+
+
+def mg_path(dev, ng, tol, maxiter, seed, out):
+    """Phase 11a: CG + geometric MG on the stencil path's operator."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.data.poisson import poisson2d_vc
+    from repro_torch.kernels import launch_counts, ref
+
+    kap_np = smooth_kappa(ng, seed)
+    n = ng * ng
+    f = torch.ones(n, dtype=torch.float64, device=dev)
+    kw = dict(tol=tol, maxiter=maxiter, precond="mg")
+    kappa = torch.tensor(kap_np, device=dev, requires_grad=True)
+    _sync(dev)
+    _peak_reset(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    A = poisson2d_vc(kappa, use_stencil_kernel=True, device=dev)
+    u = sla.solve(A, f, **kw)
+    _sync(dev)
+    t1 = time.perf_counter()
+    (u * u).sum().backward()
+    _sync(dev)
+    t2 = time.perf_counter()
+    launches, stats = _counts()
+    peak = _peak(dev)
+    plan = A.plan(**kw)
+    t3 = time.perf_counter()
+    info = sla.solve_with_info(A, f, **kw)
+    _sync(dev)
+    t4 = time.perf_counter()
+    iters = int(info.iterations)
+    with torch.no_grad():
+        v5 = A.val.detach().reshape(5, ng, ng)
+        relres = float((f - ref.stencil5_ref(v5, info.x.reshape(ng, ng))
+                        .reshape(-1)).norm() / f.norm())
+    # one V-cycle on the path's own hierarchy: its stencil5 launches, time
+    pre = plan.artifacts["precond"]
+    M = pre.make_apply(plan.setup(A)[1], None)
+    before = launch_counts()["stencil5"]
+    M(f)
+    _sync(dev)
+    per_cycle = launch_counts()["stencil5"] - before
+    cyc_ms = cuda_ms(lambda: M(f), 5, warmup=1, spin_ms=5.0)
+    cyc_wall = wall_ms(lambda: M(f), 5)
+    jac = out["stencil_path"]["iterations"]
+    say(f"  MG path ng={ng} (n={n}): backend={plan.cfg.backend} method="
+        f"{plan.cfg.method} precond=mg, {len(M.sizes)} levels "
+        f"{M.sizes[0]}..{M.sizes[-1]}; {iters} iterations (Jacobi: {jac}); "
+        f"forward {t1 - t0:.3f} s, backward {t2 - t1:.3f} s, "
+        f"solve_with_info {t4 - t3:.3f} s = {(t4 - t3) / max(iters, 1) * 1e3:.3f}"
+        f" ms/iteration; true residual {relres:.3e}")
+    say(f"  one V-cycle: {per_cycle} stencil5 launches, {cyc_ms:.4f} ms of "
+        f"device time, {cyc_wall:.4f} ms of host wall; peak {peak:.3f} GB")
+    say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}")
+    g = kappa.grad.detach().clone()
+
+    def run(leaf):
+        return sla.solve(poisson2d_vc(leaf, use_stencil_kernel=True,
+                                      device=dev), f, **kw)
+
+    g2, plain_s, plain_launches = _plain_run(
+        lambda: torch.tensor(kap_np, device=dev, requires_grad=True), run)
+    gerr = _grad_rel(g, g2)
+    say(f"  plain run (every kernel's plain version): {plain_s:.3f} s; "
+        f"κ-gradient max rel diff {gerr:.3e}")
+    check(plain_launches == 0, "MG path: the plain run launched no kernel")
+    check(bool(torch.isfinite(u).all()) and u.shape == (n,),
+          "MG path: finite solution of shape (n,)")
+    check(info.reason == "converged" and relres <= 10 * tol,
+          f"MG path: converged, true residual {relres:.2e} <= 10·tol")
+    check(iters * MG_RATIO < jac, f"MG path: {iters} iterations, fewer than "
+          f"1/{MG_RATIO} of Jacobi's {jac} on the same operator")
+    check(bool(torch.isfinite(g).all()) and gerr <= TOL_GRAD,
+          f"MG path: κ.grad matches the plain run ({gerr:.2e} <= "
+          f"{TOL_GRAD:.0e})")
+    check(stats["analyze"] == 1 and stats["transpose_shared"] == 1,
+          "MG path: analyze == 1, transpose_shared == 1")
+    check(per_cycle == 5 * (len(M.sizes) - 1),
+          f"MG path: a V-cycle launches stencil5 5 times per level above "
+          f"the coarsest ({per_cycle})")
+    for k in ("stencil5", "fused_cg_halfstep"):
+        check(launches[k] > 0, f"MG path launched {k} ({launches[k]} times)")
+    out["mg_path"] = dict(
+        ng=ng, n=n, tol=tol, iterations=iters, jacobi_iterations=jac,
+        levels=M.sizes, forward_s=t1 - t0, backward_s=t2 - t1,
+        info_solve_s=t4 - t3, ms_per_iteration=(t4 - t3) / max(iters, 1) * 1e3,
+        vcycle_stencil5=per_cycle, vcycle_ms=cyc_ms, vcycle_wall_ms=cyc_wall,
+        true_residual=relres, grad_rel_diff=gerr, plain_run_s=plain_s,
+        peak_gb=peak, launches=launches, plan_stats=stats)
+    del A, u, info, kappa, M
+    return launches
+
+
+class _timed:
+    """Wraps a module function and sums its wall seconds (measurement)."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.seconds = mod, name, 0.0
+
+    def __enter__(self):
+        self.fn = getattr(self.mod, self.name)
+
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return self.fn(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t
+
+        setattr(self.mod, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+        return False
+
+
+def _amg_case(dev, label, A0, b, tol, maxiter, jac):
+    """CG + amg on the block-ELL kernel (``backend="pallas"``): analyze,
+    setup, solve + backward, repeated solves; the same run on the plain
+    versions for the gradient."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.core import multigrid as tmg
+    from repro_torch.core.sparse import coo_matvec
+
+    n = A0.shape[0]
+    kw = dict(backend="pallas", method="cg", tol=tol, maxiter=maxiter,
+              precond="amg")
+    val = A0.val.clone().requires_grad_(True)
+    A = A0.with_values(val)
+    _sync(dev)
+    _peak_reset(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    with _timed(tmg, "amg_symbolic") as tsym, _timed(tmg, "amg_to_device") \
+            as tdev:
+        plan = A.plan(**kw)
+    _sync(dev)
+    t1 = time.perf_counter()
+    plan.setup(A)                       # Galerkin + coarsest factorization
+    _sync(dev)
+    t2 = time.perf_counter()
+    u = sla.solve(A, b, **kw)
+    _sync(dev)
+    t3 = time.perf_counter()
+    (u * u).sum().backward()
+    _sync(dev)
+    t4 = time.perf_counter()
+    launches, stats = _counts()
+    peak = _peak(dev)
+    art = plan.artifacts["precond"]._amg
+    sizes = art.stats["sizes"]
+    iters, walls = [], []
+    for _ in range(AMG_REPEATS):       # fresh values: fresh Galerkin sums
+        Ai = A0.with_values(A0.val.clone())
+        _sync(dev)
+        t = time.perf_counter()
+        info = sla.solve_with_info(Ai, b, **kw)
+        _sync(dev)
+        walls.append(time.perf_counter() - t)
+        iters.append(int(info.iterations))
+    with torch.no_grad():
+        relres = float((b - coo_matvec(A0.val, A0.row, A0.col, info.x, n))
+                       .norm() / b.norm())
+    nbytes = plan.nbytes()
+    say(f"  AMG path {label} (n={n}, nnz={A0.nnz}): kernel="
+        f"{plan.artifacts['kernel'].choice}; analyze {t1 - t0:.2f} s (AMG "
+        f"symbolic {tsym.seconds:.2f} s, placing it {tdev.seconds:.2f} s); "
+        f"setup {1e3 * (t2 - t1):.1f} ms; levels {sizes}; coarsest "
+        f"{'supernodal' if art.coarse.snode is not None else 'scalar'}")
+    say(f"  {iters[0]} iterations (Jacobi: {jac}); forward {t3 - t2:.3f} s, "
+        f"backward {t4 - t3:.3f} s; solve_with_info {walls[0]:.3f} s = "
+        f"{walls[0] / max(iters[0], 1) * 1e3:.3f} ms/iteration (setup "
+        f"included; over {AMG_REPEATS} runs {min(walls):.3f}–"
+        f"{max(walls):.3f} s, iterations {iters}); true residual "
+        f"{relres:.3e}; peak {peak:.3f} GB, plan.nbytes {nbytes / 1e9:.3f} GB")
+    say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}")
+    g = val.grad.detach().clone()
+    g2, plain_s, plain_launches = _plain_run(
+        lambda: A0.val.clone().requires_grad_(True),
+        lambda leaf: sla.solve(A0.with_values(leaf), b, **kw))
+    gerr = _grad_rel(g, g2)
+    say(f"  plain run (every kernel's plain version): {plain_s:.3f} s; "
+        f"val-gradient max rel diff {gerr:.3e}")
+    check(plain_launches == 0, f"AMG path {label}: the plain run launched "
+          f"no kernel")
+    check(bool(torch.isfinite(u).all()) and relres <= 10 * tol,
+          f"AMG path {label}: finite, true residual {relres:.2e} <= 10·tol")
+    check(len(set(iters)) == 1, f"AMG path {label}: the iteration count "
+          f"holds over {AMG_REPEATS} fresh setups ({iters})")
+    check(iters[0] * AMG_RATIO <= jac, f"AMG path {label}: {iters[0]} "
+          f"iterations, at most 1/{AMG_RATIO} of Jacobi's {jac}")
+    check(stats["coarsen"] == 1 and stats["galerkin"] == 1
+          and stats["analyze"] == 1,
+          f"AMG path {label}: coarsen 1, galerkin 1, analyze 1 across the "
+          f"solve and its backward")
+    check(bool(torch.isfinite(g).all()) and gerr <= TOL_GRAD,
+          f"AMG path {label}: val.grad matches the plain run ({gerr:.2e} <= "
+          f"{TOL_GRAD:.0e})")
+    for k in ("bell_spmv", "fused_cg_halfstep", "panel_factor", "sn_sweep"):
+        check(launches[k] > 0, f"AMG path {label} launched {k} "
+              f"({launches[k]} times)")
+    res = dict(n=n, nnz=A0.nnz, tol=tol, analyze_s=t1 - t0,
+               amg_symbolic_s=tsym.seconds, amg_to_device_s=tdev.seconds,
+               setup_ms=1e3 * (t2 - t1), levels=sizes,
+               coarse_supernodal=art.coarse.snode is not None,
+               iterations=iters, jacobi_iterations=jac,
+               forward_s=t3 - t2, backward_s=t4 - t3, info_solve_s=walls,
+               ms_per_iteration=walls[0] / max(iters[0], 1) * 1e3,
+               true_residual=relres, grad_rel_diff=gerr, plain_run_s=plain_s,
+               peak_gb=peak, plan_nbytes=nbytes, launches=launches,
+               plan_stats=stats)
+    del A, u, val, plan, art
+    return res, launches
+
+
+def amg_path(dev, ng, n_graph, tol, maxiter, out):
+    """Phase 11b: CG + smoothed-aggregation AMG on ``poisson2d(ng)`` and on
+    an unstructured graph Laplacian of the same order of n."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.data.graphs import graph_laplacian
+    from repro_torch.data.poisson import poisson2d
+
+    total = {}
+    A0 = poisson2d(ng, device=dev)
+    b = torch.ones(ng * ng, dtype=torch.float64, device=dev)
+    res, launches = _amg_case(dev, f"poisson2d({ng})", A0, b, tol, maxiter,
+                              out["bell_path"]["iterations"])
+    out["amg_path"] = {"poisson2d": dict(ng=ng, **res)}
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    del A0
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    G = graph_laplacian(n_graph, seed=SEED, shift=1e-3, device=dev)
+    gen_s = time.perf_counter() - t
+    bg = torch.tensor(np.random.default_rng(SEED).normal(size=n_graph),
+                      device=dev)
+    t = time.perf_counter()
+    jinfo = sla.solve_with_info(G, bg, backend="pallas", method="cg",
+                                tol=tol, maxiter=maxiter)
+    _sync(dev)
+    jac_s = time.perf_counter() - t
+    jac = int(jinfo.iterations)
+    say(f"  unstructured graph: graph_laplacian({n_graph}, seed {SEED}, "
+        f"shift 1e-3) made in {gen_s:.2f} s (host numpy); CG + Jacobi on "
+        f"the block-ELL kernel: {jac} iterations, {jac_s:.3f} s "
+        f"({jinfo.reason})")
+    check(jinfo.reason == "converged", "AMG path: the graph's Jacobi run "
+          "converged")
+    res, launches = _amg_case(dev, f"graph_laplacian({n_graph})", G, bg, tol,
+                              maxiter, jac)
+    out["amg_path"]["graph"] = dict(generate_s=gen_s, jacobi_s=jac_s, **res)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    del G
+    return total
+
+
+def krylov_path(dev, ng, ng_cheb, tol_gmres, tol, maxiter, out):
+    """Phase 11c: GMRES(32) + block-Jacobi on the transposed path's
+    non-symmetric drift operator (block-ELL kernel, with the backward)
+    against BiCGStab; CG + the plan Chebyshev (fused) at poisson2d."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.core.sparse import SparseTensor, coo_matvec
+    from repro_torch.data.poisson import poisson2d
+
+    total = {}
+    n = ng * ng
+    A0 = poisson2d(ng, device=dev)
+    v0 = A0.val.clone()
+    v0[A0.col == A0.row - 1] = -1.4
+    v0[A0.col == A0.row + 1] = -0.6
+    props = {"symmetric": False, "spd_hint": False, "sorted_rows": False}
+    B = SparseTensor(v0, A0.row, A0.col, A0.shape, props=props, device=dev)
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    kw = dict(backend="pallas", method="gmres", tol=tol_gmres,
+              maxiter=maxiter, precond="block_jacobi")
+    leaf = v0.clone().requires_grad_(True)
+    _sync(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    u = sla.solve(B.with_values(leaf), b, **kw)
+    _sync(dev)
+    t1 = time.perf_counter()
+    (u * u).sum().backward()
+    _sync(dev)
+    t2 = time.perf_counter()
+    launches, stats = _counts()
+    t3 = time.perf_counter()
+    info = sla.solve_with_info(B, b, **kw)
+    _sync(dev)
+    t4 = time.perf_counter()
+    binfo = sla.solve_with_info(B, b, backend="pallas", method="bicgstab",
+                                tol=tol_gmres, maxiter=maxiter,
+                                precond="block_jacobi")
+    _sync(dev)
+    t5 = time.perf_counter()
+    with torch.no_grad():
+        rel_g = float((b - coo_matvec(v0, B.row, B.col, info.x, n)).norm()
+                      / b.norm())
+        rel_b = float((b - coo_matvec(v0, B.row, B.col, binfo.x, n)).norm()
+                      / b.norm())
+    g = leaf.grad.detach().clone()
+    g2, plain_s, plain_launches = _plain_run(
+        lambda: v0.clone().requires_grad_(True),
+        lambda lf: sla.solve(B.with_values(lf), b, **kw))
+    gerr = _grad_rel(g, g2)
+    restart = B.plan(**kw).cfg.restart          # the default, 32
+    say(f"  GMRES({restart}) + block_jacobi, drift poisson2d({ng}) "
+        f"(n={n}) on the block-ELL kernel: {int(info.iterations)} iterations "
+        f"({int(info.iterations) // restart} cycles) in "
+        f"{t4 - t3:.3f} s, true residual {rel_g:.3e}; BiCGStab + "
+        f"block_jacobi: {int(binfo.iterations)} iterations in {t5 - t4:.3f} "
+        f"s, true residual {rel_b:.3e}; solve + backward {t1 - t0:.3f} + "
+        f"{t2 - t1:.3f} s; plain run {plain_s:.3f} s, val-gradient max rel "
+        f"diff {gerr:.3e}")
+    say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    check(plain_launches == 0, "GMRES path: the plain run launched no kernel")
+    check(info.reason == "converged" and rel_g <= 10 * tol_gmres,
+          f"GMRES path: converged, true residual {rel_g:.2e} <= 10·tol")
+    check(binfo.reason == "converged", "GMRES path: BiCGStab converged")
+    check(stats["analyze"] == 1 and stats["transpose_shared"] == 1,
+          "GMRES path: analyze == 1, transpose_shared == 1")
+    check(bool(torch.isfinite(g).all()) and gerr <= TOL_GRAD,
+          f"GMRES path: val.grad matches the plain run ({gerr:.2e} <= "
+          f"{TOL_GRAD:.0e})")
+    check(launches["bell_spmv"] > 0, f"GMRES path launched bell_spmv "
+          f"({launches['bell_spmv']} times)")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    res = dict(gmres=dict(ng=ng, n=n, tol=tol_gmres, restart=restart,
+                          iterations=int(info.iterations), seconds=t4 - t3,
+                          true_residual=rel_g, forward_s=t1 - t0,
+                          backward_s=t2 - t1, grad_rel_diff=gerr,
+                          plain_run_s=plain_s, launches=launches,
+                          plan_stats=stats),
+               bicgstab=dict(iterations=int(binfo.iterations),
+                             seconds=t5 - t4, true_residual=rel_b))
+    del A0, B, u, leaf, info, binfo
+
+    A = poisson2d(ng_cheb, device=dev)
+    nc = ng_cheb * ng_cheb
+    bc = torch.ones(nc, dtype=torch.float64, device=dev)
+    ckw = dict(backend="pallas", method="cg", tol=tol, maxiter=maxiter,
+               precond="chebyshev")
+    leaf = A.val.clone().requires_grad_(True)
+    _sync(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    u = sla.solve(A.with_values(leaf), bc, **ckw)
+    _sync(dev)
+    t1 = time.perf_counter()
+    (u * u).sum().backward()
+    _sync(dev)
+    t2 = time.perf_counter()
+    launches, stats = _counts()
+    t3 = time.perf_counter()
+    info = sla.solve_with_info(A, bc, **ckw)
+    _sync(dev)
+    t4 = time.perf_counter()
+    with torch.no_grad():
+        relres = float((bc - coo_matvec(A.val, A.row, A.col, info.x, nc))
+                       .norm() / bc.norm())
+    lmin, lmax = (float(t) for t in A.plan(**ckw).setup(A)[1])
+    it = int(info.iterations)
+    say(f"  CG + plan Chebyshev (degree 8, fused) poisson2d({ng_cheb}) "
+        f"(n={nc}): bounds [{lmin:.4e}, {lmax:.4f}] (Lanczos, 16 steps); "
+        f"{it} iterations (Jacobi: {out['bell_path']['iterations']}) in "
+        f"{t4 - t3:.3f} s (setup included) = {(t4 - t3) / max(it, 1) * 1e3:.3f}"
+        f" ms/iteration; true residual {relres:.3e}; solve + backward "
+        f"{t1 - t0:.3f} + {t2 - t1:.3f} s")
+    say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    check(info.reason == "converged" and relres <= 10 * tol,
+          f"Chebyshev path: converged, true residual {relres:.2e} <= 10·tol")
+    check(bool(torch.isfinite(leaf.grad).all()), "Chebyshev path: finite "
+          "val.grad")
+    for k in ("fused_cheb_step", "fused_cg_halfstep", "bell_spmv"):
+        check(launches[k] > 0, f"Chebyshev path launched {k} "
+              f"({launches[k]} times)")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    res["chebyshev"] = dict(ng=ng_cheb, n=nc, tol=tol, iterations=it,
+                            bounds=(lmin, lmax), seconds=t4 - t3,
+                            forward_s=t1 - t0, backward_s=t2 - t1,
+                            true_residual=relres, launches=launches,
+                            plan_stats=stats)
+    out["krylov_path"] = res
+    del A, u, leaf, info
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phases 13–14: the LM serving path on the flash-attention kernel
 # ---------------------------------------------------------------------------
 
@@ -1880,7 +2388,7 @@ def flash_phase(dev, seed, out):
                  bound_by=bby, tflops=flops / ms / 1e9, err=err,
                  max_abs_err=max_abs, limit=limit, round_p_distance=dist)
         res.append(r)
-        gqa[dname] = r
+        gqa[label] = r
         del qkv, q, k, v, o, qh, kh, vh
         torch.cuda.empty_cache()
     out["flash_phase"] = res
@@ -1896,7 +2404,7 @@ def flash_phase(dev, seed, out):
     # bf16: the prefill layer's work in the (BH, S, T, d) form; f32: the
     # path's own GQA call (its only f32 launches)
     return {"flash_attention": row(res[0], "bfloat16", "(BH, S, T, d)"),
-            "flash_attention_f32": row(gqa["float32"], "float32",
+            "flash_attention_f32": row(gqa["f32 check GQA"], "float32",
                                        "(B, S, H, K, d)")}
 
 
@@ -2202,6 +2710,7 @@ def main():
                            ng_transpose=NG_TRANSPOSE, tol=TOL,
                            tol_transpose=TOL_TRANSPOSE, ng_direct=NG_DIRECT,
                            ng_lu=NG_LU, saddle=SADDLE, ng_ilu=NG_ILU,
+                           n_graph=N_GRAPH,
                            maxiter=MAXITER, seed=SEED,
                            flash_shapes=FLASH_SHAPES, flash_gqa=FLASH_GQA,
                            lm_arch=LM_ARCH,
@@ -2238,7 +2747,12 @@ def main():
             ("direct path", direct_path, (dev, NG_DIRECT, SEED, out, direct)),
             ("LU path", lu_path, (dev, NG_LU, SEED, out)),
             ("indefinite path", indefinite_path, (dev, *SADDLE, SEED, out)),
-            ("ILU path", ilu_path, (dev, NG_ILU, TOL, MAXITER, out))):
+            ("ILU path", ilu_path, (dev, NG_ILU, TOL, MAXITER, out)),
+            ("MG path", mg_path, (dev, NG_STENCIL, TOL, MAXITER, SEED, out)),
+            ("AMG path", amg_path, (dev, NG_BELL, N_GRAPH, TOL, MAXITER, out)),
+            ("GMRES / Chebyshev path", krylov_path,
+             (dev, NG_TRANSPOSE, NG_BELL, TOL_TRANSPOSE, TOL, MAXITER,
+              out))):
         counts = phase(name, fn, *a)
         torch.cuda.empty_cache()
         for k, v in counts.items():

@@ -1,2 +1,6 @@
 """Plan engine of the PyTorch port: sparse tensors, options, Krylov solvers,
-preconditioners, dispatch and the adjoint (mirrors ``repro.core``)."""
+preconditioners (multigrid included), dispatch and the adjoint (mirrors
+``repro.core``)."""
+from . import multigrid, precond, solvers
+
+__all__ = ["solvers", "precond", "multigrid"]

@@ -885,7 +885,10 @@ def _emit_snode(n: int, nnzL: int, Li: np.ndarray, Lptr: np.ndarray,
         rows_blk = np.where(tw, c0g[:, None] + aw[None, :], n)
         pstart = Lptr[c1[idx] - 1]
         gidx = np.minimum(pstart[:, None] + ar[None, :], max(nnzL - 1, 0))
-        rows_sub = np.where(ta, Li[gidx], n)
+        # (a pattern with no off-diagonal fill, e.g. the diagonal coarsest
+        # level of a stalled AMG aggregation, has an empty Li)
+        rows_sub = np.where(ta, Li[gidx], n) if nnzL else \
+            np.full_like(gidx, n)
         rows = np.concatenate([rows_blk, rows_sub], axis=1)   # (k, wb+rb)
         cjs = c0g[:, None] + aw[None, :]                      # (k, wb)
         vP = (rows < n)[:, :, None] & tw[:, None, :]

@@ -428,10 +428,10 @@ class IterativeBackend(Backend):
     cache_setup = True
 
     def analyze(self, cfg, pattern):
-        if cfg.method in ("gmres", "block_cg"):
+        if cfg.method == "block_cg":
             raise NotImplementedError(
-                f"method={cfg.method!r} is not ported yet (gmres: ROADMAP "
-                f"queue 1 item 3; block_cg: slice 5 of the PyTorch port)")
+                "method='block_cg' is not ported yet (slice 5 of the "
+                "PyTorch port: batching and serving)")
         return {
             "kernel": _build_kernel_plan(pattern, self.kernel),
             "precond": _precond.PreconditionerPlan(
@@ -479,6 +479,10 @@ class IterativeBackend(Backend):
                                                maxiter=cfg.maxiter)
             return _solvers.bicgstab(mv, b, x0, M=M, tol=cfg.tol,
                                      atol=cfg.atol, maxiter=cfg.maxiter)
+        if cfg.method == "gmres":
+            return _solvers.gmres(mv, b, x0, M=M, tol=cfg.tol, atol=cfg.atol,
+                                  restart=cfg.restart,
+                                  maxiter=max(cfg.maxiter // cfg.restart, 1))
         raise ValueError(
             f"unknown method {cfg.method!r} for backend {cfg.backend!r}")
 

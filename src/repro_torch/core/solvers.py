@@ -11,7 +11,13 @@ every iteration.  On CUDA it carries a device-side ``active`` flag instead —
 the fused kernels skip their writes and the plain loops keep their old state
 once the flag drops — and reads it on the host only every
 ``CHECK_EVERY["cuda"]`` iterations, so the card is not stalled by a sync per
-iteration.
+iteration.  Restarted GMRES reads it once per restart cycle: its inner
+Arnoldi steps and the Hessenberg least squares stay on the device.
+
+``cg_scan`` is the deliberately naive fixed-k CG that autograd unrolls (the
+O(k)-graph baseline of the paper's Fig. 2); ``lanczos`` feeds the Chebyshev
+bounds; ``eigh_pinv_solve`` is the pseudo-inverse small solve of the block
+and Anderson solvers.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ import torch
 
 __all__ = [
     "SolveInfo", "SolveResult", "as_solve_result", "cg", "cg_fused",
-    "bicgstab", "bicgstab_fused", "dense_solve", "CHECK_EVERY",
+    "bicgstab", "bicgstab_fused", "gmres", "cg_scan", "eigh_pinv_solve",
+    "lanczos", "dense_solve", "CHECK_EVERY",
 ]
 
 #: iterations between host reads of the convergence flag, per device type
@@ -66,15 +73,19 @@ def _keep(on, new, old):
     return torch.where(on, new, old)
 
 
-def _loop(cond: Callable, body: Callable, state: tuple) -> tuple:
+def _loop(cond: Callable, body: Callable, state: tuple,
+          every: Optional[int] = None) -> tuple:
     """``lax.while_loop(cond, body, state)`` with a device-side active flag.
 
     ``cond(state)`` is a 0-dim bool tensor; ``body(state, active)`` returns
     the next state and must leave every quantity the caller reads after the
     loop unchanged when ``active`` (0-dim int32) is 0.  Since the flag only
     ever drops, the state after the loop is that of the first iteration
-    where ``cond`` failed, however late the host notices."""
-    every = CHECK_EVERY.get(state[0].device.type, 1)
+    where ``cond`` failed, however late the host notices.  The host reads
+    the flag every ``every`` bodies (default: ``CHECK_EVERY`` of the
+    device type)."""
+    if every is None:
+        every = CHECK_EVERY.get(state[0].device.type, 1)
     active = cond(state).to(torch.int32)
     it = 0
     while True:
@@ -89,6 +100,23 @@ def _loop(cond: Callable, body: Callable, state: tuple) -> tuple:
 def _target(b, tol, atol, dot):
     bnorm = torch.sqrt(dot(b, b))
     return torch.clamp_min(tol * bnorm, atol)
+
+
+def eigh_pinv_solve(G: torch.Tensor, rhs: torch.Tensor, *,
+                    ridge: float = 1e-12) -> torch.Tensor:
+    """Solve the (near-)singular symmetric system ``G x = rhs`` by a
+    symmetric-eigendecomposition pseudo-inverse with a RELATIVE cutoff:
+    eigenvalues below ``max(ridge, m·10·eps) · max|w|`` are zeroed instead
+    of inverted, so rank-deficient directions stay inert.  ``rhs`` is
+    ``(m,)`` or ``(m, k)``."""
+    m = G.shape[0]
+    cutoff = max(ridge, m * 10 * torch.finfo(G.dtype).eps)
+    w, V = torch.linalg.eigh(0.5 * (G + G.T))
+    cut = w.abs().max() * cutoff
+    winv = torch.where(w.abs() > cut, 1.0 / w, torch.zeros_like(w))
+    if rhs.dim() == 1:
+        return V @ (winv * (V.T @ rhs))
+    return V @ (winv[:, None] * (V.T @ rhs))
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +346,151 @@ def bicgstab_fused(matvec: Callable, b: torch.Tensor,
     *_, rr, k, _ = _loop(cond, body, st0)
     rn = torch.sqrt(rr)
     return x, SolveInfo(k, rn, rn <= target)
+
+
+def _hessenberg_lstsq(H: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """argmin ‖rhs − H y‖ for the (m+1, m) Hessenberg matrix of an Arnoldi
+    cycle, on the device: Householder QR, then the triangular solve.  A
+    diagonal entry of R under ``(m+1)·eps`` of the largest (an exact
+    breakdown) drops its direction, as the reference's ``lstsq`` cutoff
+    does."""
+    Q, R = torch.linalg.qr(H)
+    c = Q.T @ rhs
+    d = R.diagonal()
+    cut = d.abs().max() * (H.shape[0] * torch.finfo(H.dtype).eps)
+    R = R.clone()
+    R.diagonal().copy_(torch.where(d.abs() > cut, d,
+                                   torch.full_like(d, float("inf"))))
+    return torch.linalg.solve_triangular(R, c.unsqueeze(1),
+                                         upper=True).squeeze(1)
+
+
+def gmres(matvec: Callable, b: torch.Tensor,
+          x0: Optional[torch.Tensor] = None, *, M: Callable = _identity,
+          tol: float = 1e-6, atol: float = 0.0, restart: int = 32,
+          maxiter: int = 50):
+    """Restarted GMRES(m), left-preconditioned.
+
+    ``maxiter`` counts restart cycles; the reported iteration count is
+    cycles × ``restart``, as in the reference.  The Arnoldi basis is
+    orthogonalized by classical Gram–Schmidt applied twice (two
+    matrix–vector products with the basis per step, where the reference's
+    modified Gram–Schmidt takes j + 1 dependent passes).  The true residual
+    and its norm are carried through the loop: one matvec per cycle pays
+    for the convergence check and the next cycle's start vector.  Nothing
+    inside a cycle reads a value on the host; the host reads the
+    convergence flag once per cycle."""
+    x0 = torch.zeros_like(b) if x0 is None else x0
+    n = b.shape[-1]
+    m = restart
+    target = _target(b, tol, atol, _dot)
+
+    def arnoldi_cycle(x, r_true):
+        r = M(r_true)
+        beta = torch.linalg.norm(r)
+        V = b.new_zeros((m + 1, n))
+        V[0] = r / (beta + 1e-30)
+        H = b.new_zeros((m + 1, m))
+        for j in range(m):
+            w = M(matvec(V[j]))
+            Vj = V[:j + 1]
+            h = Vj @ w
+            w = w - h @ Vj
+            h2 = Vj @ w                      # second pass: re-orthogonalize
+            w = w - h2 @ Vj
+            hn = torch.linalg.norm(w)
+            H[:j + 1, j] = h + h2
+            H[j + 1, j] = hn
+            V[j + 1] = w / (hn + 1e-30)
+        e1 = b.new_zeros(m + 1)
+        e1[0] = beta
+        y = _hessenberg_lstsq(H, e1)
+        return x + y @ V[:m]
+
+    r0 = b - matvec(x0)
+    k0 = torch.zeros((), dtype=torch.int64, device=b.device)
+
+    def cond(st):
+        x, r, rn, k = st
+        return (k < maxiter) & (rn > target)
+
+    def body(st, act):
+        # every=1: the host has read the flag, so the body runs only while
+        # active and needs no gating
+        x, r, rn, k = st
+        x = arnoldi_cycle(x, r)
+        r = b - matvec(x)
+        return (x, r, torch.linalg.norm(r), k + 1)
+
+    x, r, rn, k = _loop(cond, body, (x0, r0, torch.linalg.norm(r0), k0),
+                        every=1)
+    return x, SolveInfo(k * m, rn, rn <= target)
+
+
+def cg_scan(matvec: Callable, b: torch.Tensor, k: int,
+            M: Callable = _identity, x0: Optional[torch.Tensor] = None):
+    """Fixed-k CG as plain autograd-tracked torch ops — the naive
+    O(k)-graph baseline of the paper's §4.2: reverse mode stores every
+    iteration's vectors (O(k·n) memory).  Never used by the adjoint path.
+    Once converged (ρ → 0) an iteration is a no-op instead of 0/0, with
+    both branches of each division kept finite so the backward has no
+    NaN."""
+    x0 = torch.zeros_like(b) if x0 is None else x0
+
+    def dot(u, v):
+        return torch.sum(u * v)
+
+    r0 = b - matvec(x0)
+    z0 = M(r0)
+    rz0 = dot(r0, z0)
+    eps = torch.finfo(b.dtype).eps
+    tiny = (100 * eps) ** 2 * rz0
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    x, r, p, rz = x0, r0, z0, rz0
+    for _ in range(k):
+        Ap = matvec(p)
+        pAp = dot(p, Ap)
+        live = rz > tiny
+        pAp_safe = torch.where(live, pAp, one)
+        rz_safe = torch.where(live, rz, one)
+        alpha = torch.where(live, rz / pAp_safe, zero)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = dot(r, z)
+        beta = torch.where(live, rz_new / rz_safe, zero)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def lanczos(matvec: Callable, v0: torch.Tensor, num_steps: int):
+    """Lanczos tridiagonalization with full reorthogonalization (small m).
+
+    Returns ``(alphas, betas, V)``; the eigenvalues of T approximate the
+    extremal eigenvalues of A (Chebyshev bounds).  A fixed number of steps,
+    no host read."""
+    n = v0.shape[-1]
+    m = num_steps
+    V = v0.new_zeros((m + 1, n))
+    V[0] = v0 / torch.linalg.norm(v0)
+    alphas = v0.new_zeros(m)
+    betas = v0.new_zeros(m)
+    for j in range(m):
+        w = matvec(V[j])
+        alpha = torch.sum(w * V[j])
+        w = w - alpha * V[j]
+        if j > 0:
+            w = w - betas[j - 1] * V[j - 1]
+        # full reorthogonalization against V[0..j]
+        Vj = V[:j + 1]
+        w = w - (Vj @ w) @ Vj
+        beta = torch.linalg.norm(w)
+        V[j + 1] = w / (beta + 1e-30)
+        alphas[j] = alpha
+        betas[j] = beta
+    return alphas, betas, V
 
 
 def dense_solve(A_dense: torch.Tensor, b: torch.Tensor, method: str = "lu"):

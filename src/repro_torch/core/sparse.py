@@ -4,9 +4,10 @@
 kernel layouts (block-ELL with its sliced-ELL form for the SpMV kernel,
 5-point stencil metadata) are attached at construction time when asked for.
 The numpy symbolic helpers
-(:func:`build_bell`, :func:`detect_properties`, :func:`has_full_diagonal`)
-are kept as copies of the reference's so analyze artifacts compare array for
-array.  Leading batch dimensions on ``val`` are accepted by the COO products;
+(:func:`build_bell`, :func:`detect_properties`, :func:`has_full_diagonal`,
+and the algebraic-multigrid pattern passes :func:`aggregate_pattern`,
+:func:`spgemm_program`, :func:`tentative_coarse_pattern`) are kept as copies
+of the reference's so analyze artifacts compare array for array.  Leading batch dimensions on ``val`` are accepted by the COO products;
 batched *solves* come with a later slice.
 """
 from __future__ import annotations
@@ -32,6 +33,9 @@ __all__ = [
     "build_sell",
     "BellLayout",
     "SellLayout",
+    "aggregate_pattern",
+    "spgemm_program",
+    "tentative_coarse_pattern",
 ]
 
 
@@ -111,6 +115,113 @@ def detect_properties(val, row, col, shape, check_values: bool = True) -> dict:
             props["spd_hint"] = bool(np.all(flat > 0))
     props["symmetric"] = sym
     return props
+
+
+# ---------------------------------------------------------------------------
+# pattern-level coarsening / product helpers (numpy copies: the symbolic
+# half of the algebraic-multigrid plan, see core/multigrid.py)
+# ---------------------------------------------------------------------------
+
+def aggregate_pattern(row, col, n: int):
+    """Greedy aggregation of the (symmetrized) pattern graph.
+
+    Pass 1 seeds an aggregate at every node whose whole neighbourhood is
+    still free (node ∪ neighbours become one aggregate — Vaněk's sweep);
+    pass 2 attaches leftover nodes to the neighbouring aggregate they touch
+    most; pass 3 turns isolated stragglers into singletons.  The visiting
+    order of the three passes decides the aggregates, so they are the
+    reference's loops as they are.  Returns ``(agg, n_agg)``."""
+    r = np.asarray(to_numpy(row), dtype=np.int64)
+    c = np.asarray(to_numpy(col), dtype=np.int64)
+    mask = r != c
+    rr = np.concatenate([r[mask], c[mask]])
+    cc = np.concatenate([c[mask], r[mask]])
+    order = np.lexsort((cc, rr))
+    rr, cc = rr[order], cc[order]
+    keep = np.ones(len(rr), bool)
+    keep[1:] = (rr[1:] != rr[:-1]) | (cc[1:] != cc[:-1])
+    rr, cc = rr[keep], cc[keep]
+    ptr = np.searchsorted(rr, np.arange(n + 1))
+
+    agg = np.full(n, -1, dtype=np.int64)
+    n_agg = 0
+    for i in range(n):                     # pass 1: free-neighbourhood seeds
+        if agg[i] >= 0:
+            continue
+        nb = cc[ptr[i]:ptr[i + 1]]
+        if nb.size and (agg[nb] >= 0).any():
+            continue
+        agg[i] = n_agg
+        agg[nb] = n_agg
+        n_agg += 1
+    for i in range(n):                     # pass 2: attach to busiest neighbour
+        if agg[i] >= 0:
+            continue
+        nb_agg = agg[cc[ptr[i]:ptr[i + 1]]]
+        nb_agg = nb_agg[nb_agg >= 0]
+        if nb_agg.size:
+            agg[i] = np.bincount(nb_agg).argmax()
+    for i in range(n):                     # pass 3: isolated singletons
+        if agg[i] < 0:
+            agg[i] = n_agg
+            n_agg += 1
+    return agg, int(n_agg)
+
+
+def spgemm_program(arow, acol, brow, bcol, shape_c):
+    """Static index program for the sparse product C = A·B (pattern-level).
+
+    Enumerates every structurally-nonzero pair (entry ``e`` of A, entry
+    ``f`` of B with ``brow[f] == acol[e]``) and returns ``(ga, gb, gdst,
+    crow, ccol)``: the numeric product is one gather + segment sum,
+    ``c_val[gdst] += a_val[ga] * b_val[gb]``."""
+    arow = np.asarray(arow, np.int64); acol = np.asarray(acol, np.int64)
+    brow = np.asarray(brow, np.int64); bcol = np.asarray(bcol, np.int64)
+    ob = np.argsort(brow, kind="stable")
+    n_mid = int(max(acol.max(initial=-1), brow.max(initial=-1))) + 1
+    bptr = np.searchsorted(brow[ob], np.arange(n_mid + 1))
+    cnt = (bptr[acol + 1] - bptr[acol])            # pairs per A entry
+    total = int(cnt.sum())
+    ga = np.repeat(np.arange(len(arow), dtype=np.int64), cnt)
+    grp = np.repeat(np.cumsum(cnt) - cnt, cnt)
+    loc = np.arange(total, dtype=np.int64) - grp
+    gb = ob[np.repeat(bptr[acol], cnt) + loc]
+    keys = arow[ga] * np.int64(shape_c[1]) + bcol[gb]
+    ukeys, gdst = np.unique(keys, return_inverse=True)
+    crow = (ukeys // shape_c[1]).astype(np.int64)
+    ccol = (ukeys % shape_c[1]).astype(np.int64)
+    return ga, gb, gdst.reshape(-1).astype(np.int64), crow, ccol
+
+
+def tentative_coarse_pattern(row, col, n: int, *, coarsest: int = 48,
+                             max_levels: int = 12):
+    """Repeated pattern aggregation down to ``coarsest`` nodes (values-free):
+    ONE composed fine→coarse map and the coarse Galerkin pattern Tᵀ·A·T of
+    the piecewise-constant prolongator, whose numeric matrix is one segment
+    sum of the fine values through ``e2c``.  Returns ``(agg, n_c, e2c,
+    crow, ccol)`` (the coarse level of the two-level Schwarz
+    preconditioner)."""
+    agg = np.arange(n, dtype=np.int64)
+    n_c = n
+    r = np.asarray(to_numpy(row), np.int64)
+    c = np.asarray(to_numpy(col), np.int64)
+    r0, c0 = r, c
+    for _ in range(max_levels):
+        if n_c <= coarsest:
+            break
+        a, na = aggregate_pattern(r, c, n_c)
+        if na >= n_c:                       # aggregation stalled
+            break
+        agg = a[agg]
+        keys = np.unique(a[r] * np.int64(na) + a[c])
+        r = (keys // na).astype(np.int64)
+        c = (keys % na).astype(np.int64)
+        n_c = na
+    keys = agg[r0] * np.int64(n_c) + agg[c0]
+    ukeys, e2c = np.unique(keys, return_inverse=True)
+    crow = (ukeys // n_c).astype(np.int64)
+    ccol = (ukeys % n_c).astype(np.int64)
+    return agg, int(n_c), e2c.reshape(-1).astype(np.int64), crow, ccol
 
 
 # ---------------------------------------------------------------------------
@@ -404,8 +515,10 @@ class SparseTensor:
         """Differentiable solve of ``A x = b`` through the plan engine.
 
         ``backend`` ∈ {auto, dense, direct, jnp, pallas, stencil};
-        ``precond`` ∈ {none, jacobi, ilu} on the iterative backends (``ilu``
-        is ILU(0)/IC(0) on the direct solver's machinery).  Gradients
+        ``method`` ∈ {cg, bicgstab, gmres} on the iterative backends;
+        ``precond`` ∈ {none, jacobi, block_jacobi, chebyshev, mg, amg, ilu}
+        there (``mg`` needs the stencil layout; ``ilu`` is ILU(0)/IC(0) on
+        the direct solver's machinery).  Gradients
         w.r.t. ``val`` and ``b`` come from ONE adjoint solve; the direct
         backend's adjoint runs on the forward's factors."""
         from . import adjoint, dispatch

@@ -1,4 +1,4 @@
-"""repro_torch.sla — public surface of the PyTorch port (slices 1–2).
+"""repro_torch.sla — public surface of the PyTorch port.
 
 The names match the reference's ``repro.sla``::
 
@@ -13,7 +13,10 @@ The names match the reference's ``repro.sla``::
         x = sla.solve(A, b)
 
 Ported so far: the iterative route (``jnp``/``pallas``/``stencil``
-backends, CG and BiCGStab with Jacobi or ILU(0)), the sparse-direct route
+backends; CG, BiCGStab and restarted GMRES; Jacobi, block-Jacobi,
+Chebyshev, geometric multigrid ``mg`` on stencil operators,
+smoothed-aggregation ``amg`` and ILU(0) preconditioners), the sparse-direct
+route
 (``direct``: supernodal LDLᵀ/LU, the auto choice for mid-size systems, with
 ``SparseTensor.slogdet`` on the same factors) and the dense route; the rest
 of the reference's surface arrives with later slices.
@@ -48,9 +51,11 @@ __all__ = [
 def solve(A, b, **kw):
     """Solve ``A @ x = b`` with adjoint gradients.  Keyword options:
     ``backend`` ("auto", "dense", "direct", "jnp", "pallas", "stencil"),
-    ``method`` ("cg", "bicgstab"; "ldlt"/"lu" for direct; "lu"/"cholesky"
-    for dense), ``precond`` ("none", "jacobi", "ilu"), ``tol``, ``atol``,
-    ``maxiter``, ``x0``."""
+    ``method`` ("cg", "bicgstab", "gmres"; "ldlt"/"lu" for direct;
+    "lu"/"cholesky" for dense), ``precond`` ("none", "jacobi",
+    "block_jacobi", "chebyshev", "mg", "amg", "ilu"), ``tol``, ``atol``,
+    ``maxiter``, ``x0`` (GMRES restarts every 32 steps; ``solve_with_info``
+    also takes ``restart``)."""
     return A.solve(b, **kw)
 
 

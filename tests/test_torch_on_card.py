@@ -315,3 +315,129 @@ def test_gqa_kernel_matches_plain_on_card(cuda_device, dtype, K):
     want = want.transpose(1, 2)
     rtol, atol = BF16_TOL if dtype == torch.bfloat16 else (2e-5, 2e-5)
     assert bool(((out.float() - want).abs() <= rtol * want.abs() + atol).all())
+
+
+# ---------------------------------------------------------------------------
+# the preconditioned Krylov path: the MG smoother on the stencil kernel, the
+# AMG V-cycle, GMRES — each on the card against the CPU port (plain
+# versions).  AMG sums with index_add_ (atomics on the card): its V-cycle is
+# held to 1e-10 of its scale, and its iteration count must not move.
+# ---------------------------------------------------------------------------
+
+#: a whole V-cycle, card against CPU, relative to its output's scale
+TOL_CYCLE = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_mg_smoother_and_vcycle_match_plain(cuda_device, dtype):
+    from repro_torch.core import multigrid as tmg
+    from repro_torch.kernels import stencil5 as tks
+    ng = 256
+    rng = np.random.default_rng(3)
+    kap = 1.0 + 0.5 * rng.random((ng, ng))
+    M = tmg.MultigridPreconditioner(torch.tensor(kap, dtype=dtype,
+                                                 device=cuda_device))
+    tol_k = TOL[np.float64 if dtype == torch.float64 else np.float32]
+    for v5 in M.levels[:-1]:
+        n = v5.shape[1]
+        inv = tmg._jacobi_weights(v5, M.omega)
+        x, b = (torch.tensor(rng.normal(size=(n, n)), dtype=dtype,
+                             device=cuda_device) for _ in range(2))
+        before = tks.LAUNCHES["stencil5"]
+        got = tmg._smooth(tmg._stencil_fn(v5), inv, x, b, 2)
+        assert tks.LAUNCHES["stencil5"] == before + 2
+        want = tmg._smooth(lambda y: tref.stencil5_ref(v5, y), inv, x, b, 2)
+        assert rel(got, want) <= tol_k, (n, rel(got, want))
+    r = torch.tensor(rng.normal(size=ng * ng), dtype=dtype)
+    before = tks.LAUNCHES["stencil5"]
+    z = M(r.to(cuda_device))
+    torch.cuda.synchronize()
+    assert tks.LAUNCHES["stencil5"] - before == 5 * (len(M.sizes) - 1)
+    zc = tmg.MultigridPreconditioner(torch.tensor(kap, dtype=dtype))(r)
+    assert rel(z, zc) <= TOL_CYCLE[dtype], rel(z, zc)
+
+
+@pytest.mark.cuda
+def test_cuda_mg_solve_iterations_match_cpu(cuda_device):
+    from repro_torch import sla
+    from repro_torch.data.poisson import poisson2d_vc
+    ng = 128
+    kap = 1.0 + 0.5 * np.random.default_rng(4).random((ng, ng))
+    res = []
+    for dev in (cuda_device, torch.device("cpu")):
+        A = poisson2d_vc(torch.tensor(kap, device=dev),
+                         use_stencil_kernel=True, device=dev)
+        res.append(sla.solve_with_info(A, torch.ones(ng * ng,
+                                                      dtype=torch.float64,
+                                                      device=dev),
+                                       tol=1e-10, precond="mg"))
+    assert res[0].reason == res[1].reason == "converged"
+    assert int(res[0].iterations) == int(res[1].iterations)
+    assert rel(res[0].x, res[1].x) <= 1e-8
+
+
+def _amg_graph(dev):
+    from repro_torch.data.graphs import graph_laplacian
+    return graph_laplacian(3000, seed=0, shift=1e-3, device=dev)
+
+
+@pytest.mark.cuda
+def test_cuda_amg_vcycle_matches_cpu(cuda_device):
+    from repro_torch.core.precond import PreconditionerPlan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    r = torch.tensor(np.random.default_rng(5).normal(size=3000))
+    z = []
+    for dev in (cuda_device, torch.device("cpu")):
+        G = _amg_graph(dev)
+        pre = PreconditionerPlan("amg", G.row, G.col, G.shape)
+        reset_launch_counts()
+        M = pre.make_apply(pre.refresh_state(G, None), None)
+        z.append(M(r.to(dev)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            n = launch_counts()
+            # the coarsest level factorizes and solves on the panel kernels
+            assert n["panel_factor"] > 0 and n["sn_sweep"] > 0
+    assert rel(z[0], z[1]) <= TOL_CYCLE[torch.float64], rel(z[0], z[1])
+
+
+@pytest.mark.cuda
+def test_cuda_amg_iterations_stable_over_runs(cuda_device):
+    """Three card solves, each with a fresh values tensor (a fresh Galerkin
+    product, summed in a fresh atomic order), and the CPU's: one
+    iteration count."""
+    from repro_torch import sla
+    iters = []
+    for dev in (cuda_device,) * 3 + (torch.device("cpu"),):
+        G = _amg_graph(dev)
+        b = torch.ones(3000, dtype=torch.float64, device=dev)
+        res = sla.solve_with_info(G.with_values(G.val.clone()), b,
+                                  backend="jnp", method="cg", tol=1e-10,
+                                  maxiter=2000, precond="amg")
+        assert res.reason == "converged"
+        iters.append(int(res.iterations))
+    assert len(set(iters)) == 1, iters
+
+
+@pytest.mark.cuda
+def test_cuda_gmres_iterations_match_cpu(cuda_device):
+    """GMRES(16) + block-Jacobi on a non-symmetric drift operator, through
+    the block-ELL kernel on the card: the CPU port's cycle count."""
+    from repro_torch import sla
+    from repro_torch.core.sparse import SparseTensor
+    ng = 32
+    val, row, col = poisson2d_arrays(ng)
+    val = val.copy()
+    val[col == row - 1] = -1.4
+    val[col == row + 1] = -0.6
+    b = np.random.default_rng(6).normal(size=ng * ng)
+    res = []
+    for dev in (cuda_device, torch.device("cpu")):
+        B = SparseTensor(val, row, col, (ng * ng, ng * ng), device=dev)
+        res.append(sla.solve_with_info(
+            B, torch.tensor(b, device=dev), backend="pallas", method="gmres",
+            restart=16, tol=1e-10, maxiter=4000, precond="block_jacobi"))
+    assert res[0].reason == res[1].reason == "converged"
+    assert int(res[0].iterations) == int(res[1].iterations)
+    assert rel(res[0].x, res[1].x) <= 1e-8

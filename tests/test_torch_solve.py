@@ -214,8 +214,11 @@ def test_later_slices_raise_with_their_slice():
     x = A.solve(b, backend="direct")           # slice 2: ported
     assert_close(x, torch.linalg.solve(A.todense(), b), rtol=1e-12,
                  atol=1e-13)
-    with pytest.raises(NotImplementedError, match="gmres"):
-        A.solve(b, backend="jnp", method="gmres")
+    x = A.solve(b, backend="jnp", method="gmres", tol=1e-12)  # ported
+    assert_close(x, torch.linalg.solve(A.todense(), b), rtol=1e-10,
+                 atol=1e-11)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        A.solve(b, backend="jnp", method="block_cg")
     with pytest.raises(ValueError):
         A.solve(b, backend="nope")
 

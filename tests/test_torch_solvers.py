@@ -147,19 +147,17 @@ def test_preconditioner_plan_none_jacobi_and_later_slices():
         expect = r if name == "none" else r / A.diagonal()
         assert_close(M(r), expect, rtol=0, atol=0)
         assert_close(pre.fused_diag(A) * r, expect, rtol=0, atol=0)
-    for name, slice_no in (("block_jacobi", 3), ("chebyshev", 3), ("mg", 3),
-                           ("amg", 3), ("ilu", 2)):
-        if slice_no == 2:          # ported: ILU(0) builds and applies
-            pre = tprec.PreconditionerPlan(name, A.row, A.col, A.shape)
-            assert pre.fused_diag(A) is None
-            M = pre.make_apply(pre.refresh_state(A, None), None)
-            r = torch.ones(36, dtype=torch.float64)
-            z = M(r)
-            assert bool(torch.isfinite(z).all())
-            assert float(torch.dot(r, z)) > 0.0
-            continue
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-            tprec.PreconditionerPlan(name, A.row, A.col, A.shape)
+    mv = lambda x: A @ x
+    r = torch.ones(36, dtype=torch.float64)
+    for name in ("block_jacobi", "chebyshev", "amg", "ilu"):
+        # ported: each builds, has no diagonal form, and applies an SPD M⁻¹
+        pre = tprec.PreconditionerPlan(name, A.row, A.col, A.shape)
+        assert pre.fused_diag(A) is None
+        z = pre.make_apply(pre.refresh_state(A, mv), mv)(r)
+        assert bool(torch.isfinite(z).all())
+        assert float(torch.dot(r, z)) > 0.0
+    with pytest.raises(ValueError, match="mg"):   # needs the stencil view
+        tprec.PreconditionerPlan("mg", A.row, A.col, A.shape)
     with pytest.raises(ValueError):
         tprec.PreconditionerPlan("bogus", A.row, A.col, A.shape)
 
