@@ -64,6 +64,26 @@ What it does, in order:
     with its backward against the plain run, beside BiCGStab +
     block_jacobi; CG + the plan ``chebyshev`` (Lanczos bounds, fused
     ``fused_cheb_step``) at ``poisson2d(1024)`` with its backward;
+11d. nonlinear path: F(u, θ) = A u + θ u³ − f (the reference's table-5
+    residual; f from the seed, θ = 0.8) on ``poisson2d(1024)``'s block-ELL
+    kernel, ``nonlinear_solve`` with ``jac_pattern=A`` (SparseNewton: one
+    coloring, one ``vmap``-ed jvp probe sweep per step on ``bell_spmv``)
+    and CG + AMG inner solves to tol 1e-12, ‖F(u*)‖ ≤ 1e-10, ∂Σu²/∂θ by
+    ``backward()``: analyze, coloring and the backward's transpose solve
+    once each, one Galerkin product per Newton step; the θ-gradient
+    against a central difference (1e-5) and the same run inside
+    ``plain_kernels`` (1e-8); then the backward-Euler step G(u, θ) =
+    u + 0.05 (A u + θ u³) − u* by Newton, Picard and Anderson (m = 5)
+    with the Jacobian in closed form, their θ-gradients against Newton's;
+11e. Newton direct path: the same residual on ``poisson2d(316)`` with
+    direct inner solves (one factorization per step on the panel kernels,
+    none in the backward), the same gradient checks;
+11f. eigen path: the anisotropic Poisson operator (cy 0.6) at ng = 1024,
+    ``A.eigsh(k=6, method="lobpcg", precond="amg", tol=1e-9)``, the
+    eigenvalues against their closed form (1e-8), residuals ≤ 10·tol, one
+    analyze and one Galerkin product across the forward and the backward
+    (Hellmann–Feynman + one deflated CG per pair), the val-gradient of
+    Σ cᵢwᵢ + (V[1]·a)² against the plain run (1e-7);
 12. panel kernels: panel_factor and schur_update (fused with the
     extend-add; both in place in the factor vector) and sn_sweep (one
     bucket of a sweep in place in y) against their plain versions on
@@ -172,6 +192,28 @@ MG_RATIO = 5                         # MG: fewer than 1/5 of Jacobi's
 AMG_RATIO = 4                        # AMG: at most 1/4 of Jacobi's
 N_GRAPH = 1 << 20                    # unstructured AMG case: 1,048,576 nodes
 AMG_REPEATS = 3                      # solves, each with a fresh setup
+# phases 11d–11f, the nonlinear and eigen layer (f64, inputs from SEED):
+# F(u, θ) = A u + θ u³ − f, the reference's table-5 residual
+# (benchmarks/table5_gradcheck.py), on poisson2d(NG_BELL) with AMG inner
+# solves and on poisson2d(NG_DIRECT) with direct ones; the anisotropic
+# Poisson of tests/test_solvers.py at NG_EIG for eigsh
+NL_THETA = 0.8
+NL_TOL = 1e-10                       # Newton and fixed point: ‖F(u*)‖
+NL_MAXITER = 50                      # Newton steps
+NL_INNER = dict(tol=1e-12, maxiter=600)   # inner CG + AMG
+NL_FD_EPS = 1e-4                     # central difference in θ
+TOL_FD = 1e-5                        # θ-gradient vs the central difference
+TOL_NL_PLAIN = 1e-8                  # θ-gradient vs the plain run
+NL_DT = 0.05                         # backward-Euler step: u − G contracts
+NL_FP_MAXITER = 500                  # Picard / Anderson iterations
+ANDERSON_M = 5
+NG_EIG = 1024                        # eigsh: 1,048,576 unknowns
+EIG_K = 6
+EIG_CY = 0.6                         # y-coupling of the anisotropic Poisson
+EIG_TOL = 1e-9
+EIG_MAXITER = 500
+TOL_EIG = 1e-8                       # eigenvalues vs closed form, relative
+TOL_EIG_PLAIN = 1e-7                 # val-gradient vs the plain run
 # phase 13: (label, BH, S, T, d, dtype, causal); the first is the main
 # path's layer shape (B 4 × 32 heads, S 4096, head dim 64)
 FLASH_SHAPES = (("prefill layer", 128, 4096, 4096, 64, "bfloat16", True),
@@ -1941,20 +1983,34 @@ def mg_path(dev, ng, tol, maxiter, seed, out):
 
 
 class _timed:
-    """Wraps a module function and sums its wall seconds (measurement)."""
+    """Wraps a module function (or a class's method) and sums its wall
+    seconds and calls, keeping the last result (measurement).  With
+    ``sync`` (a device) the device is synchronized before and after each
+    call, so the seconds hold its device work."""
 
-    def __init__(self, mod, name):
-        self.mod, self.name, self.seconds = mod, name, 0.0
+    def __init__(self, mod, name, sync=None):
+        self.mod, self.name, self.sync = mod, name, sync
+        self.seconds, self.calls, self.result = 0.0, 0, None
+        self.starts, self.each = [], []    # per call: start time, seconds
 
     def __enter__(self):
         self.fn = getattr(self.mod, self.name)
 
         def wrapped(*a, **kw):
+            if self.sync is not None:
+                _sync(self.sync)
             t = time.perf_counter()
             try:
-                return self.fn(*a, **kw)
+                self.result = self.fn(*a, **kw)
+                if self.sync is not None:
+                    _sync(self.sync)
+                return self.result
             finally:
-                self.seconds += time.perf_counter() - t
+                dt = time.perf_counter() - t
+                self.seconds += dt
+                self.calls += 1
+                self.starts.append(t)
+                self.each.append(dt)
 
         setattr(self.mod, self.name, wrapped)
         return self
@@ -2241,6 +2297,363 @@ def krylov_path(dev, ng, ng_cheb, tol_gmres, tol, maxiter, out):
     out["krylov_path"] = res
     del A, u, leaf, info
     return total
+
+
+# ---------------------------------------------------------------------------
+# phases 11d–11f: the nonlinear and eigen layer (SparseNewton, Newton /
+# Picard / Anderson, LOBPCG eigsh) with their adjoints
+# ---------------------------------------------------------------------------
+
+def _nl_problem(dev, ng, seed):
+    """F(u, θ) = A u + θ u³ − f on ``poisson2d(ng)`` (the block-ELL kernel),
+    f from the seed; its Jacobian A + 3θ diag(u²) in closed form."""
+    import torch
+    from repro_torch.data.poisson import poisson2d
+    A = poisson2d(ng, build_kernel_layout=True, device=dev)
+    f = torch.tensor(np.random.default_rng(seed).normal(size=ng * ng),
+                     device=dev)
+    diag = A.row == A.col
+
+    def F(u, th):
+        return A.matvec(u, backend="pallas") + th * u ** 3 - f
+
+    def jac(u, th):
+        return A.val + torch.where(diag, 3 * th * u[A.row] ** 2,
+                                   torch.zeros_like(A.val))
+    return A, f, F, jac
+
+
+def _theta(dev, value=NL_THETA):
+    import torch
+    return torch.tensor(value, dtype=torch.float64, device=dev,
+                        requires_grad=True)
+
+
+def _newton_case(dev, label, A, F, jac, cfg, refresh):
+    """One SparseNewton solve of F(u, θ) = 0 (colored assembly) with its
+    θ-gradient: counters, launches, times; the gradient against the same
+    run inside ``plain_kernels`` and against a central difference on the
+    same cached plan (the difference's solves assemble in closed form,
+    so they color nothing)."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.core import dispatch as tdisp
+    from repro_torch.core import nonlinear as tnl
+
+    n = A.shape[0]
+    zero = torch.zeros(n, dtype=torch.float64, device=dev)
+
+    def solve(th, **kw):
+        return sla.nonlinear_solve(F, zero, th, jac_pattern=A,
+                                   linear_solver=cfg, tol=NL_TOL,
+                                   maxiter=NL_MAXITER, **kw)
+
+    th = _theta(dev)
+    _sync(dev)
+    _peak_reset(dev)
+    _counts_reset()
+    with _timed(tnl, "color_pattern") as col, \
+            _timed(tdisp, "get_plan") as ana, \
+            _timed(tnl.SparseNewton, "assemble", sync=dev) as asm:
+        t0 = time.perf_counter()
+        u = solve(th)
+        _sync(dev)
+        t1 = time.perf_counter()
+        (u * u).sum().backward()
+        _sync(dev)
+        t2 = time.perf_counter()
+    launches, stats = _counts()
+    peak = _peak(dev)
+    g = float(th.grad)
+    with torch.no_grad():
+        rn = float(torch.linalg.norm(F(u, th.detach())))
+    steps = stats["jac_assemble"]
+    colors = col.result[1]
+    # a step runs from its assembly to the next (the last to the solve's
+    # end); the first holds the plan's analyze and the first probe sweep
+    step_s = np.diff(asm.starts + [t1]).tolist()
+    step_med = float(np.median(step_s[1:])) if steps > 1 else step_s[0]
+    asm_med = float(np.median(asm.each[1:])) if steps > 1 else asm.each[0]
+    eps = NL_FD_EPS
+    t3 = time.perf_counter()
+    with torch.no_grad():
+        lp, lm = ((solve(_theta(dev, NL_THETA + s * eps),
+                         assemble_jacobian=jac) ** 2).sum()
+                  for s in (1, -1))
+        fd = float(lp - lm) / (2 * eps)
+    _sync(dev)
+    fd_s = time.perf_counter() - t3
+    _, stats_fd = _counts()
+    th2 = _theta(dev)
+    _counts_reset()
+    tp = time.perf_counter()
+    with plain_kernels():
+        u2 = solve(th2)
+        (u2 * u2).sum().backward()
+    _sync(dev)
+    plain_s = time.perf_counter() - tp
+    plain_launches = sum(_counts()[0].values())
+    g2 = float(th2.grad)
+    u_diff = float((u.detach() - u2.detach()).abs().max())
+    fd_err = abs(g - fd) / abs(fd)
+    plain_err = abs(g - g2) / abs(g2)
+    per_step = {k: launches[k] / max(steps, 1) for k in PANEL_KERNELS
+                + ("bell_spmv",)}
+    per_step["fused"] = sum(launches[k] for k in FUSED) / max(steps, 1)
+    say(f"  Newton {label} (n={n}): {steps} steps, ‖F(u*)‖ {rn:.3e}; "
+        f"coloring {colors} colors in {col.seconds:.2f} s (host numpy); "
+        f"analyze {ana.seconds:.2f} s; assembly (synchronized) first "
+        f"{1e3 * asm.each[0]:.2f} ms, median of the others "
+        f"{1e3 * asm_med:.2f} ms; solve {t1 - t0:.3f} s: first step "
+        f"{step_s[0]:.3f} s, median of the others {step_med:.4f} s "
+        f"(min {min(step_s):.4f}, max {max(step_s):.4f}); backward "
+        f"{t2 - t1:.3f} s; peak {peak:.3f} GB")
+    say(f"  θ-gradient {g!r}: central difference {fd!r} (ε {eps:g}, "
+        f"{fd_s:.2f} s) rel diff {fd_err:.3e}; plain run {g2!r} "
+        f"({plain_s:.2f} s) rel diff {plain_err:.3e}, its root u* max abs "
+        f"diff {u_diff:.3e}")
+    say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})};"
+        f" per step {json.dumps({k: round(v, 2) for k, v in per_step.items()})}")
+    say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}")
+    check(rn <= NL_TOL, f"Newton {label}: ‖F(u*)‖ {rn:.2e} <= {NL_TOL:g}")
+    check(stats["analyze"] == 1 and stats["jac_color"] == 1
+          and stats["transpose_shared"] == 1
+          and stats[refresh] == steps >= 2,
+          f"Newton {label}: analyze 1, jac_color 1, transpose_shared 1, "
+          f"{refresh} == jac_assemble == {steps} (none in the backward)")
+    check(stats_fd["analyze"] == 1, f"Newton {label}: the central "
+          f"difference's solves ran on the same cached plan")
+    check(plain_launches == 0, f"Newton {label}: the plain run launched no "
+          f"kernel")
+    check(math.isfinite(g) and fd_err <= TOL_FD,
+          f"Newton {label}: θ-gradient vs central difference {fd_err:.2e} "
+          f"<= {TOL_FD:g}")
+    check(plain_err <= TOL_NL_PLAIN, f"Newton {label}: θ-gradient vs the "
+          f"plain run {plain_err:.2e} <= {TOL_NL_PLAIN:g}")
+    res = dict(n=n, steps=steps, colors=colors, coloring_s=col.seconds,
+               analyze_s=ana.seconds, assembly_ms=[1e3 * a for a in asm.each],
+               forward_s=t1 - t0, step_s=step_s,
+               backward_s=t2 - t1, residual=rn, grad=g, fd=fd,
+               fd_rel_diff=fd_err, fd_s=fd_s, plain_grad=g2,
+               plain_rel_diff=plain_err, plain_u_diff=u_diff,
+               plain_run_s=plain_s, peak_gb=peak,
+               launches=launches, per_step=per_step, plan_stats=stats)
+    return u.detach(), res, launches
+
+
+def nonlinear_path(dev, ng, seed, out):
+    """Phase 11d: SparseNewton + AMG at full width, then the backward-Euler
+    residual by Newton, Picard and Anderson."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.core import solvers as tsolvers
+    from repro_torch.core.dispatch import SolverConfig
+
+    total = {}
+    A, f, F, jac = _nl_problem(dev, ng, seed)
+    cfg = SolverConfig(backend="pallas", method="cg", precond="amg",
+                       **NL_INNER)
+    u_star, res, launches = _newton_case(dev, f"poisson2d({ng}) + AMG", A, F,
+                                         jac, cfg, "galerkin")
+    for k in ("bell_spmv", "fused_cg_halfstep", "panel_factor", "sn_sweep"):
+        check(launches[k] > 0, f"nonlinear path launched {k} "
+              f"({launches[k]} times)")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    out["nonlinear_path"] = {"newton_amg": dict(ng=ng, **res)}
+
+    # backward Euler from u*: G(u, θ) = u + Δt (A u + θ u³) − u_prev
+    n = ng * ng
+    dt = NL_DT
+    diag = A.row == A.col
+    zero = torch.zeros(n, dtype=torch.float64, device=dev)
+
+    def G(u, th):
+        return u + dt * (A.matvec(u, backend="pallas") + th * u ** 3) - u_star
+
+    def jac_g(u, th):
+        return dt * A.val + torch.where(diag, 1 + 3 * dt * th * u[A.row] ** 2,
+                                        torch.zeros_like(A.val))
+
+    fp = {}
+    for method, kw in (("newton", {}), ("picard", dict(maxiter=NL_FP_MAXITER)),
+                       ("anderson", dict(maxiter=NL_FP_MAXITER,
+                                         anderson_m=ANDERSON_M))):
+        th = _theta(dev)
+        _sync(dev)
+        _counts_reset()
+        with _timed(tsolvers, f"{method}_solve") as rec:
+            t0 = time.perf_counter()
+            u = sla.nonlinear_solve(G, zero, th, method=method, tol=NL_TOL,
+                                    jac_pattern=A, linear_solver=cfg,
+                                    assemble_jacobian=jac_g, **kw)
+            _sync(dev)
+            t1 = time.perf_counter()
+            (u * u).sum().backward()
+            _sync(dev)
+            t2 = time.perf_counter()
+        launches, stats = _counts()
+        with torch.no_grad():
+            rn = float(torch.linalg.norm(G(u, th.detach())))
+        its = stats["jac_assemble"] if method == "newton" \
+            else int(rec.result[1].iters)
+        fp[method] = dict(iterations=its, forward_s=t1 - t0,
+                          backward_s=t2 - t1, residual=rn, grad=float(th.grad),
+                          launches=launches, plan_stats=stats)
+        say(f"  backward Euler (Δt {dt:g}) by {method}: {its} iterations, "
+            f"‖G(u)‖ {rn:.3e}, solve {t1 - t0:.3f} s, backward "
+            f"{t2 - t1:.3f} s, θ-gradient {float(th.grad):.10e}; "
+            f"PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}")
+        check(rn <= 10 * NL_TOL, f"backward Euler by {method}: ‖G(u)‖ "
+              f"{rn:.2e} <= 10·{NL_TOL:g}")
+        check(stats["analyze"] == 0 and stats["jac_color"] == 0,
+              f"backward Euler by {method}: the cached plan, no coloring")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    for method in ("picard", "anderson"):
+        err = abs(fp[method]["grad"] - fp["newton"]["grad"]) / abs(
+            fp["newton"]["grad"])
+        fp[method]["grad_rel_diff_vs_newton"] = err
+        say(f"  {method}: θ-gradient vs Newton's on G rel diff {err:.3e}")
+        check(err <= TOL_GRAD, f"backward Euler: {method}'s θ-gradient "
+              f"matches Newton's ({err:.2e} <= {TOL_GRAD:g})")
+    out["nonlinear_path"]["backward_euler"] = dict(dt=dt, **fp)
+    del A, f, u_star
+    return total
+
+
+def newton_direct_path(dev, ng, seed, out):
+    """Phase 11e: SparseNewton with direct inner solves (supernodal LDLᵀ
+    on the panel kernels) on ``poisson2d(ng)``."""
+    from repro_torch.core.dispatch import SolverConfig
+
+    A, f, F, jac = _nl_problem(dev, ng, seed)
+    _, res, launches = _newton_case(dev, f"poisson2d({ng}) direct", A, F, jac,
+                                    SolverConfig(backend="direct"),
+                                    "factorize")
+    for k in ("bell_spmv", "panel_factor", "schur_update", "sn_sweep"):
+        check(launches[k] > 0, f"Newton direct path launched {k} "
+              f"({launches[k]} times)")
+    out["newton_direct_path"] = dict(ng=ng, **res)
+    del A, f
+    return launches
+
+
+def _aniso_eigenvalues(ng, cy, k):
+    """The k smallest eigenvalues of the anisotropic Poisson operator in
+    closed form, (2 − 2cos(iπ/(ng+1))) + cy (2 − 2cos(jπ/(ng+1)))."""
+    s = 2 - 2 * np.cos(np.arange(1, k + 2) * np.pi / (ng + 1))
+    return np.sort((s[:, None] + cy * s[None, :]).ravel())[:k]
+
+
+def eigen_path(dev, ng, seed, out):
+    """Phase 11f: LOBPCG + AMG ``eigsh`` of the anisotropic Poisson operator
+    at full width, with eigenvalue and eigenvector gradients."""
+    import torch
+    from repro_torch.core import dispatch as tdisp
+    from repro_torch.core import solvers as tsolvers
+    from repro_torch.core.sparse import SparseTensor, coo_matvec
+    from repro_torch.data.poisson import poisson2d_arrays
+
+    n, k = ng * ng, EIG_K
+    val, row, col = poisson2d_arrays(ng)
+    val = val.copy()
+    val[np.abs(row - col) == 1] *= EIG_CY
+    val[row == col] = 2.0 + 2.0 * EIG_CY
+    A = SparseTensor(val, row, col, (n, n), build_kernel_layout=True,
+                     device=dev)
+    lam = _aniso_eigenvalues(ng, EIG_CY, k)
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0.5, 1.5, k)
+    # pairs closer than 1e-4 (relative) form one cluster: at ng = 1024 the
+    # (1,3) and (2,2) modes lie 2.9e-6 apart, and LOBPCG cannot fix the
+    # eigenvectors inside a cluster, so an eigenvalue of it alone has no
+    # determined gradient; the loss weights a cluster by its mean, a
+    # function of the cluster's invariant subspace
+    start = 0
+    for i in range(1, k + 1):
+        if i == k or (lam[i] - lam[i - 1]) / lam[i] > 1e-4:
+            c[start:i] = c[start:i].mean()
+            start = i
+    a = torch.tensor(rng.normal(size=n), device=dev)
+    ct = torch.tensor(c, device=dev)
+    kw = dict(k=k, method="lobpcg", precond="amg", tol=EIG_TOL,
+              maxiter=EIG_MAXITER)
+
+    def run(leaf):
+        w, V = A.with_values(leaf).eigsh(**kw)
+        return w, V, (ct * w).sum() + (V[1] @ a) ** 2
+
+    leaf = A.val.clone().requires_grad_(True)
+    _sync(dev)
+    _peak_reset(dev)
+    _counts_reset()
+    with _timed(tsolvers, "lobpcg", sync=dev) as lob, \
+            _timed(tdisp, "get_plan") as ana:
+        t0 = time.perf_counter()
+        w, V, loss = run(leaf)
+        _sync(dev)
+        t1 = time.perf_counter()
+        loss.backward()
+        _sync(dev)
+        t2 = time.perf_counter()
+    launches, stats = _counts()
+    peak = _peak(dev)
+    iters = int(lob.result[2].iters)
+    lob_ms = 1e3 * lob.seconds / max(iters, 1)
+    with torch.no_grad():
+        wn = w.detach().cpu().numpy()
+        lam_err = float(np.max(np.abs(wn - lam) / lam))
+        resid = max(float(torch.linalg.norm(
+            coo_matvec(A.val, A.row, A.col, V[i], n) - w[i] * V[i]))
+            for i in range(k))
+    g = leaf.grad.detach().clone()
+    leaf2 = A.val.clone().requires_grad_(True)
+    _counts_reset()
+    tp = time.perf_counter()
+    with plain_kernels():
+        run(leaf2)[2].backward()
+    _sync(dev)
+    plain_s = time.perf_counter() - tp
+    plain_launches = sum(_counts()[0].values())
+    gerr = _grad_rel(g, leaf2.grad)
+    say(f"  eigsh aniso poisson2d({ng}) (cy {EIG_CY}, n={n}), k={k}, LOBPCG "
+        f"+ AMG, tol {EIG_TOL:g}: {iters} iterations, LOBPCG {lob.seconds:.3f} "
+        f"s = {lob_ms:.2f} ms an iteration; forward {t1 - t0:.3f} s with "
+        f"the plan's analyze ({ana.seconds:.2f} s) and AMG setup; backward "
+        f"(Hellmann–Feynman + {k} deflated CG) {t2 - t1:.3f} s; peak "
+        f"{peak:.3f} GB")
+    say(f"  eigenvalues {wn.tolist()} vs closed form: max rel err "
+        f"{lam_err:.3e}; max ‖Av − λv‖ {resid:.3e}; loss weights {c.tolist()}")
+    say(f"  plain run {plain_s:.2f} s, val-gradient max rel diff {gerr:.3e}")
+    say(f"  launches {json.dumps({k_: v for k_, v in launches.items() if v})}")
+    say(f"  PLAN_STATS {json.dumps({k_: v for k_, v in stats.items() if v})}")
+    check(lam_err <= TOL_EIG, f"eigen path: eigenvalues vs closed form "
+          f"{lam_err:.2e} <= {TOL_EIG:g}")
+    check(resid <= 10 * EIG_TOL, f"eigen path: residuals {resid:.2e} <= "
+          f"10·tol")
+    check(stats["analyze"] == 1 and stats["galerkin"] == 1,
+          "eigen path: analyze 1, galerkin 1 across the forward and the "
+          "backward (the deflated CG reuses the forward's AMG setup)")
+    check(plain_launches == 0, "eigen path: the plain run launched no kernel")
+    check(bool(torch.isfinite(g).all()) and gerr <= TOL_EIG_PLAIN,
+          f"eigen path: val.grad matches the plain run ({gerr:.2e} <= "
+          f"{TOL_EIG_PLAIN:g})")
+    for k_ in ("bell_spmv", "panel_factor", "sn_sweep"):
+        check(launches[k_] > 0, f"eigen path launched {k_} "
+              f"({launches[k_]} times)")
+    out["eigen_path"] = dict(ng=ng, n=n, k=k, cy=EIG_CY, tol=EIG_TOL,
+                             iterations=iters, forward_s=t1 - t0,
+                             analyze_s=ana.seconds, lobpcg_s=lob.seconds,
+                             ms_per_iteration=lob_ms,
+                             backward_s=t2 - t1, eigenvalues=wn.tolist(),
+                             closed_form=lam.tolist(), eig_rel_err=lam_err,
+                             residual=resid, loss_weights=c.tolist(),
+                             grad_rel_diff=gerr, plain_run_s=plain_s,
+                             peak_gb=peak, launches=launches,
+                             plan_stats=stats)
+    del A, w, V, leaf, leaf2
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2710,7 +3123,10 @@ def main():
                            ng_transpose=NG_TRANSPOSE, tol=TOL,
                            tol_transpose=TOL_TRANSPOSE, ng_direct=NG_DIRECT,
                            ng_lu=NG_LU, saddle=SADDLE, ng_ilu=NG_ILU,
-                           n_graph=N_GRAPH,
+                           n_graph=N_GRAPH, nl_theta=NL_THETA,
+                           nl_tol=NL_TOL, nl_inner=NL_INNER, nl_dt=NL_DT,
+                           ng_eig=NG_EIG, eig_k=EIG_K, eig_cy=EIG_CY,
+                           eig_tol=EIG_TOL,
                            maxiter=MAXITER, seed=SEED,
                            flash_shapes=FLASH_SHAPES, flash_gqa=FLASH_GQA,
                            lm_arch=LM_ARCH,
@@ -2752,7 +3168,11 @@ def main():
             ("AMG path", amg_path, (dev, NG_BELL, N_GRAPH, TOL, MAXITER, out)),
             ("GMRES / Chebyshev path", krylov_path,
              (dev, NG_TRANSPOSE, NG_BELL, TOL_TRANSPOSE, TOL, MAXITER,
-              out))):
+              out)),
+            ("nonlinear path", nonlinear_path, (dev, NG_BELL, SEED, out)),
+            ("Newton direct path", newton_direct_path,
+             (dev, NG_DIRECT, SEED, out)),
+            ("eigen path", eigen_path, (dev, NG_EIG, SEED, out))):
         counts = phase(name, fn, *a)
         torch.cuda.empty_cache()
         for k, v in counts.items():

@@ -1,5 +1,6 @@
-"""O(1)-graph adjoints of the linear solve and the log-determinant (port
-of ``repro.core.adjoint``).
+"""O(1)-graph adjoints of the linear solve, the log-determinant, the
+nonlinear solve and the symmetric eigensolve (port of
+``repro.core.adjoint``).
 
 The solve is ONE ``torch.autograd.Function`` — torch-sla's own form — so the
 autograd graph gains a single node whatever the number of Krylov
@@ -11,6 +12,10 @@ Aᵀλ = g on ``plan.transpose()`` and returns
 ``sparse_slogdet`` is one Function as well: (sign, log|det A|) from the
 direct backend's cached factors, with ∂ log|det A| / ∂A_ij = (A⁻ᵀ)_ij on
 the pattern from transposed solves on the same factors.
+
+``nonlinear_solve`` (one node from θ to u: Jᵀλ = g, ∂L/∂θ = −λᵀ∂F/∂θ) and
+``sparse_eigsh`` (Hellmann–Feynman eigenvalue term plus one deflated CG
+per pair for the eigenvectors) follow the same pattern.
 """
 from __future__ import annotations
 
@@ -20,10 +25,12 @@ import torch
 
 from . import dispatch as _dispatch
 from . import options as _options
+from . import solvers as _solvers
 from .dispatch import SolverConfig
 from .sparse import SparseTensor
 
-__all__ = ["sparse_solve", "sparse_solve_with_info", "sparse_slogdet"]
+__all__ = ["sparse_solve", "sparse_solve_with_info", "sparse_slogdet",
+           "nonlinear_solve", "sparse_eigsh"]
 
 #: right-hand sides per transposed multi-RHS solve in the slogdet backward
 SLOGDET_CHUNK = 256
@@ -181,3 +188,243 @@ def sparse_slogdet(A: SparseTensor):
     never an n×n matrix.  Batched values, oversize or diagonal-deficient
     patterns take the dense fallback."""
     return _SparseSlogdet.apply(A.val, _slogdet_direct_plan(A), A)
+
+
+# ---------------------------------------------------------------------------
+# nonlinear solve (paper §3.2.2 "Nonlinear systems")
+# ---------------------------------------------------------------------------
+
+class _NonlinearSolve(torch.autograd.Function):
+    """u(θ) with F(u, θ) = 0 as ONE autograd node.  ``forward_fn(theta)``
+    returns (u, vals) — ``vals`` the SparseNewton values tensor whose setup
+    the plan memoized (None on the matrix-free route); ``adjoint_fn(u, vals,
+    theta, g)`` returns λ from Jᵀλ = g."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, adjoint_fn, residual, *theta):
+        u, vals = forward_fn(theta)
+        # the values object itself, not a copy or a detach(): the backward's
+        # setup memo keys on its identity (a miss is a second setup)
+        ctx.vals, ctx.adjoint_fn, ctx.residual = vals, adjoint_fn, residual
+        ctx.save_for_backward(u, *theta)
+        return u
+
+    @staticmethod
+    def backward(ctx, g):
+        u, *theta = ctx.saved_tensors
+        lam = ctx.adjoint_fn(u, ctx.vals, theta, g.contiguous())
+        # ∂L/∂θ = −λᵀ ∂F/∂θ
+        _, vjp_th = torch.func.vjp(lambda *th: ctx.residual(u, *th), *theta)
+        return (None, None, None) + tuple(-t for t in vjp_th(lam))
+
+
+def nonlinear_solve(residual, x0: torch.Tensor, *theta,
+                    method: str = "newton", tol: float = 1e-8,
+                    maxiter: int = 50, inner_tol: float = 1e-10,
+                    inner_maxiter: int = 1000, damping: float = 1.0,
+                    anderson_m: int = 5, linear_solver=None,
+                    jac_pattern=None, assemble_jacobian=None,
+                    symmetric: Optional[bool] = None):
+    """Solve F(u, θ) = 0 for u with O(1)-graph adjoint gradients w.r.t. θ.
+
+    ``residual(u, *theta)`` is a torch function of tensors that composes
+    with ``torch.func`` (``jvp``, ``vmap``, ``vjp``); ``theta`` are tensors.
+    The forward may take many Newton / Picard / Anderson iterations (under
+    ``no_grad``); the backward is ONE adjoint solve Jᵀλ = g plus one VJP
+    into θ.
+
+    Default (matrix-free) route: Newton's inner solves and the adjoint run
+    BiCGStab on ``torch.func.jvp`` / ``vjp`` of the residual.  SparseNewton
+    route: pass ``jac_pattern=`` (a SparseTensor or ``(row, col[, n])``)
+    and optionally ``linear_solver=`` (a ``SolverConfig``: ``backend=
+    "direct"``, ``precond="amg"``, ...); the pattern is colored once, one
+    analyzed plan serves every step, and the backward solves Jᵀλ = g
+    through ``plan.transpose()`` on the converged step's setup (see
+    :class:`repro_torch.core.nonlinear.SparseNewton`).
+    ``assemble_jacobian(u, *theta) -> values`` replaces the colored
+    assembly; ``symmetric=`` overrides the pattern's symmetry detection.
+    For ``method="picard"`` / ``"anderson"`` (iterating u ← u − F) the
+    backward still runs through the plan: one assembly at the converged
+    point."""
+    theta = tuple(theta)
+    if method not in ("newton", "picard", "anderson"):
+        raise ValueError(f"unknown nonlinear method {method!r}")
+    sn = None
+    if jac_pattern is not None:
+        from .nonlinear import SparseNewton
+        cfg = linear_solver if linear_solver is not None else \
+            SolverConfig(tol=inner_tol, maxiter=inner_maxiter)
+        sn = SparseNewton(residual, jac_pattern, linear_solver=cfg,
+                          assemble_jacobian=assemble_jacobian,
+                          symmetric=symmetric, device=x0.device)
+    elif linear_solver is not None:
+        raise ValueError("linear_solver= requires jac_pattern= declaring "
+                         "the Jacobian sparsity")
+
+    def forward_fn(th):
+        def F(u):
+            return residual(u, *th)
+        vals = None
+        if method == "newton":
+            if sn is not None:
+                u, _, vals = sn._solve_full(x0, *th, tol=tol,
+                                            maxiter=maxiter, damping=damping)
+            else:
+                u, _ = _solvers.newton_solve(F, x0, tol=tol, maxiter=maxiter,
+                                             damping=damping,
+                                             inner_tol=inner_tol,
+                                             inner_maxiter=inner_maxiter)
+        elif method == "picard":
+            u, _ = _solvers.picard_solve(lambda u: u - F(u), x0, tol=tol,
+                                         maxiter=maxiter)
+        else:
+            u, _ = _solvers.anderson_solve(lambda u: u - F(u), x0, tol=tol,
+                                           maxiter=maxiter, m=anderson_m)
+        if sn is not None and vals is None:
+            # fixed-point forward, plan-engine backward: one assembly at u*
+            vals = sn.assemble(u, *th)
+        # a start that is already a root comes back as x0 itself: the node's
+        # output must be a tensor of its own, not the caller's
+        return (u.clone() if u is x0 else u), vals
+
+    def adjoint_fn(u, vals, th, g):
+        if vals is not None:
+            # Jᵀλ = g on the transpose view of the step plan — the converged
+            # setup reused, zero refactorization (Eq. 2)
+            lam, _ = sn.solve_adjoint(vals, g)
+            return lam
+        # matrix-free via vjp (exact only once F(u*, θ) ≈ 0)
+        _, vjp_u = torch.func.vjp(lambda uu: residual(uu, *th), u)
+        lam, _ = _solvers.bicgstab(lambda v: vjp_u(v)[0], g, tol=inner_tol,
+                                   maxiter=inner_maxiter)
+        return lam
+
+    return _NonlinearSolve.apply(forward_fn, adjoint_fn, residual, *theta)
+
+
+# ---------------------------------------------------------------------------
+# symmetric eigensolve (paper §3.2.2 "Eigenvalue problems")
+# ---------------------------------------------------------------------------
+
+class _SparseEigsh(torch.autograd.Function):
+    """(w, V) of ``A.with_values(val)`` as one autograd node; ``impl(val)``
+    runs the eigensolver, ``make_M(val, mv)`` builds the plan
+    preconditioner (None: unpreconditioned)."""
+
+    @staticmethod
+    def forward(ctx, val, A, impl, make_M, opts):
+        w, V = impl(val)
+        # the values object itself: the backward's preconditioner setup is
+        # a memo hit on it
+        ctx.val, ctx.A, ctx.make_M, ctx.opts = val, A, make_M, opts
+        ctx.save_for_backward(w, V)
+        return w, V
+
+    @staticmethod
+    def backward(ctx, gw, gV):
+        w, V = ctx.saved_tensors
+        val, A, o = ctx.val, ctx.A, ctx.opts
+        row, col = A.row, A.col
+        # Hellmann–Feynman eigenvalue term: Σ_k gw_k v_ki v_kj on the pattern
+        gval = torch.einsum("k,ke,ke->e", gw, V[:, row], V[:, col])
+        if not o["compute_vector_grads"]:
+            return gval, None, None, None, None
+        # eigenvector term: y v_kᵀ with y = (λ_k I − A)⁺ (I − v_k v_kᵀ) g.
+        # The other COMPUTED pairs contribute analytically (gᵀv_j/(λ_k−λ_j));
+        # the uncomputed complement takes one deflated CG solve.
+        mv = _dispatch.make_matvec(A.with_values(val))
+        # the forward's preconditioner (setup-memo hit on ``val``); none for
+        # largest=True, where the deflated operator is negative
+        Mp = ctx.make_M(val, mv) if (ctx.make_M is not None
+                                     and not o["largest"]) else None
+        k = w.shape[0]
+        ks = torch.arange(k, device=w.device)
+
+        def proj(z):
+            return z - V.T @ (V @ z)
+
+        for i in range(k):
+            lam_i, v_i, gv = w[i], V[i], gV[i]
+            # analytic part over computed pairs j ≠ i (simple eigenvalues
+            # assumed — paper §5)
+            dif = lam_i - w
+            coeff = torch.where(
+                ks == i, torch.zeros_like(w),
+                (V @ gv) / torch.where(dif.abs() < 1e-12,
+                                       torch.full_like(dif, float("inf")),
+                                       dif))
+            y_comp = coeff @ V
+
+            def op(z, lam_i=lam_i):
+                pz = proj(z)
+                return proj(mv(pz) - lam_i * pz)
+
+            Mdef = _solvers._identity if Mp is None else \
+                (lambda z: proj(Mp(proj(z))))
+            y_rest, _ = _solvers.cg(op, -proj(gv), M=Mdef, tol=o["tol"],
+                                    maxiter=o["maxiter"] * 4)
+            y = y_comp + proj(y_rest)
+            # the solver sees sym(A): differentiate the symmetrized map
+            gval = gval + 0.5 * (y[row] * v_i[col] + v_i[row] * y[col])
+        return gval, None, None, None, None
+
+
+def sparse_eigsh(A: SparseTensor, k: int = 6, *, method: str = "lobpcg",
+                 tol: float = 1e-6, maxiter: int = 200,
+                 compute_vector_grads: bool = True, largest: bool = False,
+                 precond: Optional[str] = None, seed: int = 0):
+    """k extremal eigenpairs of symmetric A with Hellmann–Feynman adjoint.
+
+    Returns ``(w (k,), V (k, n))``.  Eigenvalue cotangents cost one O(nnz)
+    outer product; eigenvector cotangents one deflated CG solve per pair.
+    Simple (non-degenerate) eigenvalues assumed — paper §5.  LOBPCG's start
+    block and Lanczos' start vector are :func:`~repro_torch.core.solvers.
+    seeded_normal` draws (a CPU generator seeded with ``seed``).
+
+    ``precond`` (``"amg"``, ``"jacobi"``, ...; LOBPCG only) routes the
+    residual preconditioner through the plan engine: the pattern's cached
+    plan builds the hierarchy once, the values setup goes through the
+    plan's memo (shared with linear solves on the same tensor), and the
+    backward's deflated CG reuses the same apply (``largest=False`` only).
+    """
+    n = A.shape[0]
+    if A.batch_shape:
+        raise NotImplementedError(
+            "batched values come with slice 5 of the PyTorch port (batching "
+            "and serving)")
+    if method not in ("lobpcg", "lanczos"):
+        raise ValueError(f"unknown eig method {method!r}")
+    pplan = None
+    if precond is not None:
+        if method != "lobpcg":
+            raise ValueError(f"precond= requires method='lobpcg', "
+                             f"got method={method!r}")
+        pcfg = SolverConfig(backend="jnp", method="cg", tol=tol,
+                            maxiter=maxiter, precond=precond)
+        pplan = _dispatch.get_plan(A, pcfg)
+
+    def make_M(val, mv):
+        """Single-vector preconditioner apply from the plan's memoized
+        values setup — LOBPCG applies it to each residual row."""
+        state = pplan.setup(pplan.matrix(val))
+        return pplan.artifacts["precond"].make_apply(state[1], mv)
+
+    def impl(val):
+        mv = _dispatch.make_matvec(A.with_values(val))
+        if method == "lobpcg":
+            X0 = _solvers.seeded_normal((k, n), val.dtype, val.device, seed)
+            M = make_M(val, mv) if pplan is not None else _solvers._identity
+            w, V, _ = _solvers.lobpcg(mv, X0, M=M, tol=tol, maxiter=maxiter,
+                                      largest=largest)
+            return w, V
+        mv2 = mv if not largest else (lambda v: -mv(v))
+        w, V = _solvers.eigsh_lanczos(mv2, n, k,
+                                      num_steps=min(max(4 * k, 32), n),
+                                      dtype=val.dtype, seed=seed,
+                                      device=val.device)
+        return (-w.flip(0), V.flip(0)) if largest else (w, V)
+
+    opts = dict(compute_vector_grads=compute_vector_grads, largest=largest,
+                tol=tol, maxiter=maxiter)
+    return _SparseEigsh.apply(A.val, A, impl,
+                              make_M if pplan is not None else None, opts)

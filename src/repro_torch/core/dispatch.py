@@ -275,6 +275,12 @@ def _kernel_fn(A, kernel: str) -> Callable:
     return lambda v, x: coo_matvec(v, row, col, x, n)
 
 
+def make_matvec(A: SparseTensor, backend: Optional[str] = None) -> Callable:
+    """Closure ``x ↦ A @ x`` through the selected kernel (unbatched)."""
+    fn = _kernel_fn(A, _select_kernel(A, backend))
+    return lambda x: fn(A.val, x)
+
+
 def matvec(A: SparseTensor, x, backend: Optional[str] = None):
     """A @ x (differentiable).  Batched values/rhs run through the COO
     product; batched kernel layouts come with slice 5."""

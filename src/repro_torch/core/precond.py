@@ -122,24 +122,15 @@ def chebyshev(matvec: Callable, lam_min: float, lam_max: float,
     return apply
 
 
-def _start_vector(n: int, dtype, device, seed: int) -> torch.Tensor:
-    """Lanczos start vector: standard normal from a CPU ``torch.Generator``
-    seeded with ``seed``, so the CPU and the card start alike.  (The
-    reference draws ``jax.random.normal(PRNGKey(seed))``, which torch cannot
-    reproduce; pass ``v0`` to :func:`estimate_spectrum` for that.)"""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    return torch.randn(n, generator=g, dtype=dtype).to(device)
-
-
 def estimate_spectrum(matvec: Callable, n: int, dtype=torch.float32,
                       steps: int = 16, seed: int = 0, *, v0=None,
                       device=None):
     """Lanczos-based extremal eigenvalue estimate for the Chebyshev bounds
     (once per setup, not per solve).  ``v0`` (tensor or numpy) replaces the
     seeded start vector.  Returns 0-dim tensors ``(λ_min, λ_max)``."""
-    from .solvers import lanczos
+    from .solvers import lanczos, seeded_normal
     if v0 is None:
-        v0 = _start_vector(n, dtype, device, seed)
+        v0 = seeded_normal((n,), dtype, device, seed)
     else:
         v0 = torch.as_tensor(np.array(v0) if isinstance(v0, np.ndarray)
                              else v0).to(device=device, dtype=dtype)

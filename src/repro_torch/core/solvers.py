@@ -1,4 +1,4 @@
-"""Krylov solvers (port of the linear part of ``repro.core.solvers``).
+"""Krylov, nonlinear and eigen solvers (port of ``repro.core.solvers``).
 
 Every solver is *matvec-parametric* — it takes a closure ``matvec(x) -> Ax``
 — so one loop serves the COO, block-ELL and stencil kernels.  Solves run
@@ -12,12 +12,17 @@ the fused kernels skip their writes and the plain loops keep their old state
 once the flag drops — and reads it on the host only every
 ``CHECK_EVERY["cuda"]`` iterations, so the card is not stalled by a sync per
 iteration.  Restarted GMRES reads it once per restart cycle: its inner
-Arnoldi steps and the Hessenberg least squares stay on the device.
+Arnoldi steps and the Hessenberg least squares stay on the device.  Newton
+reads it once per step and LOBPCG once per iteration (its small ``eigh``
+calls synchronize the host on CUDA anyway); Picard and Anderson gate their
+state like the Krylov loops.
 
 ``cg_scan`` is the deliberately naive fixed-k CG that autograd unrolls (the
 O(k)-graph baseline of the paper's Fig. 2); ``lanczos`` feeds the Chebyshev
-bounds; ``eigh_pinv_solve`` is the pseudo-inverse small solve of the block
-and Anderson solvers.
+bounds and ``eigsh_lanczos``; ``eigh_pinv_solve`` is the pseudo-inverse
+small solve of the block and Anderson solvers.  The Jacobians of
+``newton_solve`` come from ``torch.func`` (``jacfwd`` dense, ``jvp``
+matrix-free), so a residual must compose with it.
 """
 from __future__ import annotations
 
@@ -28,7 +33,9 @@ import torch
 __all__ = [
     "SolveInfo", "SolveResult", "as_solve_result", "cg", "cg_fused",
     "bicgstab", "bicgstab_fused", "gmres", "cg_scan", "eigh_pinv_solve",
-    "lanczos", "dense_solve", "CHECK_EVERY",
+    "lanczos", "dense_solve", "CHECK_EVERY", "seeded_normal",
+    "newton_solve", "picard_solve", "anderson_solve", "lobpcg_general",
+    "lobpcg", "eigsh_lanczos",
 ]
 
 #: iterations between host reads of the convergence flag, per device type
@@ -491,6 +498,253 @@ def lanczos(matvec: Callable, v0: torch.Tensor, num_steps: int):
         alphas[j] = alpha
         betas[j] = beta
     return alphas, betas, V
+
+
+def seeded_normal(shape, dtype, device, seed: int) -> torch.Tensor:
+    """Standard normal draw from a CPU ``torch.Generator`` seeded with
+    ``seed``, moved to ``device``, so the CPU and the card start alike.  (The
+    reference draws ``jax.random.normal(PRNGKey(seed))``, which torch cannot
+    reproduce.)"""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=dtype).to(device)
+
+
+# ---------------------------------------------------------------------------
+# nonlinear solvers (paper §3.2.2, "Nonlinear systems")
+# ---------------------------------------------------------------------------
+
+def newton_solve(residual: Callable, x0: torch.Tensor, *, tol: float = 1e-8,
+                 maxiter: int = 50, dense_jacobian_budget: int = 2048,
+                 inner_tol: float = 1e-8, inner_maxiter: int = 500,
+                 damping: float = 1.0, linear_solver=None, jac_pattern=None,
+                 assemble_jacobian: Optional[Callable] = None):
+    """Newton's method.  Small systems use a dense Jacobian
+    (``torch.func.jacfwd`` + ``torch.linalg.solve``); large systems use
+    matrix-free inner solves (BiCGStab on a ``torch.func.jvp`` matvec).
+
+    Declaring the Jacobian sparsity (``jac_pattern`` — a
+    :class:`~repro_torch.core.sparse.SparseTensor` or ``(row, col, n)``
+    triple) routes every inner solve through the plan engine instead: one
+    symbolic analysis serves the whole sweep, values refreshed per step
+    (:class:`repro_torch.core.nonlinear.SparseNewton`).  ``linear_solver``
+    is the inner :class:`~repro_torch.core.dispatch.SolverConfig`;
+    ``assemble_jacobian(u) -> values`` overrides the coloring-based jvp
+    assembly.  The host reads the residual norm once per Newton step."""
+    if linear_solver is not None or jac_pattern is not None:
+        if jac_pattern is None:
+            raise ValueError("linear_solver= needs jac_pattern= declaring "
+                             "the Jacobian sparsity")
+        from .nonlinear import SparseNewton   # lazy: avoids a module cycle
+        sn = SparseNewton(lambda u: residual(u), jac_pattern,
+                          linear_solver=linear_solver,
+                          assemble_jacobian=(
+                              None if assemble_jacobian is None
+                              else lambda u: assemble_jacobian(u)),
+                          device=x0.device)
+        return sn.solve(x0, tol=tol, maxiter=maxiter, damping=damping)
+    use_dense = x0.shape[-1] <= dense_jacobian_budget
+
+    def cond(st):
+        x, k, rn = st
+        return (k < maxiter) & (rn > tol)
+
+    def body(st, act):
+        # every=1: the body runs only while active
+        x, k, _ = st
+        F = residual(x)
+        if use_dense:
+            J = torch.func.jacfwd(residual)(x)
+            dx = torch.linalg.solve(J, -F)
+        else:
+            def mv(v):
+                return torch.func.jvp(residual, (x,), (v,))[1]
+            dx, _ = bicgstab(mv, -F, tol=inner_tol, maxiter=inner_maxiter)
+        x = x + damping * dx
+        return (x, k + 1, torch.linalg.norm(residual(x)))
+
+    k0 = torch.zeros((), dtype=torch.int64, device=x0.device)
+    x, k, rn = _loop(cond, body, (x0, k0, torch.linalg.norm(residual(x0))),
+                     every=1)
+    return x, SolveInfo(k, rn, rn <= tol)
+
+
+def picard_solve(fixed_point: Callable, x0: torch.Tensor, *,
+                 tol: float = 1e-8, maxiter: int = 500, relax: float = 1.0):
+    """Damped fixed-point (Picard) iteration x ← (1−ω)x + ω G(x)."""
+    def cond(st):
+        x, k, rn = st
+        return (k < maxiter) & (rn > tol)
+
+    def body(st, act):
+        x, k, rn = st
+        on = act != 0
+        x_new = (1 - relax) * x + relax * fixed_point(x)
+        rn_new = torch.linalg.norm(x_new - x)
+        return (_keep(on, x_new, x), k + act, _keep(on, rn_new, rn))
+
+    k0 = torch.zeros((), dtype=torch.int64, device=x0.device)
+    inf = torch.full((), float("inf"), dtype=x0.dtype, device=x0.device)
+    x, k, rn = _loop(cond, body, (x0, k0, inf))
+    return x, SolveInfo(k, rn, rn <= tol)
+
+
+def anderson_solve(fixed_point: Callable, x0: torch.Tensor, *, m: int = 5,
+                   tol: float = 1e-8, maxiter: int = 200, beta: float = 1.0,
+                   ridge: float = 1e-12, gram_solver: str = "pinv"):
+    """Anderson acceleration, type-II difference form (Walker & Ni 2011):
+
+        f_k = G(x_k) − x_k
+        γ   = argmin ‖f_k − ΔF γ‖²  (windowed least squares, window m)
+        x⁺  = x_k + β f_k − (ΔX + β ΔF) γ
+
+    Convergence is checked on ‖f_k‖.  The Gram matrix ΔF ΔFᵀ is
+    rank-deficient whenever the window is degenerate; ``gram_solver="pinv"``
+    (default) solves it through :func:`eigh_pinv_solve` (relative cutoff),
+    ``"ridge"`` through ``solve(G + ridge·I)``, the reference's A/B
+    baseline (it stagnates or overflows in f32)."""
+    if gram_solver not in ("pinv", "ridge"):
+        raise ValueError(f"gram_solver must be 'pinv'|'ridge', "
+                         f"got {gram_solver!r}")
+    n = x0.shape[-1]
+    Xh = x0.new_zeros((m + 1, n))     # iterate history (last row = newest)
+    Fh = x0.new_zeros((m + 1, n))     # residual history
+    slots = torch.arange(m, device=x0.device)
+
+    def cond(st):
+        x, Xh, Fh, k, rn = st
+        return (k < maxiter) & (rn > tol)
+
+    def body(st, act):
+        x, Xh, Fh, k, rn = st
+        on = act != 0
+        f = fixed_point(x) - x
+        rn_new = torch.linalg.norm(f)
+        Xn = torch.cat([Xh[1:], x[None]])
+        Fn = torch.cat([Fh[1:], f[None]])
+        dX = Xn[1:] - Xn[:-1]                    # (m, n) rows: Δx_i
+        dF = Fn[1:] - Fn[:-1]
+        valid = (slots >= (m - torch.clamp(k, max=m)))[:, None]
+        dXv = torch.where(valid, dX, torch.zeros_like(dX))
+        dFv = torch.where(valid, dF, torch.zeros_like(dF))
+        if gram_solver == "pinv":
+            gamma = eigh_pinv_solve(dFv @ dFv.T, dFv @ f, ridge=ridge)
+        else:
+            gram = dFv @ dFv.T + ridge * torch.eye(m, dtype=x.dtype,
+                                                   device=x.device)
+            gamma = torch.linalg.solve(gram, dFv @ f)
+        x_new = x + beta * f - gamma @ (dXv + beta * dFv)
+        return (_keep(on, x_new, x), _keep(on, Xn, Xh), _keep(on, Fn, Fh),
+                k + act, _keep(on, rn_new, rn))
+
+    k0 = torch.zeros((), dtype=torch.int64, device=x0.device)
+    inf = torch.full((), float("inf"), dtype=x0.dtype, device=x0.device)
+    x, _, _, k, rn = _loop(cond, body, (x0, Xh, Fh, k0, inf))
+    return x, SolveInfo(k, rn, rn <= tol)
+
+
+# ---------------------------------------------------------------------------
+# eigensolvers (paper §3.2.2 "Eigenvalue problems")
+# ---------------------------------------------------------------------------
+
+def _rows(fn: Callable, X: torch.Tensor) -> torch.Tensor:
+    """``fn`` applied to each row of X — the reference's ``jax.vmap`` over a
+    block, as one single-vector call (kernel launch) per row."""
+    return torch.stack([fn(x) for x in X])
+
+
+def lobpcg_general(matvec: Callable, X0: torch.Tensor, *,
+                   gram: Optional[Callable] = None, M: Callable = _identity,
+                   tol: float = 1e-6, maxiter: int = 200,
+                   largest: bool = False):
+    """Locally optimal block preconditioned CG (Knyazev 2001), block form.
+
+    ``X0``: (k, n) initial block (rows are vectors).  ``gram(S1, S2)``
+    computes S1 S2ᵀ.  The [X | W | P] subspace is orthonormalized by
+    pseudo-inverse whitening of its Gram matrix (rank-deficient directions
+    are masked and their Ritz values pushed to 1e30), and the conjugate
+    block P uses the classical coefficient split.  The small (3k × 3k)
+    ``torch.linalg.eigh`` calls synchronize the host on CUDA, so the loop
+    reads its convergence flag every iteration."""
+    k, n = X0.shape
+    sign = -1.0 if largest else 1.0
+
+    def mv(v):
+        return sign * matvec(v)
+
+    gram = gram or (lambda S1, S2: S1 @ S2.T)
+    BIG = 1e30
+
+    def rr(S):
+        """Rayleigh–Ritz on the (possibly rank-deficient) row space of S,
+        whitened in the eigenbasis of its Gram matrix."""
+        G = gram(S, S)
+        e, V = torch.linalg.eigh(G)
+        good = e > torch.clamp(e[-1], min=1e-30) * 1e-10
+        isq = torch.where(good, 1.0 / torch.sqrt(torch.clamp(e, min=1e-300)),
+                          torch.zeros_like(e))
+        W_ = isq[:, None] * V.T                    # Λ^{-1/2} Vᵀ
+        Q = W_ @ S                                  # QQᵀ = diag(good)
+        T = gram(Q, _rows(mv, Q))
+        T = 0.5 * (T + T.T)
+        T = T + torch.diag(torch.where(good, torch.zeros_like(e),
+                                       torch.full_like(e, BIG)))
+        w, U = torch.linalg.eigh(T)
+        C = V @ (isq[:, None] * U[:, :k])           # coefficients in S rows
+        return w[:k], C.T @ S, C
+
+    w0, X, _ = rr(X0)
+
+    def cond(st):
+        X, w, P, k_it, rn = st
+        return (k_it < maxiter) & (rn > tol)
+
+    def body(st, act):
+        # every=1: the body runs only while active
+        X, w, P, k_it, _ = st
+        R = _rows(mv, X) - w[:, None] * X
+        rn = torch.max(torch.sqrt(torch.diag(gram(R, R)))
+                       / (torch.abs(w) + 1.0))
+        Wp = _rows(M, R)
+        # explicit inter-block orthogonalization (conditioning of S)
+        Wp = Wp - gram(Wp, X) @ X
+        Wn = torch.sqrt(torch.clamp(torch.diag(gram(Wp, Wp)), min=1e-300))
+        Wp = Wp / Wn[:, None]
+        P = P - gram(P, X) @ X
+        Pn = torch.sqrt(torch.diag(gram(P, P)))
+        P = torch.where(Pn[:, None] > 1e-150,
+                        P / torch.clamp(Pn, min=1e-300)[:, None], P)
+        S = torch.cat([X, Wp, P])
+        w_new, X_new, C = rr(S)
+        P_new = C[k:].T @ S[k:]                    # non-X component
+        return (X_new, w_new, P_new, k_it + 1, rn)
+
+    k0 = torch.zeros((), dtype=torch.int64, device=X0.device)
+    inf = torch.full((), float("inf"), dtype=X0.dtype, device=X0.device)
+    X, w, _, k_it, rn = _loop(cond, body, (X, w0, torch.zeros_like(X), k0,
+                                           inf), every=1)
+    X = X / torch.sqrt(torch.diag(gram(X, X)))[:, None]
+    return sign * w, X, SolveInfo(k_it, rn, rn <= tol)
+
+
+def lobpcg(matvec: Callable, X0: torch.Tensor, *, M: Callable = _identity,
+           tol: float = 1e-6, maxiter: int = 200, largest: bool = False):
+    """Single-device LOBPCG — see :func:`lobpcg_general`."""
+    return lobpcg_general(matvec, X0, M=M, tol=tol, maxiter=maxiter,
+                          largest=largest)
+
+
+def eigsh_lanczos(matvec: Callable, n: int, k: int, *, num_steps: int = 64,
+                  dtype=torch.float32, seed: int = 0, device=None):
+    """k smallest eigenpairs via Lanczos + dense eigh of T, Ritz vectors.
+    The start vector is :func:`seeded_normal`."""
+    v0 = seeded_normal((n,), dtype, device, seed)
+    alphas, betas, V = lanczos(matvec, v0, num_steps)
+    T = (torch.diag(alphas) + torch.diag(betas[:-1], 1)
+         + torch.diag(betas[:-1], -1))
+    w, U = torch.linalg.eigh(T)
+    ritz = (V[:num_steps].T @ U[:, :k]).T      # (k, n)
+    ritz = ritz / torch.linalg.norm(ritz, dim=1, keepdim=True)
+    return w[:k], ritz
 
 
 def dense_solve(A_dense: torch.Tensor, b: torch.Tensor, method: str = "lu"):

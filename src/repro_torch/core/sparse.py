@@ -5,8 +5,9 @@ kernel layouts (block-ELL with its sliced-ELL form for the SpMV kernel,
 5-point stencil metadata) are attached at construction time when asked for.
 The numpy symbolic helpers
 (:func:`build_bell`, :func:`detect_properties`, :func:`has_full_diagonal`,
-and the algebraic-multigrid pattern passes :func:`aggregate_pattern`,
-:func:`spgemm_program`, :func:`tentative_coarse_pattern`) are kept as copies
+the algebraic-multigrid pattern passes :func:`aggregate_pattern`,
+:func:`spgemm_program`, :func:`tentative_coarse_pattern`, and the Jacobian
+coloring :func:`color_pattern`) are kept as copies
 of the reference's so analyze artifacts compare array for array.  Leading batch dimensions on ``val`` are accepted by the COO products;
 batched *solves* come with a later slice.
 """
@@ -36,6 +37,7 @@ __all__ = [
     "aggregate_pattern",
     "spgemm_program",
     "tentative_coarse_pattern",
+    "color_pattern",
 ]
 
 
@@ -53,11 +55,14 @@ def has_full_diagonal(row, col, n: int) -> bool:
 def coo_matvec(val: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
                x: torch.Tensor, n_rows: int) -> torch.Tensor:
     """y = A @ x for COO A, as one ``index_add_`` segment sum.  Leading batch
-    dims on ``val``/``x`` broadcast.  On CUDA ``index_add_`` accumulates with
-    atomics, so the summation order (and the last bits) can vary per run."""
+    dims on ``val``/``x`` broadcast.  The output comes from
+    ``prod.new_zeros``, which ``torch.func`` wraps like ``prod`` (batched
+    under ``vmap``), so ``vmap``, ``jvp`` and ``vjp`` pass through the
+    in-place sum, and no copy is made.  On CUDA ``index_add_`` accumulates
+    with atomics, so the summation order (and the last bits) can vary per
+    run."""
     prod = val * x[..., col]
-    y = torch.zeros(prod.shape[:-1] + (n_rows,), dtype=prod.dtype,
-                    device=prod.device)
+    y = prod.new_zeros(prod.shape[:-1] + (n_rows,))
     return y.index_add_(-1, row, prod)
 
 
@@ -78,6 +83,47 @@ def coo_diagonal(val, row, col, n):
     mask = row == col
     d = torch.zeros(val.shape[:-1] + (n,), dtype=val.dtype, device=val.device)
     return d.index_add_(-1, row, torch.where(mask, val, torch.zeros_like(val)))
+
+
+def color_pattern(row, col, n_cols: int):
+    """Greedy column coloring of a Jacobian pattern (Curtis–Powell–Reid) —
+    a copy of the reference's numpy pass, array-equal to it.
+
+    Two columns get different colors whenever they share a structurally
+    nonzero row, so ONE jvp probe per color recovers every pattern entry:
+    ``J[r, c] == (J @ p_{color[c]})[r]``.  Columns are visited
+    largest-degree first (LF order).  Run once per pattern by
+    :class:`repro_torch.core.nonlinear.SparseNewton`.  Returns
+    ``(color, n_colors)`` with ``color[j] in [0, n_colors)``."""
+    r = to_numpy(row).astype(np.int64)
+    c = to_numpy(col).astype(np.int64)
+    if r.size == 0:
+        return np.zeros(n_cols, np.int64), 1 if n_cols else 0
+    n_rows = int(r.max()) + 1
+    orow = np.argsort(r, kind="stable")
+    cols_sorted = c[orow]
+    rptr = np.searchsorted(r[orow], np.arange(n_rows + 1))
+    row_cols = np.split(cols_sorted, rptr[1:-1])
+    ocol = np.argsort(c, kind="stable")
+    rows_sorted = r[ocol]
+    cptr = np.searchsorted(c[ocol], np.arange(n_cols + 1))
+
+    color = np.full(n_cols, -1, np.int64)
+    n_colors = 1
+    deg = cptr[1:] - cptr[:-1]
+    for j in np.argsort(-deg, kind="stable"):
+        rows_j = rows_sorted[cptr[j]:cptr[j + 1]]
+        if rows_j.size == 0:
+            color[j] = 0          # structurally empty column: any color
+            continue
+        nb = np.concatenate([row_cols[i] for i in rows_j])
+        used = np.zeros(n_colors + 1, bool)
+        seen = color[nb]
+        used[seen[seen >= 0]] = True
+        free = int(np.flatnonzero(~used)[0])
+        color[j] = free
+        n_colors = max(n_colors, free + 1)
+    return color, int(n_colors)
 
 
 # ---------------------------------------------------------------------------
@@ -526,6 +572,20 @@ class SparseTensor:
                                    tol=tol, atol=atol, maxiter=maxiter,
                                    precond=precond)
         return adjoint.sparse_solve(cfg, self, b, x0)
+
+    def eigsh(self, k: int = 6, *, method: str = "lobpcg", tol: float = 1e-6,
+              maxiter: int = 200, compute_vector_grads: bool = True,
+              largest: bool = False, precond: Optional[str] = None,
+              seed: int = 0):
+        """k extremal eigenpairs ``(w (k,), V (k, n))`` with adjoint
+        gradients in ``val`` (see :func:`repro_torch.core.adjoint.
+        sparse_eigsh`)."""
+        from . import adjoint
+        return adjoint.sparse_eigsh(self, k, method=method, tol=tol,
+                                    maxiter=maxiter,
+                                    compute_vector_grads=compute_vector_grads,
+                                    largest=largest, precond=precond,
+                                    seed=seed)
 
     def slogdet(self):
         """(sign, log|det|): sparse via the plan engine's cached LDLᵀ/LU

@@ -6,7 +6,10 @@ with the reference's backward formulas: the product is bilinear in
 (val, x), so ∂/∂x = Aᵀg — run through the SAME kernel, on the transposed
 stencil planes or on Aᵀ's sliced-ELL layout (``t_bell``) — and ∂/∂val is
 the pattern-restricted outer product g[row]·x[col].  The block-ELL product
-builds no dense tiles: values go straight into the sliced-ELL array.
+builds no dense tiles: values go straight into the sliced-ELL array.  Both
+compose with ``torch.func`` (``jvp``, ``vmap``, ``vjp``): their ``jvp`` and
+``vmap`` rules launch the same single-vector kernel, once per term and per
+batch instance.
 """
 from __future__ import annotations
 
@@ -55,13 +58,39 @@ def sell_assemble(sell: SellLayout, val: torch.Tensor) -> torch.Tensor:
     return flat.index_add_(0, safe, contrib)
 
 
+def _unbatch(t, dim, i):
+    """Instance ``i`` of a tensor batched along ``dim`` (None: unbatched)."""
+    return t if dim is None or t is None else t.select(dim, i)
+
+
+def _loop_vmap(fn, info, in_dims, *args):
+    """The ``vmap`` rule of a single-vector kernel: one call per batch
+    instance (no batched kernel layout), stacked along dim 0."""
+    outs = [fn(*(_unbatch(a, d, i) for a, d in zip(args, in_dims)))
+            for i in range(info.batch_size)]
+    return torch.stack(outs), 0
+
+
 class _BellMatvec(torch.autograd.Function):
+    """y = A(val)·x through the sliced-ELL kernel.  Composes with
+    ``torch.func``: the map is bilinear, so the ``jvp`` rule is
+    ẏ = A(val)·ẋ + A(val̇)·x (both terms on the same kernel), and the
+    ``vmap`` rule loops the single-vector kernel over the batch."""
+
     @staticmethod
-    def forward(ctx, val, x, bell, n, t_bell, packed):
+    def forward(val, x, bell, n, t_bell, packed):
         vals = sell_assemble(bell.sell, val) if packed is None else packed
-        ctx.bell, ctx.n, ctx.t_bell = bell, n, t_bell
-        ctx.save_for_backward(val, x)
         return bell_spmv(bell.sell, vals, x, n)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        val, x, bell, n, t_bell, packed = inputs
+        ctx.bell, ctx.n, ctx.t_bell, ctx.packed = bell, n, t_bell, packed
+        # an input without a tangent reaches ``jvp`` as None, not as zeros
+        # (a zero tangent would cost a launch)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(val, x)
+        ctx.save_for_forward(val, x)
 
     @staticmethod
     def backward(ctx, g):
@@ -92,6 +121,25 @@ class _BellMatvec(torch.autograd.Function):
             xp = F.pad(x, (0, meta.m_pad - x.shape[0]))
             gval = torch.where(keep, gp[row] * xp[col], torch.zeros_like(val))
         return gval, gx, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, val_t, x_t, *_):
+        val, x = ctx.saved_tensors
+        y_t = None
+        if x_t is not None:
+            y_t = _BellMatvec.apply(val, x_t, ctx.bell, ctx.n, ctx.t_bell,
+                                    ctx.packed)
+        if val_t is not None:
+            term = _BellMatvec.apply(val_t, x, ctx.bell, ctx.n, ctx.t_bell,
+                                     None)
+            y_t = term if y_t is None else y_t + term
+        return y_t
+
+    @staticmethod
+    def vmap(info, in_dims, val, x, bell, n, t_bell, packed):
+        return _loop_vmap(lambda v, xx, p: _BellMatvec.apply(
+            v, xx, bell, n, t_bell, p), info,
+            (in_dims[0], in_dims[1], in_dims[5]), val, x, packed)
 
 
 def bell_matvec(bell: BellLayout, val: torch.Tensor, x: torch.Tensor, n: int,
@@ -130,12 +178,21 @@ def stencil_transpose_planes(v5: torch.Tensor) -> torch.Tensor:
 
 
 class _Stencil5Matvec(torch.autograd.Function):
+    """y = A(val)·x on the stencil kernel, with the same ``torch.func``
+    rules as :class:`_BellMatvec`."""
+
     @staticmethod
-    def forward(ctx, val, x, meta):
-        ctx.meta = meta
-        ctx.save_for_backward(val, x)
+    def forward(val, x, meta):
         v5 = val.reshape(5, meta.nx, meta.ny)
         return stencil5(meta, v5, x.reshape(meta.nx, meta.ny)).reshape(-1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        val, x, meta = inputs
+        ctx.meta = meta
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(val, x)
+        ctx.save_for_forward(val, x)
 
     @staticmethod
     def backward(ctx, g):
@@ -157,6 +214,22 @@ class _Stencil5Matvec(torch.autograd.Function):
             gval = torch.stack([g2 * x2, g2 * xn, g2 * xs, g2 * xw,
                                 g2 * xe]).reshape(-1)
         return gval, gx, None
+
+    @staticmethod
+    def jvp(ctx, val_t, x_t, _):
+        val, x = ctx.saved_tensors
+        y_t = None
+        if x_t is not None:
+            y_t = _Stencil5Matvec.apply(val, x_t, ctx.meta)
+        if val_t is not None:
+            term = _Stencil5Matvec.apply(val_t, x, ctx.meta)
+            y_t = term if y_t is None else y_t + term
+        return y_t
+
+    @staticmethod
+    def vmap(info, in_dims, val, x, meta):
+        return _loop_vmap(lambda v, xx: _Stencil5Matvec.apply(v, xx, meta),
+                          info, in_dims[:2], val, x)
 
 
 def stencil5_matvec(meta: Stencil5Meta, val: torch.Tensor,

@@ -18,13 +18,19 @@ Chebyshev, geometric multigrid ``mg`` on stencil operators,
 smoothed-aggregation ``amg`` and ILU(0) preconditioners), the sparse-direct
 route
 (``direct``: supernodal LDLᵀ/LU, the auto choice for mid-size systems, with
-``SparseTensor.slogdet`` on the same factors) and the dense route; the rest
-of the reference's surface arrives with later slices.
+``SparseTensor.slogdet`` on the same factors), the dense route, and the
+nonlinear and eigen layer (``nonlinear_solve`` with Newton / Picard /
+Anderson and the ``SparseNewton`` plan-engine route, ``eigsh`` by LOBPCG or
+Lanczos, both with adjoint gradients); the rest of the reference's surface
+arrives with later slices.
 """
 from __future__ import annotations
 
+from .core.adjoint import nonlinear_solve
+from .core.adjoint import sparse_eigsh as eigsh
 from .core.dispatch import (PLAN_STATS, SolverConfig, SolverPlan, get_plan,
                             make_config, reset_plan_stats, solve_impl)
+from .core.nonlinear import SparseNewton
 from .core.options import Options
 from .core.options import current as get_options
 from .core.options import options, set_options
@@ -45,6 +51,9 @@ __all__ = [
     "get_options",
     "PLAN_STATS",
     "reset_plan_stats",
+    "SparseNewton",
+    "nonlinear_solve",
+    "eigsh",
 ]
 
 

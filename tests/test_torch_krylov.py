@@ -220,10 +220,11 @@ def test_symmetric_backward_reuses_iterative_setup():
 def _reference_start_vector(monkeypatch):
     """Make the port's Lanczos start vector the reference's
     ``jax.random.normal(PRNGKey(seed))`` (torch cannot draw it)."""
-    def start(n, dtype, device, seed):
-        v = jax.random.normal(jax.random.PRNGKey(seed), (n,), jnp.float64)
+    def start(shape, dtype, device, seed):
+        v = jax.random.normal(jax.random.PRNGKey(seed), tuple(shape),
+                              jnp.float64)
         return torch.tensor(np.asarray(v), dtype=dtype, device=device)
-    monkeypatch.setattr(tprec, "_start_vector", start)
+    monkeypatch.setattr(tsol, "seeded_normal", start)
 
 
 def test_estimate_spectrum_with_reference_start_vector():

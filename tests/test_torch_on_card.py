@@ -441,3 +441,113 @@ def test_cuda_gmres_iterations_match_cpu(cuda_device):
     assert res[0].reason == res[1].reason == "converged"
     assert int(res[0].iterations) == int(res[1].iterations)
     assert rel(res[0].x, res[1].x) <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# slice 4: the kernels under torch.func, SparseNewton's assembly, LOBPCG
+# ---------------------------------------------------------------------------
+
+def _func_rules(product, dev):
+    """(y, jvp tangent, vmap(jvp) over 3 probes, vjp in x and val) of one
+    kernel product on ``dev``, on fixed seeded inputs."""
+    if product == "bell":
+        n = m = 300
+        row, col, val, x = bell_case(n, m, 0.03, np.float64, 4)
+        bell = bell_to_device(build_bell(row, col, (n, m)), dev)
+
+        def f(v, xx):
+            return tops.bell_matvec(bell, v, xx, n)
+    else:
+        nx, ny = 37, 41
+        val, x = stencil_case(nx, ny, np.float64, 4)
+        meta = Stencil5Meta(nx=nx, ny=ny)
+
+        def f(v, xx):
+            return tops.stencil5_matvec(meta, v, xx)
+    rng = np.random.default_rng(9)
+    t = lambda a: torch.tensor(a, device=dev)
+    v, xx = t(val), t(x)
+    dv, dx = t(rng.normal(size=val.shape)), t(rng.normal(size=x.shape))
+    P = t(rng.normal(size=(3,) + x.shape))
+    y, yd = torch.func.jvp(f, (v, xx), (dv, dx))
+    Y = torch.func.vmap(lambda p: torch.func.jvp(
+        lambda z: f(v, z), (xx,), (p,))[1])(P)
+    _, pull = torch.func.vjp(f, v, xx)
+    gv, gx = pull(t(rng.normal(size=y.shape)))
+    return y, yd, Y, gv, gx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("product", ["bell", "stencil"])
+def test_cuda_kernel_func_rules_match_plain(cuda_device, product):
+    """``torch.func.jvp`` (both tangents), ``vmap`` over ``jvp`` and
+    ``vjp`` through the kernel wrappers on the card, against the same
+    rules on the plain versions (CPU)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    card = _func_rules(product, cuda_device)
+    torch.cuda.synchronize()
+    name = "bell_spmv" if product == "bell" else "stencil5"
+    # y, two jvp terms, y and three probes under vmap, y under vjp (the
+    # stencil's Aᵀg launches once more, on the transposed planes)
+    assert launch_counts()[name] == (8 if product == "bell" else 9)
+    for a, b in zip(card, _func_rules(product, torch.device("cpu"))):
+        assert rel(a, b) <= TOL[np.float64]
+
+
+def _newton_problem(dev, ng=24):
+    from repro_torch.core.sparse import SparseTensor
+    val, row, col = poisson2d_arrays(ng)
+    A = SparseTensor(val, row, col, (ng * ng, ng * ng),
+                     build_kernel_layout=True, device=dev)
+    f = torch.tensor(np.random.default_rng(2).normal(size=ng * ng),
+                     device=dev)
+
+    def F(u, th):
+        return A.matvec(u, backend="pallas") + th * u ** 3 - f
+    return A, F
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_newton_assembly_matches_cpu(cuda_device):
+    """One colored Jacobian assembly on the card (the probe sweep on
+    ``bell_spmv``: one launch for F and one per color) against the CPU
+    port's."""
+    from repro_torch.core.nonlinear import SparseNewton
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    u = np.random.default_rng(3).normal(size=24 * 24)
+    vals = []
+    for dev in (cuda_device, torch.device("cpu")):
+        A, F = _newton_problem(dev)
+        sn = SparseNewton(F, A)
+        reset_launch_counts()
+        vals.append(sn.assemble(torch.tensor(u, device=dev),
+                                torch.tensor(0.8, dtype=torch.float64,
+                                             device=dev)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert launch_counts()["bell_spmv"] == 1 + sn.n_colors
+    assert rel(vals[0], vals[1]) <= TOL[np.float64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", [None, "amg"])
+def test_cuda_lobpcg_matches_cpu(cuda_device, precond):
+    """LOBPCG ``eigsh`` on the card (block matvec on ``bell_spmv``) against
+    the CPU port from the same seeded start block: eigenvalues, and
+    eigenvectors up to sign."""
+    from repro_torch.core.sparse import SparseTensor
+    ng, cy = 16, 0.6
+    val, row, col = poisson2d_arrays(ng)
+    val = val.copy()
+    val[np.abs(row - col) == 1] *= cy
+    val[row == col] = 2.0 + 2.0 * cy
+    res = []
+    for dev in (cuda_device, torch.device("cpu")):
+        A = SparseTensor(val, row, col, (ng * ng, ng * ng),
+                         build_kernel_layout=True, device=dev)
+        res.append(A.eigsh(k=4, tol=1e-10, maxiter=500, precond=precond))
+    (w_c, V_c), (w, V) = res
+    assert rel(w_c, w) <= 1e-10
+    sign = torch.sign((V_c.cpu() * V).sum(1, keepdim=True))
+    assert rel(V_c.cpu() * sign, V) <= 1e-6
