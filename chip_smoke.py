@@ -123,7 +123,37 @@ What it does, in order:
     S 128; decode runs no kernel): f32 logits within 2e-4 of max |logits|,
     bf16 greedy tokens agreeing on ≥ 95% of the positions (the bf16
     forward on the tensor-core kernel, the f32 one on the SIMT kernel);
-15. on-card tests: ``python -m pytest --noconftest -p no:cacheprovider -q
+15. batched solves and the solve server (f64, numpy seed 0):
+    15a. the lane-batched kernels against their plain versions (written
+    lane by lane) and, lane by lane, against the single-vector kernels
+    bit for bit: ``bell_spmv_batched`` at ``poisson2d(1024)`` with B = 8
+    value stacks, ``bell_spmm`` there with k = 16 right-hand sides,
+    ``stencil5_batched`` at ng = 2048 with B = 4 operators, the eight step
+    bodies at (B = 8, n = 2²⁰) with per-lane scalars; their time, the plain
+    version's, the bound and the library call (``torch.sparse.mm`` of a
+    B-block block-diagonal CSR by the stacked x; of the CSR by an (n, k)
+    block for SpMM);
+    15b. batched-values CG + Jacobi through ``sla.solve`` at
+    ``poisson2d(1024)`` (``backend="pallas"``, B = 8 value scales in
+    [0.7, 1.4], tol 1e-8) and Σx² ``backward()`` to the (B, nnz) values,
+    held to 8 single solves of the same lanes: per-lane iteration counts
+    equal, solutions to 1e-10, values gradients to 1e-8, analyze 1 /
+    setup 1 / transpose_shared 1, the loop's kernel launches equal to the
+    slowest single solve's within 16; the same for batched BiCGStab on the
+    drift operator at ng = 256 (its adjoint on Aᵀ's layout) and batched CG
+    on stencil operators at ng = 512;
+    15c. multi-rhs: ``block_cg`` with k = 16 right-hand sides at
+    ``poisson2d(1024)`` + Jacobi (iterations ≤ the largest per-rhs CG
+    count, agreement within ‖A⁻¹‖ times the two residuals), CG +
+    Chebyshev on 4 right-hand sides (the lane-batched halfstep and
+    cheb_step), and a direct solve at ``poisson2d(316)`` with k = 16: one
+    factorization, one ``sn_sweep`` launch per bucket for all k columns,
+    against 16 single solves (1e-10) with its gradient (1e-8);
+    15d. ``serve()`` with the reference CLI's stream (256 requests, grids
+    256 and 257, max_batch 32, CG + Jacobi, tol 1e-8, ``pallas``), parity
+    checked inside: analyze == 2, all converged, occupancy 1.0; solves/s,
+    p50/p99 of both drivers and the speedup (recorded, not gated);
+16. on-card tests: ``python -m pytest --noconftest -p no:cacheprovider -q
     tests/test_torch_on_card.py`` (``PYTHONPATH=src``), every hand-written
     kernel against its plain version over the tests' shape sweeps; fails
     on any failure or skip, or on no pass;
@@ -173,6 +203,16 @@ TOL = 1e-8
 # run at ng=256, where TOL_GRAD has room.
 TOL_TRANSPOSE = 1e-10
 NG_DIRECT = 316                      # direct path: 99,856 unknowns
+BATCH_B = 8                          # 15a/15b: value stacks on one pattern
+SPMM_K = 16                          # 15a/15c: right-hand sides on one matrix
+STENCIL_B = 4                        # 15a/15b: stencil operators
+STEP_B, STEP_N = 8, 1 << 20          # 15a: step bodies, lanes x length
+NG_BATCH_STENCIL = 256               # 15b: batched stencil CG
+NG_SERVE = 256                       # 15d: grids 256 and 257
+SERVE_REQUESTS, SERVE_MAX_BATCH = 256, 32   # 15d: the reference CLI's stream
+TOL_BATCH = 1e-10                    # batched vs single solves, relative
+TOL_BATCH_GRAD = 1e-8                # their values gradients, relative
+TRACE_ITERS = 64                     # 15b: profiled iterations
 NG_LU = 128                          # non-symmetric LU path: 16,384
 SADDLE = (384, 128)                  # indefinite path: H 384², B 128×384
 NG_ILU = 100                         # ILU path: 10,000 unknowns
@@ -272,6 +312,12 @@ SOLVE_OTHER_OPS = 16                 # a direct solve's device ops besides
 for _f in ("flash_attention", "flash_attention_f32"):
     KERNEL_SOURCES[_f] = ("src/repro_torch/kernels/csrc/flash_attention.cu",
                           "src/repro/kernels/flash_attention.py:84")
+# the lane-batched entry points (the reference's jax.vmap of each kernel)
+for _f in ("bell_spmv_batched", "bell_spmm"):
+    KERNEL_SOURCES[_f] = KERNEL_SOURCES["bell_spmv"]
+KERNEL_SOURCES["stencil5_batched"] = KERNEL_SOURCES["stencil5"]
+for _f in FUSED:
+    KERNEL_SOURCES[_f + "_batched"] = KERNEL_SOURCES[_f]
 
 
 class CheckFailed(AssertionError):
@@ -1613,7 +1659,7 @@ def direct_path(dev, ng, seed, out, keep):
         grad_rel_diff=gerr, plan_nbytes=nbytes, peak_gb=peak,
         launches=launches, sweep_modes=modes, plan_stats=stats,
         plan_stats_after_with_values=stats2)
-    keep.update(art=art, val=A0.val)
+    keep.update(art=art, val=A0.val, A=A0)
     del A, A0, u, u2, u3, info, val, val2, plan, art
     torch.cuda.empty_cache()
     return launches
@@ -1830,12 +1876,15 @@ class plain_kernels:
         def st(meta, v5, x):
             return ref.stencil5_ref(v5, x)
 
+        def st_lanes(meta, v5, x):
+            return ref.stencil5_lanes_ref(v5, x)
+
         def spmv(sell, vals, x, n):
             return ref.sell_matvec_ref(sell.slice_ptr, sell.cols, vals, x, n)
 
-        def fused(name, vecs, scalars, out=None, active=None):
-            return solve_step._run_cpu(name, vecs, scalars, out, active,
-                                       solve_step.BODIES[name][3])
+        def spmv_lanes(sell, vals, x, n):
+            return ref.sell_matvec_lanes_ref(sell.slice_ptr, sell.cols, vals,
+                                             x, n)
 
         def pf(C, pidx, qidx, wvec, rvec, tau, bkm, *, pairs=False,
                guard=True, nbad=None, work=None):
@@ -1857,8 +1906,11 @@ class plain_kernels:
 
         self.saved = []
         for mod, name, fn in ((stencil5, "stencil5", st), (ops, "stencil5", st),
+                              (ops, "stencil5_batched", st_lanes),
                               (ops, "bell_spmv", spmv),
-                              (solve_step, "_run", fused),
+                              (ops, "bell_spmv_batched", spmv_lanes),
+                              (ops, "bell_spmm", spmv_lanes),
+                              (solve_step, "_run", solve_step._run_cpu),
                               (supernode, "panel_factor_inplace", pf),
                               (supernode, "schur_update_inplace", su),
                               (supernode, "sn_sweep_inplace", sw)):
@@ -2992,6 +3044,592 @@ def lm_path(dev, seed, out):
 # phase 15: the on-card tests
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 15: batched solves and the solve server (slice 5)
+# ---------------------------------------------------------------------------
+
+def block_diag_csr(row, col, vals, n, m):
+    """torch.sparse CSR of the block-diagonal matrix of B lanes (values
+    (B, nnz) on one COO pattern): the library yardstick that multiplies B
+    value arrays by B stacked right-hand sides in one call."""
+    import warnings
+    import torch
+    B = vals.shape[0]
+    off_r = (torch.arange(B, device=row.device) * n)[:, None]
+    off_c = (torch.arange(B, device=row.device) * m)[:, None]
+    idx = torch.stack([(row[None] + off_r).reshape(-1),
+                       (col[None] + off_c).reshape(-1)])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        coo = torch.sparse_coo_tensor(idx, vals.detach().reshape(-1),
+                                      (B * n, B * m),
+                                      check_invariants=False).coalesce()
+        return coo.to_sparse_csr()
+
+
+def _lanes_equal(got, singles):
+    """Every lane of ``got`` equals its single-vector result bit for bit."""
+    import torch
+    return all(torch.equal(got[b], s) for b, s in enumerate(singles))
+
+
+def batch_kernel_phase(dev, seed, out):
+    """15a: the lane-batched kernels against their plain versions and, lane
+    by lane, against the single-vector kernels (bit for bit), with their
+    time, bound and the library call computing the same function."""
+    import torch
+    from repro_torch.core.sparse import SparseTensor, bell_to_device, build_bell
+    from repro_torch.data.poisson import (poisson2d_arrays, vc_coefficients,
+                                          vc_pattern)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import solve_step as fk
+    from repro_torch.kernels.spmv_bell import (bell_spmm, bell_spmv,
+                                               bell_spmv_batched)
+    from repro_torch.kernels.stencil5 import (Stencil5Meta, stencil5,
+                                              stencil5_batched)
+
+    rng = np.random.default_rng(seed + 15)
+    res = {}
+
+    def record(name, got, want, scale, ms, plain, lib, nbytes, flops, shape,
+               bitwise):
+        e, ea = rel_err(got, want, scale)
+        b_ms, b_by = bound_ms(nbytes, flops, "float64")
+        say(f"  {name:26s} {shape:>34s} f64: {ms:.4f} ms (plain {plain:.4f} "
+            f"ms, bound {b_ms:.4f} ms by {b_by}, library "
+            f"{'-' if lib is None else '%.4f ms' % lib}); rel err {e:.2e}; "
+            f"lanes bit-equal to the single-vector kernel: {bitwise}")
+        check(e <= TOL_KERNEL["float64"], f"{name} matches its plain "
+              f"version ({e:.2e} <= {TOL_KERNEL['float64']:.0e})")
+        check(bitwise, f"{name}: every lane equals the single-vector kernel "
+              f"on that lane bit for bit")
+        res[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by, max_rel_err=e,
+                         max_abs_err=ea, bytes=nbytes, flops=flops,
+                         dtype="float64", shape=shape,
+                         wall_ms=None)
+
+    # -- block-ELL: B value stacks (and their own x), then SpMM with k rhs -
+    ngb = NG_BELL
+    val, row, col = poisson2d_arrays(ngb)
+    n = ngb * ngb
+    nnz = len(val)
+    bell = bell_to_device(build_bell(row, col, (n, n)), dev)
+    sell = bell.sell
+    vt = torch.tensor(val, device=dev)
+    B = BATCH_B
+    V = vt[None] * torch.tensor(rng.uniform(0.7, 1.4, (B, 1)), device=dev)
+    X = torch.tensor(rng.normal(size=(max(B, SPMM_K), n)), device=dev)
+    packed = ops.sell_assemble(sell, V)
+    Y = bell_spmv_batched(sell, packed, X[:B], n)
+    torch.cuda.synchronize()
+    bit = _lanes_equal(Y, [bell_spmv(sell, packed[b], X[b], n)
+                           for b in range(B)])
+    plain_f = lambda: ref.sell_matvec_lanes_ref(sell.slice_ptr, sell.cols,
+                                                packed, X[:B], n)
+    ms = cuda_ms(lambda: bell_spmv_batched(sell, packed, X[:B], n), 20)
+    plain = cuda_ms(plain_f, 3)
+    row_t = torch.tensor(row, device=dev)
+    col_t = torch.tensor(col, device=dev)
+    bd = block_diag_csr(row_t, col_t, V, n, n)
+    xf = X[:B].reshape(-1)
+    lib = cuda_ms(lambda: bd @ xf, 20)
+    del bd
+    # what the function must move: B value arrays, the pattern once, B x
+    # read and B y written (CSR pointers or the sliced slots, the smaller)
+    nbytes = min(B * nnz * 8 + nnz * 4 + (n + 1) * 4,
+                 B * sell.n_slots * 8 + sell.n_slots * 4
+                 + sell.slice_ptr.numel() * 8) + 2 * B * n * 8
+    record("bell_spmv_batched", [Y], [plain_f()],
+           [ref.sell_matvec_lanes_ref(sell.slice_ptr, sell.cols,
+                                      packed.abs(), X[:B].abs(), n)],
+           ms, plain, lib, nbytes, 2 * B * nnz,
+           f"poisson2d({ngb}) x B={B} values", bit)
+    del Y, packed, V
+    torch.cuda.empty_cache()
+
+    k = SPMM_K
+    p0 = ops.sell_assemble(sell, vt)
+    Xk = X[:k].contiguous()
+    Y = bell_spmm(sell, p0, Xk, n)
+    torch.cuda.synchronize()
+    bit = _lanes_equal(Y, [bell_spmv(sell, p0, Xk[j], n) for j in range(k)])
+    plain_f = lambda: ref.sell_matvec_lanes_ref(sell.slice_ptr, sell.cols,
+                                                p0, Xk, n)
+    ms = cuda_ms(lambda: bell_spmm(sell, p0, Xk, n), 20)
+    plain = cuda_ms(plain_f, 3)
+    A = SparseTensor(vt, row, col, (n, n), props={}, device=dev)
+    csr = csr_of(A)
+    Xt = Xk.T.contiguous()
+    lib = cuda_ms(lambda: torch.sparse.mm(csr, Xt), 20)
+    nbytes = min(nnz * 12 + (n + 1) * 4,
+                 sell.n_slots * 12 + sell.slice_ptr.numel() * 8) \
+        + 2 * k * n * 8
+    record("bell_spmm", [Y], [plain_f()], [ref.sell_matvec_lanes_ref(
+        sell.slice_ptr, sell.cols, p0.abs(), Xk.abs(), n)], ms, plain, lib,
+        nbytes, 2 * k * nnz, f"poisson2d({ngb}) x k={k} rhs", bit)
+    del Y, Xk, Xt, csr, A, X, bell, sell
+    torch.cuda.empty_cache()
+
+    # -- stencil5: B operators (scaled κ planes) times B right-hand sides --
+    ng = NG_STENCIL
+    Bs = STENCIL_B
+    kap = torch.tensor(smooth_kappa(ng, seed), device=dev)
+    v5 = vc_coefficients(kap).reshape(5, ng, ng)
+    V5 = v5[None] * torch.tensor(rng.uniform(0.7, 1.4, (Bs, 1, 1, 1)),
+                                 device=dev)
+    Xs = torch.tensor(rng.normal(size=(Bs, ng, ng)), device=dev)
+    meta = Stencil5Meta(nx=ng, ny=ng)
+    Y = stencil5_batched(meta, V5, Xs)
+    torch.cuda.synchronize()
+    bit = _lanes_equal(Y, [stencil5(meta, V5[b], Xs[b]) for b in range(Bs)])
+    plain_f = lambda: ref.stencil5_lanes_ref(V5, Xs)
+    ms = cuda_ms(lambda: stencil5_batched(meta, V5, Xs), 20)
+    plain = cuda_ms(plain_f, 5)
+    ns = ng * ng
+    rows, cols, _ = vc_pattern(ng)
+    bd = block_diag_csr(torch.as_tensor(rows, device=dev),
+                        torch.as_tensor(cols, device=dev),
+                        V5.reshape(Bs, -1), ns, ns)
+    xf = Xs.reshape(-1)
+    lib = cuda_ms(lambda: bd @ xf, 20)
+    del bd
+    record("stencil5_batched", [Y], [plain_f()],
+           [ref.stencil5_lanes_ref(V5.abs(), Xs.abs())], ms, plain, lib,
+           7 * Bs * ns * 8, 9 * Bs * ns, f"B={Bs} x (5,{ng},{ng})", bit)
+    del Y, V5, Xs, v5, kap
+    torch.cuda.empty_cache()
+
+    # -- the 8 step bodies on (B, n) lanes, per-lane scalars ---------------
+    Bf, nf = STEP_B, STEP_N
+    for name in FUSED:
+        bid, n_in, n_sc, n_out, n_dot = fk.BODIES[name]
+        vecs = [torch.tensor(rng.normal(size=(Bf, nf)), device=dev)
+                for _ in range(n_in)]
+        scs = [torch.tensor(rng.normal(size=Bf), device=dev)
+               for _ in range(n_sc)]
+        if name == "fused_bicg_p":
+            scs[2] = torch.zeros(Bf, device=dev, dtype=torch.float64)
+        fn = getattr(fk, name)
+        got = fn(*vecs, *scs)
+        torch.cuda.synchronize()
+        singles = [fn(*[v[b] for v in vecs], *[s[b] for s in scs])
+                   for b in range(Bf)]
+        bit = all(torch.equal(g[b], singles[b][j]) for j, g in enumerate(got)
+                  for b in range(Bf))
+        plain_f = lambda: ref.fused_step_lanes_ref(name, vecs, scs, Bf)
+        want = plain_f()
+        scale = ref.fused_step_lanes_ref(name, [v.abs() for v in vecs],
+                                         [s.abs() for s in scs], Bf)
+        outs = [torch.empty_like(vecs[0]) for _ in range(n_out)]
+        call = (lambda: fn(*vecs)) if name == "fused_dots2" else \
+            (lambda: fn(*vecs, *scs, out=outs))
+        ms = cuda_ms(call, 20)
+        plain = cuda_ms(plain_f, 5)
+        reads, writes = fn.passes
+        record(name + "_batched", list(got), list(want), list(scale), ms,
+               plain, None, (reads + writes) * Bf * nf * 8,
+               FUSED_FLOPS[name] * Bf * nf, f"B={Bf} x ({nf},)", bit)
+        del vecs, outs, got, singles, want, scale
+        torch.cuda.empty_cache()
+    out["batch_kernel_phase"] = res
+    return res
+
+
+def _true_rel_res(A, x, b):
+    """‖b − A x‖ / ‖b‖ per lane, through the plain COO product."""
+    from repro_torch.core.sparse import coo_matvec
+    r = b - coo_matvec(A.val, A.row, A.col, x, A.shape[0])
+    return (r.norm(dim=-1) / b.norm(dim=-1))
+
+
+def batched_values_path(dev, seed, out):
+    """15b: batched-values CG + Jacobi through ``sla.solve`` on the block-ELL
+    kernel (B value scales), its gradient, held to single solves of the
+    same lanes; then batched BiCGStab on a non-symmetric operator (its
+    adjoint on Aᵀ's layout) and batched CG on stencil operators."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.core.sparse import SparseTensor
+    from repro_torch.data.poisson import poisson2d, poisson2d_vc
+    from repro_torch.kernels import launch_counts
+
+    rng = np.random.default_rng(seed + 16)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def loop_launches(counts, batched):
+        sfx = "_batched" if batched else ""
+        keys = ["bell_spmv" + sfx, "stencil5" + sfx] + \
+            [f + sfx for f in FUSED]
+        return sum(counts[k] for k in keys)
+
+    def traced(A0, vals, b, backend, method, tol):
+        """Wall, device time and op count of TRACE_ITERS iterations of the
+        batched loop and of one lane's single loop (setup memoized)."""
+        rows = {}
+        for tag, v in (("batched", vals), ("single", vals[0])):
+            Av = A0.with_values(v)
+            fn = lambda: sla.solve_with_info(Av, b, backend=backend,
+                                             method=method, tol=tol,
+                                             maxiter=TRACE_ITERS)
+            fn()
+            _sync(dev)
+            t = time.perf_counter()
+            fn()
+            _sync(dev)
+            wall = (time.perf_counter() - t) * 1e3
+            cnt, dev_ms, top = _kernel_breakdown(
+                fn, os.path.join(OUT, f"batched_{method}_{tag}_trace.json"))
+            rows[tag] = dict(wall_ms=wall, device_ms=dev_ms, ops=cnt,
+                             busy=dev_ms / wall, top=top[:6])
+            say(f"  traced {tag} {method}, {TRACE_ITERS} iterations: wall "
+                f"{wall:.2f} ms, device {dev_ms:.2f} ms over {cnt} ops "
+                f"(busy {dev_ms / wall:.0%}); "
+                + ", ".join(f"{nm} {ms:.2f} ms x{c}"
+                            for ms, c, nm in top[:4]))
+        return rows
+
+    def case(label, A0, scales, b, backend, method, tol, trace=False):
+        n = A0.shape[0]
+        vals = torch.stack([A0.val * s for s in scales])
+        B = len(scales)
+        val = vals.clone().requires_grad_(True)
+        _sync(dev)
+        _peak_reset(dev)
+        _counts_reset()
+        t0 = time.perf_counter()
+        A = A0.with_values(val)
+        x = sla.solve(A, b, backend=backend, method=method, tol=tol,
+                      maxiter=MAXITER)
+        _sync(dev)
+        t1 = time.perf_counter()
+        fwd = loop_launches(launch_counts(), True)
+        (x * x).sum().backward()
+        _sync(dev)
+        t2 = time.perf_counter()
+        launches, stats = _counts()
+        add(launches)
+        peak = _peak(dev)
+        ti = time.perf_counter()
+        info = sla.solve_with_info(A0.with_values(vals), b, backend=backend,
+                                   method=method, tol=tol, maxiter=MAXITER)
+        iters = [int(i) for i in info.iterations.tolist()]
+        t_info = time.perf_counter() - ti
+        relres = _true_rel_res(A0.with_values(vals), info.x,
+                               b.expand(B, n)).max().item()
+        g = val.grad.detach()
+        # the same lanes one at a time: solution, iterations, the loop's
+        # launches, and the gradient from the adjoint solve
+        s_iters, s_launch, s_wall, s_info = [], [], 0.0, 0.0
+        xerr = gerr = 0.0
+        for i in range(B):
+            Ai = A0.with_values(vals[i])
+            _counts_reset()
+            ts = time.perf_counter()
+            one = sla.solve_with_info(Ai, b, backend=backend, method=method,
+                                      tol=tol, maxiter=MAXITER)
+            _sync(dev)
+            s_info += time.perf_counter() - ts
+            s_launch.append(loop_launches(launch_counts(), False))
+            lam = sla.solve_with_info(Ai.T if method == "bicgstab" else Ai,
+                                      2 * one.x, backend=backend,
+                                      method=method, tol=tol,
+                                      maxiter=MAXITER).x
+            _sync(dev)
+            s_wall += time.perf_counter() - ts
+            s_iters.append(int(one.iterations))
+            gi = -(lam[A0.row] * one.x[A0.col])
+            xerr = max(xerr, float((x[i].detach() - one.x).abs().max()
+                                   / one.x.abs().max()))
+            gerr = max(gerr, _grad_rel(g[i], gi))
+        slow = int(np.argmax(s_iters))
+        ms_it = t_info / max(max(iters), 1) * 1e3
+        ms_it1 = s_info / max(sum(s_iters), 1) * 1e3
+        say(f"  {label}: B={B} lanes, {backend}/{method}; batched solve+grad "
+            f"{t2 - t0:.3f} s (forward {t1 - t0:.3f} s with the analyze, "
+            f"backward {t2 - t1:.3f} s), peak {peak:.3f} GB; batched "
+            f"solve_with_info {t_info:.3f} s = {ms_it:.3f} ms/iteration "
+            f"for {B} lanes, single solves {ms_it1:.3f} ms/iteration; the "
+            f"{B} single solves + adjoints {s_wall:.3f} s")
+        say(f"  iterations per lane {iters}; single solves {s_iters}; loop "
+            f"launches batched {fwd}, slowest single {s_launch[slow]}; "
+            f"solution rel diff {xerr:.2e}, gradient rel diff {gerr:.2e}; "
+            f"true residual {relres:.2e}")
+        say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}")
+        check(iters == s_iters, f"{label}: each lane's iteration count equals "
+              f"its single solve's")
+        check(xerr <= TOL_BATCH, f"{label}: solutions agree with the single "
+              f"solves ({xerr:.2e} <= {TOL_BATCH:.0e})")
+        check(bool(torch.isfinite(g).all()) and gerr <= TOL_BATCH_GRAD,
+              f"{label}: each lane's values gradient agrees with the single "
+              f"solve's ({gerr:.2e} <= {TOL_BATCH_GRAD:.0e})")
+        check(relres <= 10 * tol, f"{label}: true residual {relres:.2e} <= "
+              f"10·tol")
+        # one batched setup, reused by the symmetric adjoint; Aᵀ's own for
+        # a non-symmetric one (its plan shares the kernel layout)
+        setups = 1 if A0.props.get("symmetric") else 2
+        check(stats["analyze"] == 1 and stats["setup"] == setups
+              and stats["transpose_shared"] == 1,
+              f"{label}: analyze 1, setup {setups}, transpose_shared 1")
+        check(abs(fwd - s_launch[slow]) <= 16,
+              f"{label}: the batched loop's kernel launches ({fwd}) equal the "
+              f"slowest lane's single solve's ({s_launch[slow]}) within 16")
+        tr = traced(A0, vals, b, backend, method, tol) if trace else None
+        return dict(B=B, iterations=iters, single_iterations=s_iters,
+                    trace=tr,
+                    solve_grad_s=t2 - t0, forward_s=t1 - t0,
+                    backward_s=t2 - t1, info_solve_s=t_info,
+                    ms_per_iteration=ms_it, single_ms_per_iteration=ms_it1,
+                    singles_s=s_wall, peak_gb=peak, loop_launches=fwd,
+                    single_loop_launches=s_launch, solution_rel_diff=xerr,
+                    grad_rel_diff=gerr, true_residual=relres,
+                    launches=launches, plan_stats=stats)
+
+    n = NG_BELL * NG_BELL
+    A0 = poisson2d(NG_BELL, device=dev)
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    scales = [float(s) for s in rng.uniform(0.7, 1.4, BATCH_B)]
+    res = {"bell_cg": case(f"batched CG + Jacobi poisson2d({NG_BELL})", A0,
+                           scales, b, "pallas", "cg", TOL, trace=True)}
+    del A0
+    torch.cuda.empty_cache()
+
+    ng = NG_TRANSPOSE
+    A1 = poisson2d(ng, device=dev)
+    v1 = A1.val.clone()
+    v1[A1.col == A1.row - 1] = -1.4
+    v1[A1.col == A1.row + 1] = -0.6
+    props = {"symmetric": False, "spd_hint": False, "sorted_rows": False}
+    A1 = SparseTensor(v1, A1.row, A1.col, A1.shape, props=props, device=dev)
+    b1 = torch.ones(ng * ng, dtype=torch.float64, device=dev)
+    res["bell_bicgstab"] = case(f"batched BiCGStab drift ng={ng}", A1,
+                                scales[:4], b1, "pallas", "bicgstab",
+                                TOL_TRANSPOSE)
+    ngs = NG_BATCH_STENCIL
+    kap = torch.tensor(smooth_kappa(ngs, seed), device=dev)
+    A2 = poisson2d_vc(kap, use_stencil_kernel=True, device=dev)
+    b2 = torch.ones(ngs * ngs, dtype=torch.float64, device=dev)
+    res["stencil_cg"] = case(f"batched CG + Jacobi stencil ng={ngs}", A2,
+                             scales[:STENCIL_B], b2, "stencil", "cg", TOL)
+    for k in ("bell_spmv_batched", "stencil5_batched",
+              "fused_cg_update_batched", "fused_cg_direction_batched",
+              "fused_bicg_p_batched", "fused_bicg_tail_batched"):
+        check(total[k] > 0, f"batched paths launched {k} ({total[k]} times)")
+    out["batched_values_path"] = res
+    return total
+
+
+def multi_rhs_path(dev, seed, out, Ad):
+    """15c: k right-hand sides on one matrix — block CG and per-rhs CG on
+    the SpMM kernel, CG + Chebyshev on the lane-batched steps, and one
+    direct factorization with a k-column sweep, each with checks."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.data.poisson import poisson2d
+    from repro_torch.kernels import launch_counts
+
+    rng = np.random.default_rng(seed + 17)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    n = NG_BELL * NG_BELL
+    A = poisson2d(NG_BELL, device=dev)
+    k = SPMM_K
+    Bm = torch.tensor(rng.normal(size=(k, n)), device=dev)
+    kw = dict(backend="pallas", tol=TOL, maxiter=MAXITER)
+    _sync(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    rb = sla.solve_with_info(A, Bm, method="block_cg", **kw)
+    _sync(dev)
+    t1 = time.perf_counter()
+    lb, stats_b = _counts()
+    add(lb)
+    _counts_reset()
+    rc = sla.solve_with_info(A, Bm, method="cg", **kw)
+    _sync(dev)
+    t2 = time.perf_counter()
+    lc, _ = _counts()
+    add(lc)
+    it_b = int(rb.iterations)
+    it_c = [int(i) for i in rc.iterations.tolist()]
+    res_b = _true_rel_res(A, rb.x, Bm)
+    res_c = _true_rel_res(A, rc.x, Bm)
+    # both solves stop at a residual; their difference is at most
+    # ‖A⁻¹‖(‖r_b‖ + ‖r_c‖), with ‖A⁻¹‖ = 1/λ_min of the 5-point Laplacian
+    lam_min = 8 * math.sin(math.pi / (2 * (NG_BELL + 1))) ** 2
+    diff = (rb.x - rc.x).norm(dim=1)
+    allow = ((res_b + res_c) * Bm.norm(dim=1)) / lam_min
+    say(f"  block CG k={k} poisson2d({NG_BELL}) + Jacobi: {it_b} iterations "
+        f"in {t1 - t0:.3f} s ({(t1 - t0) / max(it_b, 1) * 1e3:.3f} ms/"
+        f"iteration); per-rhs CG (lanes) {min(it_c)}..{max(it_c)} iterations "
+        f"in {t2 - t1:.3f} s; true residuals block {res_b.max().item():.2e}, "
+        f"CG {res_c.max().item():.2e}; ‖x_block − x_cg‖ / bound "
+        f"{(diff / allow).max().item():.3f}")
+    say(f"  launches block CG {json.dumps({k_: v for k_, v in lb.items() if v})}; "
+        f"CG {json.dumps({k_: v for k_, v in lc.items() if v})}")
+    check(it_b <= max(it_c), f"block CG: {it_b} iterations <= the largest "
+          f"per-rhs CG count {max(it_c)}")
+    check(bool(rb.converged.all()) and bool(rc.converged.all())
+          and res_b.max().item() <= 10 * TOL
+          and res_c.max().item() <= 10 * TOL,
+          "block CG and per-rhs CG: every column converged, true residuals "
+          "<= 10·tol")
+    check(bool((diff <= allow).all()), "block CG agrees with per-rhs CG "
+          "within ‖A⁻¹‖ times their residuals")
+    check(lb["bell_spmm"] > 0 and lc["bell_spmm"] > 0
+          and lc["fused_cg_update_batched"] > 0,
+          "multi-rhs solves ran on bell_spmm and the lane-batched steps")
+    res = dict(k=k, block_iterations=it_b, cg_iterations=it_c,
+               block_s=t1 - t0, cg_s=t2 - t1,
+               block_residual=res_b.max().item(),
+               cg_residual=res_c.max().item(), launches_block=lb,
+               launches_cg=lc, plan_stats=stats_b)
+    del A, Bm, rb, rc
+    torch.cuda.empty_cache()
+
+    # CG + the plan Chebyshev on k rhs: fused_cg_halfstep and fused_cheb_step
+    # on (k, n) lanes
+    ng = NG_TRANSPOSE
+    A1 = poisson2d(ng, device=dev)
+    B1 = torch.tensor(rng.normal(size=(4, ng * ng)), device=dev)
+    _counts_reset()
+    r1 = sla.solve_with_info(A1, B1, backend="pallas", method="cg",
+                             precond="chebyshev", tol=TOL, maxiter=MAXITER)
+    _sync(dev)
+    l1, _ = _counts()
+    add(l1)
+    rr1 = _true_rel_res(A1, r1.x, B1).max().item()
+    say(f"  CG + Chebyshev k=4 ng={ng}: iterations "
+        f"{r1.iterations.tolist()}, true residual {rr1:.2e}; launches "
+        f"{json.dumps({k_: v for k_, v in l1.items() if v})}")
+    check(bool(r1.converged.all()) and rr1 <= 10 * TOL
+          and l1["fused_cheb_step_batched"] > 0
+          and l1["fused_cg_halfstep_batched"] > 0,
+          "CG + Chebyshev on 4 rhs converged on the lane-batched halfstep "
+          "and cheb_step")
+    res["chebyshev"] = dict(iterations=r1.iterations.tolist(),
+                            true_residual=rr1, launches=l1)
+
+    # the direct route on the direct path's poisson2d(316) (its cached
+    # plan): one factorization, one k-column solve and backward
+    ngd = NG_DIRECT
+    nd = ngd * ngd
+    Bd = torch.tensor(rng.normal(size=(k, nd)), device=dev)
+    t0 = time.perf_counter()
+    plan = Ad.plan()                  # cached since the direct path
+    t_an = time.perf_counter() - t0
+    nbk = sum(len(lvl) for lvl in plan.artifacts["direct"].snode.schedule)
+    val = Ad.val.clone().requires_grad_(True)
+    bl = Bd.clone().requires_grad_(True)
+    _sync(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    X = sla.solve(Ad.with_values(val), bl)
+    _sync(dev)
+    t1 = time.perf_counter()
+    fwd_sweeps = launch_counts()["sn_sweep"]
+    (X * X).sum().backward()
+    _sync(dev)
+    t2 = time.perf_counter()
+    ld, sd = _counts()
+    add(ld)
+    xerr = gberr = 0.0
+    gsum = torch.zeros_like(Ad.val)
+    ts = time.perf_counter()
+    for j in range(k):
+        xj = sla.solve_with_info(Ad, Bd[j]).x
+        lam = sla.solve_with_info(Ad, 2 * xj).x
+        gsum -= lam[Ad.row] * xj[Ad.col]
+        xerr = max(xerr, float((X[j].detach() - xj).abs().max()
+                               / xj.abs().max()))
+        gberr = max(gberr, _grad_rel(bl.grad[j], lam))
+    _sync(dev)
+    t3 = time.perf_counter()
+    gerr = _grad_rel(val.grad, gsum)
+    say(f"  direct k={k} poisson2d({ngd}) (plan {plan.cfg.backend}/"
+        f"{plan.cfg.method}, {nbk} buckets, plan lookup {t_an:.3f} s): solve "
+        f"{t1 - t0:.4f} s, backward {t2 - t1:.4f} s; {k} single solves + "
+        f"adjoints {t3 - ts:.3f} s; factorize {sd['factorize']}, sn_sweep "
+        f"{fwd_sweeps} in the solve, {ld['sn_sweep']} in all; solution rel "
+        f"diff {xerr:.2e}, val-gradient {gerr:.2e}, b-gradient {gberr:.2e}")
+    check(plan.cfg.backend == "direct" and sd["factorize"] == 1,
+          "direct multi-rhs: auto → direct, one factorization for the k "
+          "right-hand sides and their adjoint")
+    check(fwd_sweeps == 2 * nbk and ld["sn_sweep"] == 4 * nbk,
+          f"direct multi-rhs: the k columns ride one sweep launch per bucket "
+          f"({fwd_sweeps} = 2·{nbk} in the solve)")
+    check(xerr <= TOL_BATCH, f"direct multi-rhs: agrees with {k} single "
+          f"solves ({xerr:.2e} <= {TOL_BATCH:.0e})")
+    check(gerr <= TOL_BATCH_GRAD and gberr <= TOL_BATCH_GRAD,
+          f"direct multi-rhs: gradients agree with the single solves' "
+          f"({gerr:.2e}, {gberr:.2e} <= {TOL_BATCH_GRAD:.0e})")
+    res["direct"] = dict(ng=ngd, k=k, buckets=nbk, analyze_s=t_an,
+                         solve_s=t1 - t0, backward_s=t2 - t1,
+                         singles_s=t3 - ts, solve_sweeps=fwd_sweeps,
+                         launches=ld, plan_stats=sd, solution_rel_diff=xerr,
+                         grad_rel_diff=gerr, b_grad_rel_diff=gberr)
+    out["multi_rhs_path"] = res
+    return total
+
+
+def serve_path(dev, seed, out):
+    """15d: ``serve()`` with the reference CLI's stream (256 requests, two
+    patterns, max_batch 32, CG + Jacobi, tol 1e-8) on the block-ELL
+    kernels, batched against one-at-a-time, parity checked inside."""
+    from repro_torch.launch.solve_serve import serve
+    _counts_reset()
+    rep = serve(n_requests=SERVE_REQUESTS, grid=NG_SERVE, n_patterns=2,
+                max_batch=SERVE_MAX_BATCH, seed=seed, check=True, device=dev,
+                backend="pallas", method="cg", precond="jacobi", tol=TOL)
+    launches, _ = _counts()
+    b, s = rep["batched"], rep["sequential"]
+    say(f"  serve: {rep['n_requests']} requests, grids {NG_SERVE} and "
+        f"{NG_SERVE + 1}, max_batch {SERVE_MAX_BATCH}: batched "
+        f"{b['solves_per_sec']:.1f} solves/s (p50 {b['p50_ms']:.1f} ms, p99 "
+        f"{b['p99_ms']:.1f} ms, {b['total_s']:.3f} s); sequential "
+        f"{s['solves_per_sec']:.1f} solves/s (p50 {s['p50_ms']:.1f} ms, p99 "
+        f"{s['p99_ms']:.1f} ms, {s['total_s']:.3f} s); speedup "
+        f"{rep['speedup']:.2f}x, occupancy {rep['occupancy']:.3f}")
+    say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    say(f"  PLAN_STATS {json.dumps({k: v for k, v in rep['plan_stats'].items() if v})}")
+    check(rep["plan_stats"]["analyze"] == 2, "serve: analyze == 2 (one per "
+          "pattern)")
+    check(rep["converged"], "serve: every request converged")
+    check(rep["occupancy"] == 1.0, "serve: occupancy 1.0")
+    check(launches["bell_spmv_batched"] > 0, "serve: the batched dispatches "
+          "ran on bell_spmv_batched")
+    out["serve_path"] = dict(rep, launches=launches)
+    return launches
+
+
+def batch_phase(dev, seed, out, direct_A):
+    """Phase 15: the kernels (15a), then the paths 15b–15d, their launches
+    counted from zero for each path.  ``direct_A`` is the direct path's
+    ``poisson2d(316)``, whose cached plan (analyzed once in phase 8) 15c
+    reuses."""
+    kres = batch_kernel_phase(dev, seed, out)
+    total = {}
+    for name, fn, a in (("15b batched values", batched_values_path, ()),
+                        ("15c multi-rhs", multi_rhs_path, (direct_A,)),
+                        ("15d serve", serve_path, ())):
+        say(f" ({name})")
+        t = time.perf_counter()
+        counts = fn(dev, seed, out, *a)
+        say(f" ({name}) {time.perf_counter() - t:.2f} s")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return kres, total
+
+
 def on_card_tests(out):
     """``tests/test_torch_on_card.py`` under pytest in a child process on
     this card (``--noconftest``: the repo's conftest imports jax), its
@@ -3033,7 +3671,8 @@ def on_card_tests(out):
 # ---------------------------------------------------------------------------
 
 #: the kernels whose registers, shared memory and spills the script prints
-KERNEL_ENTRIES = ("sell_spmv_kernel", "panel_factor_kernel", "schur_kernel",
+KERNEL_ENTRIES = ("sell_spmv_kernel", "sell_spmv_lanes_kernel",
+                  "panel_factor_kernel", "schur_kernel",
                   "sn_sweep_kernel", "tc_kernel", "simt_kernel")
 
 
@@ -3131,14 +3770,21 @@ def main():
                            flash_shapes=FLASH_SHAPES, flash_gqa=FLASH_GQA,
                            lm_arch=LM_ARCH,
                            lm_prefill=LM_PREFILL, lm_serve=LM_SERVE,
-                           lm_check=LM_CHECK))
+                           lm_check=LM_CHECK, batch_b=BATCH_B,
+                           spmm_k=SPMM_K, stencil_b=STENCIL_B,
+                           step_lanes=(STEP_B, STEP_N),
+                           ng_batch_stencil=NG_BATCH_STENCIL,
+                           ng_serve=NG_SERVE,
+                           serve=(SERVE_REQUESTS, SERVE_MAX_BATCH)))
 
     phases = []
 
     def phase(name, fn, *a):
         # free what earlier phases left in reference cycles, so a phase's
-        # peak device memory is its own
+        # peak device memory is its own; what survives is frozen out of the
+        # collector's later passes
         gc.collect()
+        gc.freeze()
         torch.cuda.empty_cache()
         say(f"[{name}]")
         t = time.perf_counter()
@@ -3181,9 +3827,16 @@ def main():
     # own analysis (its bucket shapes), after the paths' counts are read
     kres.update(phase("panel kernels", panel_kernel_phase, dev,
                       direct["art"], direct["val"], NG_DIRECT, SEED, out))
+    direct_A = direct["A"]          # its cached plan serves phase 15c
     del direct
     kres.update(phase("flash kernel", flash_phase, dev, SEED, out))
     for k, v in phase("LM serving path", lm_path, dev, SEED, out).items():
+        path_launches[k] = path_launches.get(k, 0) + v
+    bres, blaunch = phase("batched solves and the solve server", batch_phase,
+                          dev, SEED, out, direct_A)
+    del direct_A
+    kres.update(bres)
+    for k, v in blaunch.items():
         path_launches[k] = path_launches.get(k, 0) + v
     for k, v in path_launches.items():
         check(v > 0, f"{k} launched on the paths ({v} times)")

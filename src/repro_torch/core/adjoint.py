@@ -9,6 +9,11 @@ Aᵀλ = g on ``plan.transpose()`` and returns
 
     ∂L/∂b = λ,    ∂L/∂A_ij = −λ_i x_j   (on the sparsity pattern, O(nnz)).
 
+Batches go through the same node: stacked values (*batch, nnz) and/or
+right-hand sides (*batch, n) solve as one batched ``plan.solve``, the
+backward solves the batched Aᵀλ = g on the same plan (the batched setup is a
+memo hit), and each gradient is summed back to its operand's shape.
+
 ``sparse_slogdet`` is one Function as well: (sign, log|det A|) from the
 direct backend's cached factors, with ∂ log|det A| / ∂A_ij = (A⁻ᵀ)_ij on
 the pattern from transposed solves on the same factors.
@@ -27,7 +32,7 @@ from . import dispatch as _dispatch
 from . import options as _options
 from . import solvers as _solvers
 from .dispatch import SolverConfig
-from .sparse import SparseTensor
+from .sparse import SparseTensor, sum_to_shape
 
 __all__ = ["sparse_solve", "sparse_solve_with_info", "sparse_slogdet",
            "nonlinear_solve", "sparse_eigsh"]
@@ -45,6 +50,7 @@ class _SparseSolve(torch.autograd.Function):
         # the backward's setup memo keys on its identity, so the symmetric
         # adjoint reuses the forward's setup (PLAN_STATS["setup_reuse"])
         ctx.val, ctx.val_version = val, val._version
+        ctx.b_shape = b.shape
         ctx.save_for_backward(x)
         return x
 
@@ -61,9 +67,10 @@ class _SparseSolve(torch.autograd.Function):
                              cfg=tplan.adapt(cfg))
         gval = gb = None
         if ctx.needs_input_grad[0]:
-            gval = -(lam[plan.row] * x[plan.col])
+            gval = sum_to_shape(-(lam[..., plan.row] * x[..., plan.col]),
+                                val.shape)
         if ctx.needs_input_grad[1]:
-            gb = lam
+            gb = sum_to_shape(lam, ctx.b_shape)
         return gval, gb, None, None, None
 
 
@@ -74,12 +81,9 @@ def sparse_solve(cfg: SolverConfig, A: SparseTensor, b: torch.Tensor,
     The forward fetches (or analyzes once) the pattern's cached plan; the
     backward solves Aᵀλ = g through ``plan.transpose()`` — the SAME plan
     for symmetric patterns, a layout-sharing or once-analyzed sibling
-    otherwise.  No re-dispatch and no re-analysis per call."""
+    otherwise.  No re-dispatch and no re-analysis per call.  Stacked values
+    and right-hand sides batch through the same node."""
     plan = _dispatch.get_plan(A, cfg)
-    if A.batch_shape or b.dim() != 1:
-        raise NotImplementedError(
-            "batched values or right-hand sides come with slice 5 of the "
-            "PyTorch port (batching and serving)")
     return _SparseSolve.apply(A.val, b, plan, cfg, x0)
 
 
@@ -390,8 +394,8 @@ def sparse_eigsh(A: SparseTensor, k: int = 6, *, method: str = "lobpcg",
     n = A.shape[0]
     if A.batch_shape:
         raise NotImplementedError(
-            "batched values come with slice 5 of the PyTorch port (batching "
-            "and serving)")
+            "batched values in eigsh come with slice 5b of the PyTorch port "
+            "(a batched LOBPCG / Lanczos); call eigsh lane by lane")
     if method not in ("lobpcg", "lanczos"):
         raise ValueError(f"unknown eig method {method!r}")
     pplan = None

@@ -19,8 +19,17 @@ block-ELL and stencil kernels, a once-analyzed transposed sibling otherwise.
 
 Backends: ``dense`` (torch.linalg), ``direct`` (sparse LDLᵀ/LU on the
 supernodal panel kernels, :mod:`repro_torch.core.direct`), ``jnp`` (COO,
-or BELL where fill allows on CUDA), ``pallas`` (explicit block-ELL) and
-``stencil``.  Batched values or right-hand sides raise until slice 5.
+or BELL where fill allows on CUDA), ``pallas`` (explicit block-ELL),
+``stencil``, and any added by :func:`register_backend`.
+
+Batches: multiple right-hand sides on one matrix share ONE setup (one
+factorization, one preconditioner build) and solve as lanes of one
+batch-native Krylov loop, or as one coupled ``block_cg`` solve, or as one
+multi-column factored solve; stacked values (B, nnz) on one pattern get ONE
+batched setup (:meth:`SolverPlan.setup_batch`, memoized on the stack) and
+one lane-batched loop on the lane-batched kernels.  Batched values through
+the direct route, MG, AMG, the plan Chebyshev and ILU are slice 5b of the
+port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -205,17 +214,22 @@ def _fuse_enabled(kp: Optional[KernelPlan]) -> bool:
 
 def _plan_matvec(plan: "SolverPlan", kp: KernelPlan, val,
                  packed=None) -> Callable:
-    """Single-instance matvec closure through the kernel plan's choice;
-    ``packed`` is the sliced-ELL value array already assembled from
-    ``val``."""
+    """Matvec closure of a plan's setup and solve loops through the kernel
+    plan's choice (``val`` and x (n,) or lanes (B, n)); ``packed`` is the
+    sliced-ELL value array already assembled from ``val``.  Those loops run
+    under ``no_grad`` and never differentiate a matvec, so the closure calls
+    the kernel directly, without the autograd node of ``ops.bell_matvec`` /
+    ``ops.stencil5_matvec`` (the same arithmetic, less host time an
+    iteration)."""
     n = plan.shape[0]
     if kp.choice == "stencil" and plan.stencil is not None:
         from ..kernels import ops as kops
-        return lambda x: kops.stencil5_matvec(plan.stencil, val, x)
+        return lambda x: kops.stencil5_product(plan.stencil, val, x)
     if kp.choice == "bell" and kp.bell is not None:
         from ..kernels import ops as kops
-        return lambda x: kops.bell_matvec(kp.bell, val, x, n,
-                                          t_bell=kp.t_bell, packed=packed)
+        vals = kops.sell_assemble(kp.bell.sell, val) if packed is None \
+            else packed
+        return lambda x: kops.sell_product(kp.bell.sell, vals, x, n)
     row, col = plan.row, plan.col
     return lambda x: coo_matvec(val, row, col, x, n)
 
@@ -282,17 +296,23 @@ def make_matvec(A: SparseTensor, backend: Optional[str] = None) -> Callable:
 
 
 def matvec(A: SparseTensor, x, backend: Optional[str] = None):
-    """A @ x (differentiable).  Batched values/rhs run through the COO
-    product; batched kernel layouts come with slice 5."""
+    """A @ x (differentiable).  Batched values and/or right-hand sides run
+    through the SAME selected kernel, lane-batched: the leading dims are
+    flattened to lanes, an operand without them is shared by every lane."""
     kernel = _select_kernel(A, backend)
     batched = bool(A.batch_shape) or x.dim() > 1
     if not batched:
         return _kernel_fn(A, kernel)(A.val, x)
     if kernel == "coo":
         return coo_matvec(A.val, A.row, A.col, x, A.shape[0])
-    raise NotImplementedError(
-        "batched matvec through the stencil/block-ELL kernels comes with "
-        "slice 5 of the PyTorch port (batching and serving)")
+    batch = torch.broadcast_shapes(A.batch_shape, x.shape[:-1])
+    val, xx = A.val, x
+    if A.batch_shape:
+        val = val.expand(batch + val.shape[-1:]).reshape(-1, val.shape[-1])
+    if x.dim() > 1:
+        xx = xx.expand(batch + x.shape[-1:]).reshape(-1, x.shape[-1])
+    y = _kernel_fn(A, kernel)(val, xx)
+    return y.reshape(batch + (A.shape[0],))
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +324,7 @@ class Backend:
     ``setup(plan, A)`` (values), ``solve(plan, state, A, b, x0, cfg)``."""
     name: str = "abstract"
     methods: Tuple[str, ...] = ()
+    handles_batch = False       # True: solve() takes batches as they come
     cache_setup = False         # True: memoize setup() per values tensor
 
     def applicable(self, A: SparseTensor) -> bool:
@@ -389,17 +410,33 @@ class DirectBackend(Backend):
                 "transposed": False}
 
     def setup(self, plan, A):
+        if A.val.dim() > 1:
+            raise NotImplementedError(
+                "batched values through the direct route come with slice 5b "
+                "of the PyTorch port (a batch stride in panel_factor, "
+                "schur_update and sn_sweep); solve lane by lane, or use an "
+                "iterative backend")
         PLAN_STATS["factorize"] += 1
         return _direct.numeric_factor(plan.artifacts["direct"], A.val)
 
     def solve(self, plan, C, A, b, x0, cfg):
-        x = _direct.factored_solve(plan.artifacts["direct"], C, b,
-                                   transposed=plan.artifacts["transposed"])
+        """x for b (n,), or for k right-hand sides (k, n) from ONE
+        multi-column factored solve (each sweep launch carries the k
+        columns); a residual norm and a converged flag per right-hand
+        side."""
+        art, tr = plan.artifacts["direct"], plan.artifacts["transposed"]
+        if b.dim() == 1:
+            x = _direct.factored_solve(art, C, b, transposed=tr)
+        else:
+            x = _direct.factored_solve(art, C, b.T, transposed=tr).T
+            x = x.contiguous()
         r = b - coo_matvec(A.val, A.row, A.col, x, A.shape[0])
-        rn = torch.linalg.norm(r)
-        target = torch.clamp_min(cfg.tol * torch.linalg.norm(b), cfg.atol)
+        rn = torch.linalg.norm(r, dim=-1)
+        target = torch.clamp_min(cfg.tol * torch.linalg.norm(b, dim=-1),
+                                 cfg.atol)
         return x, _solvers.SolveInfo(
-            iters=torch.ones((), dtype=torch.int64, device=b.device),
+            iters=torch.ones(b.shape[:-1], dtype=torch.int64,
+                             device=b.device),
             resnorm=rn, converged=rn <= target)
 
     def transpose_plan(self, plan):
@@ -434,10 +471,6 @@ class IterativeBackend(Backend):
     cache_setup = True
 
     def analyze(self, cfg, pattern):
-        if cfg.method == "block_cg":
-            raise NotImplementedError(
-                "method='block_cg' is not ported yet (slice 5 of the "
-                "PyTorch port: batching and serving)")
         return {
             "kernel": _build_kernel_plan(pattern, self.kernel),
             "precond": _precond.PreconditionerPlan(
@@ -464,13 +497,32 @@ class IterativeBackend(Backend):
         return A.val, pstate, dinv, packed
 
     def solve(self, plan, state, A, b, x0, cfg):
+        """One solve, or a batch of lanes: ``b`` (B, n) with the state of
+        one matrix (k right-hand sides) or of B stacked values (from
+        :meth:`SolverPlan.setup_batch`).  CG and BiCGStab run all lanes in
+        one batch-native loop on the lane-batched kernels; ``block_cg``
+        couples the right-hand sides of one matrix; GMRES (and
+        ``block_cg`` over stacked values) solve lane by lane."""
         val, pstate, dinv, packed = state
+        if b.dim() == 2 and (cfg.method == "gmres" or (
+                cfg.method == "block_cg" and val.dim() > 1)):
+            return self._solve_lanes(plan, state, A, b, x0, cfg)
         # rebuild from the STATE's values, not A.val: transpose plans remap
         # the forward values in setup (_StencilTransposeBackend)
         mv = self._matvec_from_val(plan, val, packed)
         kp = plan.artifacts.get("kernel")
         fuse = _fuse_enabled(kp)
         M = plan.artifacts["precond"].make_apply(pstate, mv, fused=fuse)
+        if cfg.method == "block_cg":
+            single = b.dim() == 1
+            B = b[None] if single else b
+            X0 = None if x0 is None else (x0[None] if single else x0)
+            X, info = _solvers.block_cg(mv, B, X0, M=M, tol=cfg.tol,
+                                        atol=cfg.atol, maxiter=cfg.maxiter)
+            if single:
+                return X[0], _solvers.SolveInfo(info.iters, info.resnorm[0],
+                                                info.converged[0])
+            return X, info
         if cfg.method == "cg":
             if fuse:
                 return _solvers.cg_fused(mv, b, x0, dinv=dinv, M=M,
@@ -491,6 +543,25 @@ class IterativeBackend(Backend):
                                   maxiter=max(cfg.maxiter // cfg.restart, 1))
         raise ValueError(
             f"unknown method {cfg.method!r} for backend {cfg.backend!r}")
+
+    def _solve_lanes(self, plan, state, A, b, x0, cfg):
+        """Solve lane by lane (each lane's slice of a batched setup, or
+        the one shared setup), for the methods with no batch-native loop."""
+        val, pstate, dinv, packed = state
+        stacked = val.dim() > 1
+        xs, infos = [], []
+        for i in range(b.shape[0]):
+            st = state
+            if stacked:
+                st = (val[i], tuple(t[i] for t in pstate),
+                      dinv if dinv is None or dinv.dim() == 1 else dinv[i],
+                      None if packed is None else packed[i])
+            x, info = self.solve(plan, st, A, b[i],
+                                 None if x0 is None else x0[i], cfg)
+            xs.append(x)
+            infos.append(info)
+        return torch.stack(xs), _solvers.SolveInfo(
+            *(torch.stack(f) for f in zip(*infos)))
 
     def transpose_plan(self, plan):
         """Adjoint plan sharing THIS plan's kernel layouts: Aᵀ's block-ELL
@@ -581,16 +652,53 @@ class _StencilTransposeBackend(StencilBackend):
     def setup(self, plan, A):
         from ..kernels import ops as kops
         meta = plan.stencil
-        v5 = A.val.reshape(5, meta.nx, meta.ny)
-        return super().setup(
-            plan, plan.matrix(kops.stencil_transpose_planes(v5).reshape(-1)))
+        v5 = A.val.reshape(A.val.shape[:-1] + (5, meta.nx, meta.ny))
+        return super().setup(plan, plan.matrix(
+            kops.stencil_transpose_planes(v5).reshape(A.val.shape)))
 
 
 _STENCIL_T = _StencilTransposeBackend()
 
+
+class _FnBackend(Backend):
+    """Adapter for the function form of :func:`register_backend`:
+    ``solve_fn(cfg, A, b, x0) -> (x, SolveInfo)`` takes batches as they
+    come."""
+    handles_batch = True
+
+    def __init__(self, name, solve_fn, applicable):
+        self.name = name
+        self._solve_fn = solve_fn
+        self._applicable = applicable
+
+    def applicable(self, A):
+        return self._applicable(A)
+
+    def solve(self, plan, state, A, b, x0, cfg):
+        return self._solve_fn(cfg, A, b, x0)
+
+
 BACKENDS: Dict[str, Backend] = {
     b.name: b for b in (DenseBackend(), DirectBackend(), JnpBackend(),
                         PallasBackend(), StencilBackend())}
+
+
+def register_backend(name: str, solve_fn: Optional[Callable] = None,
+                     applicable: Optional[Callable] = None, *,
+                     backend: Optional[Backend] = None):
+    """Register a backend under ``name``: a :class:`Backend` instance
+    (``backend=``, with its own analyze / setup / solve stages), or the
+    function pair ``solve_fn(cfg, A, b, x0) -> (x, SolveInfo)`` and
+    ``applicable(A) -> bool`` (default: always).  ``sla.solve(A, b,
+    backend=name)`` then runs through the plan engine and the adjoint."""
+    if backend is not None:
+        backend.name = name
+        BACKENDS[name] = backend
+    elif solve_fn is None:
+        raise TypeError("register_backend needs solve_fn or backend=")
+    else:
+        BACKENDS[name] = _FnBackend(name, solve_fn,
+                                    applicable or (lambda A: True))
 
 
 def select_backend(A: SparseTensor, backend: str, method: str):
@@ -691,35 +799,71 @@ class SolverPlan:
         box["entry"] = (weakref.ref(key, _drop), key._version, state)
         memo[slot] = box["entry"]
 
-    def setup(self, A: SparseTensor):
-        """Run (or reuse) the backend's values-dependent setup, memoized per
-        values tensor (identity + in-place version) for ``cache_setup``
-        backends — a tolerance sweep and the adjoint backward reuse ONE
-        setup."""
+    def _setup_in(self, slot: str, A: SparseTensor):
         if self.backend.cache_setup:
-            hit = self._memo_lookup("state", A.val)
+            hit = self._memo_lookup(slot, A.val)
             if hit is not None:
                 return hit
         PLAN_STATS["setup"] += 1
         with torch.no_grad():
             state = self.backend.setup(self, A)
         if self.backend.cache_setup:
-            self._memo_store("state", A.val, state)
+            self._memo_store(slot, A.val, state)
         return state
+
+    def setup(self, A: SparseTensor):
+        """Run (or reuse) the backend's values-dependent setup, memoized per
+        values tensor (identity + in-place version) for ``cache_setup``
+        backends — a tolerance sweep and the adjoint backward reuse ONE
+        setup."""
+        return self._setup_in("state", A)
+
+    def setup_batch(self, A: SparseTensor):
+        """ONE setup for stacked values ``A.val`` (B, nnz) sharing this
+        plan's pattern: the backend's setup runs once on the whole stack
+        (lane-stacked state), memoized on the STACKED tensor in its own
+        slot (``"batch_state"``), so a tolerance sweep or the adjoint
+        backward over the same batch reuses it and ``PLAN_STATS["setup"]``
+        counts one setup for the batch."""
+        return self._setup_in("batch_state", A)
 
     # -- stage ❸: solve ------------------------------------------------------
     def solve(self, A: SparseTensor, b, x0=None,
               cfg: Optional[SolverConfig] = None):
-        """One un-differentiated solve.  ``cfg`` overrides the solve-loop
-        knobs (tol/atol/maxiter) without re-analyzing."""
-        if A.batch_shape or b.dim() != 1:
-            raise NotImplementedError(
-                "batched values or right-hand sides come with slice 5 of the "
-                "PyTorch port (batching and serving)")
+        """One un-differentiated solve; batches are handled here, so the
+        adjoint layer never needs to care.  ``b`` is (n,) or (*batch, n)
+        and ``A.val`` (nnz,) or (*batch, nnz); the two broadcast.
+        Right-hand sides on one matrix share one :meth:`setup`; stacked
+        values get one :meth:`setup_batch`; the backend then solves every
+        lane at once (see ``IterativeBackend.solve``, ``DirectBackend.
+        solve``).  ``cfg`` overrides the solve-loop knobs (tol/atol/maxiter)
+        without re-analyzing."""
         cfg = cfg if cfg is not None else self.cfg
-        state = self.setup(A)
+        batch = torch.broadcast_shapes(A.batch_shape, b.shape[:-1])
+        if not batch or self.backend.handles_batch:
+            state = self.setup(A)
+            with torch.no_grad():
+                return self.backend.solve(self, state, A, b, x0, cfg)
+        n = b.shape[-1]
+        fb = b.expand(batch + (n,)).reshape(-1, n).contiguous()
+        fx0 = None if x0 is None else x0.expand(
+            batch + (x0.shape[-1],)).reshape(-1, x0.shape[-1]).contiguous()
+        if not A.batch_shape:
+            Af = A
+            state = self.setup(A)
+        else:
+            Af = A
+            if tuple(A.batch_shape) != tuple(batch) or A.val.dim() != 2:
+                nnz = A.val.shape[-1]
+                Af = self.matrix(A.val.expand(batch + (nnz,))
+                                 .reshape(-1, nnz).contiguous())
+            state = self.setup_batch(Af)
         with torch.no_grad():
-            return self.backend.solve(self, state, A, b, x0, cfg)
+            xs, info = self.backend.solve(self, state, Af, fb, fx0, cfg)
+        lanes = fb.shape[0]
+        return xs.reshape(batch + (n,)), _solvers.SolveInfo(*(
+            t.reshape(batch) if t.dim() == 1 and t.shape[0] == lanes else t
+            for t in info))
 
     # -- pattern helpers -----------------------------------------------------
     def nbytes(self) -> int:

@@ -246,6 +246,9 @@ class MultigridPreconditioner:
         return mg
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        """One V-cycle on r (n,); on (k, n) rows one V-cycle per row."""
+        if r.dim() == 2:
+            return torch.stack([self(ri) for ri in r])
         ng = self.sizes[0]
         return v_cycle(self._hier, r.reshape(ng, ng)).reshape(-1)
 
@@ -489,4 +492,7 @@ class AMGPreconditioner:
         self.levels = amg_hierarchy(art, state)
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        """One V-cycle on r (n,); on (k, n) rows one V-cycle per row."""
+        if r.dim() == 2:
+            return torch.stack([self(ri) for ri in r])
         return v_cycle(self.levels, r)

@@ -11,7 +11,7 @@ engine does — analyze once, refresh values every step:
   ``PLAN_STATS["jac_color"]``.  Each Newton step recovers the exact nnz
   values with ONE probe sweep, ``torch.func.vmap`` over ``torch.func.jvp``
   (``PLAN_STATS["jac_assemble"]``): the kernel wrappers' ``vmap`` rules run
-  one single-vector kernel launch per color.  A user ``assemble_jacobian``
+  the colors' probes as one launch of the lane-batched kernel.  A user ``assemble_jacobian``
   callback replaces the sweep when a closed form is cheaper.
 * **one plan serves every step**: the inner solve dispatches through the
   pattern's cached :class:`~repro_torch.core.dispatch.SolverPlan` (direct,

@@ -22,6 +22,11 @@ run per solve):
 * ``ilu`` — ILU(0)/IC(0) on the direct solver's machinery: the
   ``incomplete=True`` symbolic program at analyze time, its numeric
   factorization per values tensor, the factored solve as M⁻¹.
+
+Lanes: ``none``, ``jacobi`` and ``block_jacobi`` set up from stacked values
+(B, nnz) in one pass (a (B, n) diagonal, a batched block inverse); every
+apply takes (k, n) rows.  Batched values through ``chebyshev``, ``mg``,
+``amg`` and ``ilu`` are slice 5b of the port and raise.
 """
 from __future__ import annotations
 
@@ -35,6 +40,8 @@ __all__ = ["identity", "jacobi", "chebyshev", "estimate_spectrum",
 
 PRECONDITIONERS = ("none", "identity", "jacobi", "block_jacobi", "chebyshev",
                    "mg", "amg", "ilu")
+#: preconditioners whose setup takes stacked values (B, nnz)
+BATCHED_SETUP = ("none", "jacobi", "block_jacobi")
 
 
 def identity():
@@ -66,24 +73,28 @@ def _bj_indices(row: np.ndarray, col: np.ndarray, block: int):
 
 def _bj_assemble(val: torch.Tensor, safe: torch.Tensor, same: torch.Tensor,
                  nb: int, block: int) -> torch.Tensor:
-    """Scatter the diagonal-block entries into (nb, B, B); off-block
-    entries add an explicit zero into slot 0, structurally empty diagonal
-    slots (the padded tail rows) become 1."""
+    """Scatter the diagonal-block entries of ``val`` (..., nnz) into
+    (..., nb, B, B); off-block entries add an explicit zero into slot 0,
+    structurally empty diagonal slots (the padded tail rows) become 1."""
     contrib = torch.where(same, val, torch.zeros_like(val))
-    blocks = val.new_zeros(nb * block * block).index_add_(0, safe, contrib)
-    blocks = blocks.reshape(nb, block, block)
+    blocks = val.new_zeros(val.shape[:-1] + (nb * block * block,))
+    blocks = blocks.index_add_(-1, safe, contrib)
+    blocks = blocks.reshape(val.shape[:-1] + (nb, block, block))
     ar = torch.arange(block, device=val.device)
-    d = blocks[:, ar, ar]
-    blocks[:, ar, ar] = torch.where(d.abs() < 1e-12, torch.ones_like(d), d)
+    d = blocks[..., ar, ar]
+    blocks[..., ar, ar] = torch.where(d.abs() < 1e-12, torch.ones_like(d), d)
     return blocks
 
 
 def _bj_apply(inv: torch.Tensor, n: int, nb: int, block: int):
+    """Block-Jacobi apply: ``inv`` (nb, B, B), or (L, nb, B, B) for lanes
+    with their own values; r (n,) or (L, n) rows."""
     def apply(rvec):
         rp = torch.nn.functional.pad(rvec, (0, nb * block - n))
-        out = torch.bmm(inv, rp.reshape(nb, block, 1)).reshape(nb * block)
-        return out[:n]
+        out = torch.matmul(inv, rp.reshape(rp.shape[:-1] + (nb, block, 1)))
+        return out.reshape(rp.shape)[..., :n]
     return apply
+
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +217,14 @@ class PreconditionerPlan:
         return None
 
     def refresh_state(self, A, matvec: Callable) -> tuple:
-        """Values-dependent stage, arrays only."""
+        """Values-dependent stage, arrays only.  Stacked values (B, nnz)
+        give lane-stacked state for the :data:`BATCHED_SETUP`
+        preconditioners."""
+        if A.val.dim() > 1 and self.name not in BATCHED_SETUP:
+            raise NotImplementedError(
+                f"batched values with precond={self.name!r} come with slice "
+                f"5b of the PyTorch port (batched MG, AMG, Chebyshev and ILU "
+                f"setups); use one of {BATCHED_SETUP} or solve lane by lane")
         if self.name == "none":
             return ()
         if self.name == "jacobi":
@@ -235,9 +253,11 @@ class PreconditionerPlan:
 
     def make_apply(self, state, matvec: Callable,
                    fused: bool = False) -> Callable:
-        """Apply closure over a :meth:`refresh_state` tuple.  ``fused``
-        routes Chebyshev's inner step through ``fused_cheb_step``; it is a
-        solve-time decision, never part of the state."""
+        """Apply closure over a :meth:`refresh_state` tuple; it takes r
+        (n,) or (k, n) rows (MG, AMG: one V-cycle per row; ILU: one
+        multi-rhs factored solve).  ``fused`` routes Chebyshev's inner step
+        through ``fused_cheb_step``; it is a solve-time decision, never part
+        of the state."""
         if self.name == "none":
             return identity()
         if self.name == "jacobi":
@@ -259,7 +279,12 @@ class PreconditionerPlan:
             from . import direct as _direct
             art = self._ilu
             (C,) = state
-            return lambda r: _direct.factored_solve(art, C, r)
+
+            def ilu(r):
+                if r.dim() == 1:
+                    return _direct.factored_solve(art, C, r)
+                return _direct.factored_solve(art, C, r.T).T
+            return ilu
         if self.name == "amg":
             from .multigrid import AMGPreconditioner
             return AMGPreconditioner(self._amg, state)

@@ -17,6 +17,11 @@ reads it once per step and LOBPCG once per iteration (its small ``eigh``
 calls synchronize the host on CUDA anyway); Picard and Anderson gate their
 state like the Krylov loops.
 
+CG and BiCGStab (plain and fused) are batch-native on (B, n) lanes, with a
+per-lane active mask, per-lane iteration counts on the device and one host
+read of ``any(active)`` per check window — the reference's ``vmap`` of its
+while_loop.  ``block_cg`` couples k right-hand sides of one matrix.
+
 ``cg_scan`` is the deliberately naive fixed-k CG that autograd unrolls (the
 O(k)-graph baseline of the paper's Fig. 2); ``lanczos`` feeds the Chebyshev
 bounds and ``eigsh_lanczos``; ``eigh_pinv_solve`` is the pseudo-inverse
@@ -32,8 +37,8 @@ import torch
 
 __all__ = [
     "SolveInfo", "SolveResult", "as_solve_result", "cg", "cg_fused",
-    "bicgstab", "bicgstab_fused", "gmres", "cg_scan", "eigh_pinv_solve",
-    "lanczos", "dense_solve", "CHECK_EVERY", "seeded_normal",
+    "bicgstab", "bicgstab_fused", "block_cg", "gmres", "cg_scan",
+    "eigh_pinv_solve", "lanczos", "dense_solve", "CHECK_EVERY", "seeded_normal",
     "newton_solve", "picard_solve", "anderson_solve", "lobpcg_general",
     "lobpcg", "eigsh_lanczos",
 ]
@@ -72,31 +77,56 @@ def _identity(x):
 
 
 def _dot(u, v):
-    return torch.dot(u, v)
+    """<u, v> — over the last axis, one value per lane for (B, n) lanes."""
+    if u.dim() == 1 and v.dim() == 1:
+        return torch.dot(u, v)
+    return (u * v).sum(-1)
+
+
+def _kdot(u, v):
+    """<u, v> through the ``fused_dots2`` kernel — the fused solvers' dot:
+    lane b of a (B, n) call equals the (n,) call on lane b bit for bit
+    (``torch.dot`` and a batched sum do not round alike), so each lane of a
+    batched fused solve follows its single solve exactly, iteration count
+    included (BiCGStab's count moves with the last bits of its dots)."""
+    from ..kernels import solve_step as _fk
+    return _fk.fused_dots2(u.contiguous(), v.contiguous())[0]
+
+
+def _col(t):
+    """A per-lane scalar (shape ``(B,)`` or 0-dim) as a column that
+    broadcasts against the lanes' vectors."""
+    return t[..., None]
 
 
 def _keep(on, new, old):
-    """``new`` where the loop is still active, else ``old`` (no host sync)."""
+    """``new`` where the loop (or its lane) is still active, else ``old``
+    (no host sync); ``on`` is 0-dim or one flag per lane."""
+    if on.dim() and new.dim() > on.dim():
+        on = on.reshape(on.shape + (1,) * (new.dim() - on.dim()))
     return torch.where(on, new, old)
 
 
 def _loop(cond: Callable, body: Callable, state: tuple,
           every: Optional[int] = None) -> tuple:
-    """``lax.while_loop(cond, body, state)`` with a device-side active flag.
+    """``lax.while_loop(cond, body, state)`` with a device-side active flag
+    — one flag per lane for lane-batched loops (the reference's ``vmap`` of
+    its while_loop).
 
-    ``cond(state)`` is a 0-dim bool tensor; ``body(state, active)`` returns
-    the next state and must leave every quantity the caller reads after the
-    loop unchanged when ``active`` (0-dim int32) is 0.  Since the flag only
-    ever drops, the state after the loop is that of the first iteration
+    ``cond(state)`` is a bool tensor (0-dim, or one per lane);
+    ``body(state, active)`` returns the next state and must leave every
+    quantity the caller reads after the loop unchanged where ``active``
+    (int32, the shape of ``cond``) is 0.  Since a flag only ever drops, the
+    state after the loop is, lane by lane, that of the first iteration
     where ``cond`` failed, however late the host notices.  The host reads
-    the flag every ``every`` bodies (default: ``CHECK_EVERY`` of the
-    device type)."""
+    ``any(active)`` every ``every`` bodies (default: ``CHECK_EVERY`` of the
+    device type) and stops when every lane is done."""
     if every is None:
         every = CHECK_EVERY.get(state[0].device.type, 1)
     active = cond(state).to(torch.int32)
     it = 0
     while True:
-        if it % every == 0 and not bool(active):
+        if it % every == 0 and not bool(active.any()):
             break
         state = body(state, active)
         active = active * cond(state).to(torch.int32)
@@ -105,8 +135,14 @@ def _loop(cond: Callable, body: Callable, state: tuple,
 
 
 def _target(b, tol, atol, dot):
+    """Per-lane convergence target ``max(tol·‖b‖, atol)``."""
     bnorm = torch.sqrt(dot(b, b))
     return torch.clamp_min(tol * bnorm, atol)
+
+
+def _count0(b):
+    """Per-lane iteration counters, kept on the device."""
+    return torch.zeros(b.shape[:-1], dtype=torch.int64, device=b.device)
 
 
 def eigh_pinv_solve(G: torch.Tensor, rhs: torch.Tensor, *,
@@ -128,6 +164,12 @@ def eigh_pinv_solve(G: torch.Tensor, rhs: torch.Tensor, *,
 
 # ---------------------------------------------------------------------------
 # Krylov solvers
+#
+# cg, bicgstab, cg_fused and bicgstab_fused are batch-native: ``b`` is (n,)
+# or (B, n) lanes, each lane its own system (``matvec`` and ``M`` map (B, n)
+# to (B, n)).  Scalars, targets and iteration counts are then (B,); a lane
+# whose residual meets its target stops changing while the others iterate,
+# and ``SolveInfo`` carries (B,) ``iters``, ``resnorm`` and ``converged``.
 # ---------------------------------------------------------------------------
 
 def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
@@ -141,7 +183,6 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     target = _target(b, tol, atol, dot)
     r0 = b - matvec(x0)
     z0 = M(r0)
-    k0 = torch.zeros((), dtype=torch.int64, device=b.device)
 
     def cond(st):
         x, r, p, rz, k = st
@@ -152,16 +193,17 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         x, r, p, rz, k = st
         on = act != 0
         Ap = matvec(p)
-        alpha = rz / dot(p, Ap)
+        alpha = _col(rz / dot(p, Ap))
         xn = x + alpha * p
         rn = r - alpha * Ap
         z = M(rn)
         rz_new = dot(rn, z)
-        pn = z + (rz_new / rz) * p
+        pn = z + _col(rz_new / rz) * p
         return (_keep(on, xn, x), _keep(on, rn, r), _keep(on, pn, p),
                 _keep(on, rz_new, rz), k + act)
 
-    x, r, p, rz, k = _loop(cond, body, (x0, r0, z0, dot(r0, z0), k0))
+    x, r, p, rz, k = _loop(cond, body,
+                           (x0, r0, z0, dot(r0, z0), _count0(b)))
     rn = torch.sqrt(dot(r, r))
     return x, SolveInfo(k, rn, rn <= target)
 
@@ -189,28 +231,28 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
         rho = dot(rhat, r)
         rr = dot(r, r)
         restart = (torch.abs(rho) < 1e-12 * rr) | fresh
-        rhat = torch.where(restart, r, rhat)
+        rhat = torch.where(_col(restart), r, rhat)
         rho = torch.where(restart, rr, rho)
         beta = (rho / (rho_prev + eps)) * (alpha / (omega + eps))
         beta = torch.where(restart, zero, beta)
-        p = torch.where(restart, r, r + beta * (p - omega * v))
+        p = torch.where(_col(restart), r,
+                        r + _col(beta) * (p - _col(omega) * v))
         phat = M(p)
         v = matvec(phat)
         alpha = rho / (dot(rhat, v) + eps)
-        s = r - alpha * v
+        s = r - _col(alpha) * v
         shat = M(s)
         t = matvec(shat)
         omega_new = dot(t, s) / (dot(t, t) + eps)
-        xn = x + alpha * phat + omega_new * shat
-        rn = s - omega_new * t
+        xn = x + _col(alpha) * phat + _col(omega_new) * shat
+        rn = s - _col(omega_new) * t
         return (_keep(on, xn, x), _keep(on, rn, r), rhat, p, v, rho, alpha,
                 omega_new, k + act, torch.zeros_like(fresh))
 
     z = torch.zeros_like(b)
-    one = torch.ones((), dtype=b.dtype, device=b.device)
-    k0 = torch.zeros((), dtype=torch.int64, device=b.device)
-    fresh = torch.ones((), dtype=torch.bool, device=b.device)
-    st0 = (x0, r0, r0, z, z, one, one, one, k0, fresh)
+    one = torch.ones(b.shape[:-1], dtype=b.dtype, device=b.device)
+    fresh = torch.ones(b.shape[:-1], dtype=torch.bool, device=b.device)
+    st0 = (x0, r0, r0, z, z, one, one, one, _count0(b), fresh)
     x, r, *_, k, _ = _loop(cond, body, st0)
     rn = torch.sqrt(dot(r, r))
     return x, SolveInfo(k, rn, rn <= target)
@@ -223,25 +265,29 @@ def cg_fused(matvec: Callable, b: torch.Tensor,
              min_iter: int = 0):
     """CG with the iteration fused into the step kernels.
 
-    With a diagonal preconditioner (``dinv`` given) this is the merged
-    Chronopoulos–Gear recurrence: α' = ρ'/(δ − βρ'/α) with δ = <Az, z>, so
-    each iteration is one matvec plus exactly two fused vector sweeps
-    (``fused_cg_update`` and ``fused_cg_direction``), which update x, r, p
-    and s in place.  Without ``dinv`` the textbook recurrence is kept and
-    only the axpy/convergence-dot passes fuse (``fused_cg_halfstep``)."""
+    With a diagonal preconditioner (``dinv`` given: (n,), or (B, n) for
+    lanes with their own values) this is the merged Chronopoulos–Gear
+    recurrence: α' = ρ'/(δ − βρ'/α) with δ = <Az, z>, so each iteration is
+    one matvec plus exactly two fused vector sweeps (``fused_cg_update``
+    and ``fused_cg_direction``), which update x, r, p and s in place.
+    Without ``dinv`` the textbook recurrence is kept and only the
+    axpy/convergence-dot passes fuse (``fused_cg_halfstep``).  Every other
+    dot is a ``fused_dots2`` pass (:func:`_kdot`).  On (B, n) lanes every
+    pass is one lane-batched launch."""
     from ..kernels import solve_step as _fk
 
-    dot = _dot
+    dot = _kdot
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     target = _target(b, tol, atol, dot)
     eps = torch.tensor(1e-30, dtype=b.dtype, device=b.device)
     r = b - matvec(x)
     rr0 = dot(r, r)
-    k0 = torch.zeros((), dtype=torch.int64, device=b.device)
+    k0 = _count0(b)
 
     def cond(st):
         rr, k = st[-2], st[-1]
-        return (k < maxiter) & ((torch.sqrt(rr) > target) | (k < min_iter))
+        go = (k < maxiter) & (torch.sqrt(rr) > target)
+        return go | ((k < maxiter) & (k < min_iter)) if min_iter else go
 
     if dinv is not None:
         p = dinv * r
@@ -277,7 +323,7 @@ def cg_fused(matvec: Callable, b: torch.Tensor,
                                                  out=(x, r), active=act)
             z = M(r)
             rz_new = dot(r, z)
-            pn = z + (rz_new / (rz + eps)) * p
+            pn = z + _col(rz_new / (rz + eps)) * p
             return (pn, _keep(on, rz_new, rz), _keep(on, rr_new, rr), k + act)
 
         *_, rr, k = _loop(cond, body, (p, rz0, rr0, k0))
@@ -294,10 +340,12 @@ def bicgstab_fused(matvec: Callable, b: torch.Tensor,
     """BiCGStab with fused step kernels: ``fused_bicg_p`` / ``fused_bicg_s``
     (diagonal preconditioner folded in), ``fused_dots2`` (ω numerator and
     denominator in one read) and ``fused_bicg_tail`` (x/r updates plus next
-    iteration's <r̂,r'> and the convergence dot <r',r'>)."""
+    iteration's <r̂,r'> and the convergence dot <r',r'>); its other dots are
+    ``fused_dots2`` passes too (:func:`_kdot`).  Lane-batched on (B, n) as
+    :func:`cg_fused` is."""
     from ..kernels import solve_step as _fk
 
-    dot = _dot
+    dot = _kdot
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     target = _target(b, tol, atol, dot)
     eps = torch.tensor(1e-30, dtype=b.dtype, device=b.device)
@@ -318,7 +366,7 @@ def bicgstab_fused(matvec: Callable, b: torch.Tensor,
         on = act != 0
         # ρ = <r̂, r> was computed by last iteration's tail pass (rho_c)
         restart = (torch.abs(rho_c) < 1e-12 * rr) | fresh
-        rhat = torch.where(restart, r, rhat)
+        rhat = torch.where(_col(restart), r, rhat)
         rho = torch.where(restart, rr, rho_c)
         beta = (rho / (rho_prev + eps)) * (alpha / (omega + eps))
         beta = torch.where(restart, zero, beta)
@@ -327,7 +375,8 @@ def bicgstab_fused(matvec: Callable, b: torch.Tensor,
                                      restart.to(b.dtype), out=(p, phat),
                                      active=act)
         else:
-            p = torch.where(restart, r, r + beta * (p - omega * v))
+            p = torch.where(_col(restart), r,
+                            r + _col(beta) * (p - _col(omega) * v))
             ph = M(p)
         v = matvec(ph)
         alpha = rho / (dot(rhat, v) + eps)
@@ -335,7 +384,7 @@ def bicgstab_fused(matvec: Callable, b: torch.Tensor,
             sv, sh = _fk.fused_bicg_s(r, v, dinv, alpha, out=(s, shat),
                                       active=act)
         else:
-            sv = r - alpha * v
+            sv = r - _col(alpha) * v
             sh = M(sv)
         t = matvec(sh)
         ts, tt = _fk.fused_dots2(t, sv)
@@ -346,13 +395,65 @@ def bicgstab_fused(matvec: Callable, b: torch.Tensor,
                 _keep(on, rr_new, rr), k + act, torch.zeros_like(fresh))
 
     z = torch.zeros_like(b)
-    one = torch.ones((), dtype=b.dtype, device=b.device)
-    k0 = torch.zeros((), dtype=torch.int64, device=b.device)
-    fresh = torch.ones((), dtype=torch.bool, device=b.device)
-    st0 = (r.clone(), z, z, one, rr0, one, one, rr0, k0, fresh)
+    one = torch.ones(b.shape[:-1], dtype=b.dtype, device=b.device)
+    fresh = torch.ones(b.shape[:-1], dtype=torch.bool, device=b.device)
+    st0 = (r.clone(), z, z, one, rr0, one, one, rr0, _count0(b), fresh)
     *_, rr, k, _ = _loop(cond, body, st0)
     rn = torch.sqrt(rr)
     return x, SolveInfo(k, rn, rn <= target)
+
+
+def block_cg(matvec: Callable, B: torch.Tensor,
+             X0: Optional[torch.Tensor] = None, *, M: Callable = _identity,
+             tol: float = 1e-6, atol: float = 0.0, maxiter: int = 1000,
+             ridge: float = 1e-12):
+    """Block conjugate gradient (O'Leary 1980) for k right-hand sides of one
+    SPD matrix: ``B`` is (k, n), and ``matvec`` / ``M`` map a (k, n) block
+    (one SpMM a matvec).  The k directions are coupled through (k, k) Gram
+    solves, so the block takes about the iterations of its hardest column.
+    Targets are per column (``max(tol·‖bᵢ‖, atol)``); the loop runs until
+    every column meets its own.  Converged or dependent columns make the
+    Gram matrices singular: they are solved by :func:`eigh_pinv_solve`
+    (relative cutoff), so such a column goes inert instead of amplifying
+    roundoff.  The Gram products are ``torch.matmul``, as the reference
+    computes them outside any kernel.  Returns ``(X, SolveInfo)`` with
+    per-column ``resnorm``/``converged`` and one shared iteration count."""
+    if B.dim() != 2:
+        raise ValueError(f"block_cg expects B of shape (k, n), got "
+                         f"{tuple(B.shape)}")
+    X0 = torch.zeros_like(B) if X0 is None else X0
+    target = torch.clamp_min(tol * torch.linalg.norm(B, dim=1), atol)
+
+    def gram_solve(G, rhs):
+        # PᵀAP and ZᵀR are symmetric for SPD A and symmetric M, up to
+        # roundoff — symmetrize and pseudo-invert
+        return eigh_pinv_solve(G, rhs, ridge=ridge)
+
+    R0 = B - matvec(X0)
+    Z0 = M(R0)
+    it0 = torch.zeros((), dtype=torch.int64, device=B.device)
+
+    def cond(st):
+        X, R, P, rho, it = st
+        return (it < maxiter) & torch.any(torch.linalg.norm(R, dim=1) > target)
+
+    def body(st, act):
+        X, R, P, rho, it = st
+        on = act != 0
+        Q = matvec(P)
+        alpha = gram_solve(P @ Q.T, rho)       # (PᵀAP)⁻¹ ZᵀR, row convention
+        Xn = X + alpha.T @ P
+        Rn = R - alpha.T @ Q
+        Z = M(Rn)
+        rho_new = Z @ Rn.T
+        beta = gram_solve(rho, rho_new)
+        Pn = Z + beta.T @ P
+        return (_keep(on, Xn, X), _keep(on, Rn, R), _keep(on, Pn, P),
+                _keep(on, rho_new, rho), it + act)
+
+    X, R, P, rho, it = _loop(cond, body, (X0, R0, Z0, Z0 @ R0.T, it0))
+    rn = torch.linalg.norm(R, dim=1)
+    return X, SolveInfo(it, rn, rn <= target)
 
 
 def _hessenberg_lstsq(H: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -748,12 +849,14 @@ def eigsh_lanczos(matvec: Callable, n: int, k: int, *, num_steps: int = 64,
 
 
 def dense_solve(A_dense: torch.Tensor, b: torch.Tensor, method: str = "lu"):
-    """Dense direct solve (torch.linalg): Cholesky or LU."""
+    """Dense direct solve (torch.linalg): Cholesky or LU.  ``A_dense``
+    (n, n) or (B, n, n), ``b`` (n,) or (k, n) rows broadcasting with it."""
     if method == "cholesky":
         L = torch.linalg.cholesky(A_dense)
         x = torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
     else:
-        x = torch.linalg.solve(A_dense, b)
-    return x, SolveInfo(torch.ones((), dtype=torch.int64, device=b.device),
-                        torch.zeros((), dtype=b.dtype, device=b.device),
-                        torch.ones((), dtype=torch.bool, device=b.device))
+        x = torch.linalg.solve(A_dense, b.unsqueeze(-1)).squeeze(-1)
+    lanes = x.shape[:-1]
+    return x, SolveInfo(torch.ones(lanes, dtype=torch.int64, device=b.device),
+                        torch.zeros(lanes, dtype=b.dtype, device=b.device),
+                        torch.ones(lanes, dtype=torch.bool, device=b.device))

@@ -8,8 +8,12 @@ The numpy symbolic helpers
 the algebraic-multigrid pattern passes :func:`aggregate_pattern`,
 :func:`spgemm_program`, :func:`tentative_coarse_pattern`, and the Jacobian
 coloring :func:`color_pattern`) are kept as copies
-of the reference's so analyze artifacts compare array for array.  Leading batch dimensions on ``val`` are accepted by the COO products;
-batched *solves* come with a later slice.
+of the reference's so analyze artifacts compare array for array.
+
+Batches: ``val`` may carry leading batch dimensions ``(*batch, nnz)`` that
+share one pattern (one analyzed plan, one batched setup; ``solve`` and
+``matvec`` take them, as do the kernels).  :class:`SparseTensorList` holds
+matrices of *distinct* patterns, each dispatched on its own.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ from ._device import resolve_device, to_numpy
 
 __all__ = [
     "SparseTensor",
+    "SparseTensorList",
+    "sum_to_shape",
     "BellMeta",
     "coo_matvec",
     "coo_rmatvec",
@@ -39,6 +45,19 @@ __all__ = [
     "tentative_coarse_pattern",
     "color_pattern",
 ]
+
+
+def sum_to_shape(x: torch.Tensor, shape) -> torch.Tensor:
+    """Reverse broadcasting: sum ``x`` down to ``shape`` (the gradient of
+    an operand that was broadcast over batch lanes)."""
+    shape = tuple(shape)
+    if tuple(x.shape) == shape:
+        return x
+    extra = x.dim() - len(shape)
+    if extra:
+        x = x.sum(dim=tuple(range(extra)))
+    axes = tuple(i for i, (a, b) in enumerate(zip(x.shape, shape)) if a != b)
+    return x.sum(dim=axes, keepdim=True) if axes else x
 
 
 def has_full_diagonal(row, col, n: int) -> bool:
@@ -561,12 +580,16 @@ class SparseTensor:
         """Differentiable solve of ``A x = b`` through the plan engine.
 
         ``backend`` ∈ {auto, dense, direct, jnp, pallas, stencil};
-        ``method`` ∈ {cg, bicgstab, gmres} on the iterative backends;
-        ``precond`` ∈ {none, jacobi, block_jacobi, chebyshev, mg, amg, ilu}
-        there (``mg`` needs the stencil layout; ``ilu`` is ILU(0)/IC(0) on
-        the direct solver's machinery).  Gradients
-        w.r.t. ``val`` and ``b`` come from ONE adjoint solve; the direct
-        backend's adjoint runs on the forward's factors."""
+        ``method`` ∈ {cg, bicgstab, gmres, block_cg} on the iterative
+        backends; ``precond`` ∈ {none, jacobi, block_jacobi, chebyshev, mg,
+        amg, ilu} there (``mg`` needs the stencil layout; ``ilu`` is
+        ILU(0)/IC(0) on the direct solver's machinery).  ``b`` may carry
+        leading batch dims (multiple right-hand sides share one setup — one
+        factorization serves them all; ``block_cg`` couples them in one
+        block Krylov solve), and ``val`` may carry stacked values sharing the
+        pattern (one analyze, one batched setup).  Gradients w.r.t. ``val``
+        and ``b`` come from ONE adjoint solve; the direct backend's adjoint
+        runs on the forward's factors."""
         from . import adjoint, dispatch
         cfg = dispatch.make_config(self, backend=backend, method=method,
                                    tol=tol, atol=atol, maxiter=maxiter,
@@ -600,3 +623,40 @@ class SparseTensor:
                 f"batch={self.batch_shape}, dtype={self.dtype}, "
                 f"device={self.device}, sym={self.props.get('symmetric')}, "
                 f"bell={self.bell is not None})")
+
+
+# ---------------------------------------------------------------------------
+# SparseTensorList — distinct sparsity patterns
+# ---------------------------------------------------------------------------
+
+class SparseTensorList:
+    """A batch of matrices with *distinct* patterns (graph minibatches,
+    irregular meshes).  Each element dispatches on its own plan with its own
+    adjoint — the semantics of torch-sla's ``SparseTensorList``."""
+
+    def __init__(self, tensors: Sequence[SparseTensor]):
+        self.tensors = list(tensors)
+
+    def __len__(self):
+        return len(self.tensors)
+
+    def __getitem__(self, i):
+        return self.tensors[i]
+
+    def solve(self, bs, **kw):
+        """``[A_i.solve(b_i, **kw)]``: one differentiable solve each."""
+        if len(bs) != len(self.tensors):
+            raise ValueError(f"{len(bs)} right-hand sides for "
+                             f"{len(self.tensors)} matrices")
+        return [A.solve(b, **kw) for A, b in zip(self.tensors, bs)]
+
+    def matvec(self, xs):
+        """``[A_i @ x_i]``."""
+        if len(xs) != len(self.tensors):
+            raise ValueError(f"{len(xs)} vectors for {len(self.tensors)} "
+                             f"matrices")
+        return [A.matvec(x) for A, x in zip(self.tensors, xs)]
+
+    def eigsh(self, k: int = 6, **kw):
+        """``[A_i.eigsh(k, **kw)]``."""
+        return [A.eigsh(k, **kw) for A in self.tensors]

@@ -45,13 +45,19 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _LP = ctypes.POINTER(ctypes.c_longlong)
+_IP = ctypes.POINTER(ctypes.c_int)
 
 _SIGNATURES = {
     "stencil5_f32": [_P, _P, _P, _I, _I, _P],
     "stencil5_f64": [_P, _P, _P, _I, _I, _P],
+    "stencil5_lanes_f32": [_P, _P, _P, _I, _I, _I, _L, _P],
+    "stencil5_lanes_f64": [_P, _P, _P, _I, _I, _I, _L, _P],
     "bell_spmv_f32": [_P, _P, _P, _P, _P, _L, _P],
     "bell_spmv_f64": [_P, _P, _P, _P, _P, _L, _P],
-    "fused_step": [_I, _I, _PP, _PP, _PP, _P, _P, _P, _L, _I, _P],
+    "bell_spmv_lanes_f32": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P],
+    "bell_spmv_lanes_f64": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P],
+    "fused_step": [_I, _I, _PP, _PP, _PP, _LP, _IP, _P, _P, _P, _L, _I, _I,
+                   _P],
     "sn_panel_factor": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P],
     "sn_schur_update": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

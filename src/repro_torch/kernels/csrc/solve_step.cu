@@ -22,6 +22,17 @@
 //   which lets the host check convergence only every few iterations.
 //   Outputs may alias inputs element for element (in-place updates).
 //
+// * Lanes (the reference's jax.vmap of its while_loop, written out): the
+//   grid is (n_blocks(n), B) and blockIdx.y is the lane.  Each input is
+//   either (B, n) rows (stride n) or one (n,) vector shared by every lane
+//   (stride 0, e.g. the Jacobi diagonal of a multi-rhs solve); outputs are
+//   (B, n) rows; each scalar is one per lane or one for all; `active` is one
+//   int32 flag per lane; partials are (B, nblocks, n_dot) and one finish
+//   block per lane writes dots (B, n_dot).  A lane's blocks walk its row
+//   exactly as the single-vector launch (B = 1) walks the vector, with the
+//   same block count, so lane b's outputs and dots equal the single-vector
+//   kernel's on lane b bit for bit.
+//
 // Bound: bytes.  Each body reads and writes its listed n-vectors once
 // (e.g. fused_cg_update: 5 reads + 3 writes = 8 words per element, 268 MB
 // at n = 4.19M in f64, 80 us at 3.35 TB/s); the dots add O(blocks).
@@ -37,7 +48,9 @@ struct Args {
   const T* in[kMaxIn];
   T* out[kMaxOut];
   const T* sc[kMaxSc];
-  const int32_t* active;
+  long long in_stride[kMaxIn];  // elements between lanes: n, or 0 (shared)
+  int sc_stride[kMaxSc];        // 1: one scalar per lane, 0: one for all
+  const int32_t* active;        // one flag per lane, or null
   T* partials;
   long long n;
 };
@@ -129,10 +142,17 @@ struct BicgTail {  // x' = x + a p^ + w s^; r' = s - w t; <r^,r'>, <r',r'>
 // ---- the streaming template -------------------------------------------------
 template <typename T, typename B>
 __global__ void __launch_bounds__(kThreads) step_kernel(Args<T> a) {
+  const int lane = blockIdx.y;
   T s[kMaxSc];
 #pragma unroll
-  for (int j = 0; j < B::kSc; ++j) s[j] = *a.sc[j];
-  const bool write = (a.active == nullptr) || (*a.active != 0);
+  for (int j = 0; j < B::kSc; ++j) s[j] = a.sc[j][lane * a.sc_stride[j]];
+  const bool write = (a.active == nullptr) || (a.active[lane] != 0);
+  const T* in[kMaxIn];
+  T* out[kMaxOut];
+#pragma unroll
+  for (int j = 0; j < B::kIn; ++j) in[j] = a.in[j] + lane * a.in_stride[j];
+#pragma unroll
+  for (int j = 0; j < B::kOut; ++j) out[j] = a.out[j] + lane * a.n;
   T acc[kMaxDot];
 #pragma unroll
   for (int j = 0; j < kMaxDot; ++j) acc[j] = T(0);
@@ -140,11 +160,11 @@ __global__ void __launch_bounds__(kThreads) step_kernel(Args<T> a) {
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < a.n; i += stride) {
     T v[kMaxIn], o[kMaxOut], d[kMaxDot];
 #pragma unroll
-    for (int j = 0; j < B::kIn; ++j) v[j] = a.in[j][i];
+    for (int j = 0; j < B::kIn; ++j) v[j] = in[j][i];
     B::apply(v, s, o, d);
     if (write) {
 #pragma unroll
-      for (int j = 0; j < B::kOut; ++j) a.out[j][i] = o[j];
+      for (int j = 0; j < B::kOut; ++j) out[j][i] = o[j];
     }
 #pragma unroll
     for (int j = 0; j < B::kDot; ++j) acc[j] += d[j];
@@ -163,15 +183,18 @@ __global__ void __launch_bounds__(kThreads) step_kernel(Args<T> a) {
     }
     if (threadIdx.x == 0) {
 #pragma unroll
-      for (int j = 0; j < B::kDot; ++j) a.partials[blockIdx.x * B::kDot + j] = red[j][0];
+      for (int j = 0; j < B::kDot; ++j)
+        a.partials[((long long)lane * gridDim.x + blockIdx.x) * B::kDot + j] = red[j][0];
     }
   }
 }
 
-// second pass: one block sums the per-block partials in a fixed order
+// second pass: one block per lane sums its per-block partials in a fixed order
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 finish_kernel(const T* __restrict__ partials, int nblocks, T* __restrict__ dots) {
+  partials += (long long)blockIdx.x * nblocks * D;
+  dots += (long long)blockIdx.x * D;
   __shared__ T red[D][kThreads];
 #pragma unroll
   for (int j = 0; j < D; ++j) {
@@ -194,39 +217,49 @@ finish_kernel(const T* __restrict__ partials, int nblocks, T* __restrict__ dots)
 }
 
 template <typename T, typename B>
-int launch(void** in, void** out, void** sc, const void* active, void* partials,
-           void* dots, long long n, int nblocks, cudaStream_t stream) {
+int launch(void** in, void** out, void** sc, const long long* in_stride,
+           const int* sc_stride, const void* active, void* partials, void* dots,
+           long long n, int nblocks, int lanes, cudaStream_t stream) {
   Args<T> a = {};
-  for (int j = 0; j < B::kIn; ++j) a.in[j] = (const T*)in[j];
+  for (int j = 0; j < B::kIn; ++j) {
+    a.in[j] = (const T*)in[j];
+    a.in_stride[j] = in_stride[j];
+  }
   for (int j = 0; j < B::kOut; ++j) a.out[j] = (T*)out[j];
-  for (int j = 0; j < B::kSc; ++j) a.sc[j] = (const T*)sc[j];
+  for (int j = 0; j < B::kSc; ++j) {
+    a.sc[j] = (const T*)sc[j];
+    a.sc_stride[j] = sc_stride[j];
+  }
   a.active = (const int32_t*)active;
   a.partials = (T*)partials;
   a.n = n;
-  if (nblocks < 1) return (int)cudaErrorInvalidValue;
-  step_kernel<T, B><<<nblocks, kThreads, 0, stream>>>(a);
+  if (nblocks < 1 || lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
+  step_kernel<T, B><<<dim3(nblocks, lanes), kThreads, 0, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if constexpr (B::kDot > 0) {
-    finish_kernel<T, B::kDot><<<1, kThreads, 0, stream>>>((const T*)partials, nblocks,
-                                                          (T*)dots);
+    finish_kernel<T, B::kDot><<<lanes, kThreads, 0, stream>>>((const T*)partials,
+                                                              nblocks, (T*)dots);
     e = cudaGetLastError();
   }
   return (int)e;
 }
 
+#define STEP_ARGS in, out, sc, in_stride, sc_stride, active, partials, dots, n, nblocks, lanes, st
+
 template <typename T>
-int dispatch(int body, void** in, void** out, void** sc, const void* active,
-             void* partials, void* dots, long long n, int nblocks, cudaStream_t st) {
+int dispatch(int body, void** in, void** out, void** sc, const long long* in_stride,
+             const int* sc_stride, const void* active, void* partials, void* dots,
+             long long n, int nblocks, int lanes, cudaStream_t st) {
   switch (body) {
-    case 0: return launch<T, CgUpdate>(in, out, sc, active, partials, dots, n, nblocks, st);
-    case 1: return launch<T, CgDirection>(in, out, sc, active, partials, dots, n, nblocks, st);
-    case 2: return launch<T, CgHalfstep>(in, out, sc, active, partials, dots, n, nblocks, st);
-    case 3: return launch<T, ChebStep>(in, out, sc, active, partials, dots, n, nblocks, st);
-    case 4: return launch<T, Dots2>(in, out, sc, active, partials, dots, n, nblocks, st);
-    case 5: return launch<T, BicgP>(in, out, sc, active, partials, dots, n, nblocks, st);
-    case 6: return launch<T, BicgS>(in, out, sc, active, partials, dots, n, nblocks, st);
-    case 7: return launch<T, BicgTail>(in, out, sc, active, partials, dots, n, nblocks, st);
+    case 0: return launch<T, CgUpdate>(STEP_ARGS);
+    case 1: return launch<T, CgDirection>(STEP_ARGS);
+    case 2: return launch<T, CgHalfstep>(STEP_ARGS);
+    case 3: return launch<T, ChebStep>(STEP_ARGS);
+    case 4: return launch<T, Dots2>(STEP_ARGS);
+    case 5: return launch<T, BicgP>(STEP_ARGS);
+    case 6: return launch<T, BicgS>(STEP_ARGS);
+    case 7: return launch<T, BicgTail>(STEP_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -234,12 +267,14 @@ int dispatch(int body, void** in, void** out, void** sc, const void* active,
 }  // namespace
 
 // body: 0 cg_update, 1 cg_direction, 2 cg_halfstep, 3 cheb_step, 4 dots2,
-//       5 bicg_p, 6 bicg_s, 7 bicg_tail;  dtype: 0 float32, 1 float64
+//       5 bicg_p, 6 bicg_s, 7 bicg_tail;  dtype: 0 float32, 1 float64;
+// lanes: rows of the outputs; in_stride / sc_stride: see Args
 REPRO_EXPORT int fused_step(int body, int dtype, void** in, void** out, void** sc,
+                            const long long* in_stride, const int* sc_stride,
                             const void* active, void* partials, void* dots, long long n,
-                            int nblocks, void* stream) {
+                            int nblocks, int lanes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float>(body, in, out, sc, active, partials, dots, n, nblocks, st);
-  if (dtype == 1) return dispatch<double>(body, in, out, sc, active, partials, dots, n, nblocks, st);
+  if (dtype == 0) return dispatch<float>(body, STEP_ARGS);
+  if (dtype == 1) return dispatch<double>(body, STEP_ARGS);
   return (int)cudaErrorInvalidValue;
 }

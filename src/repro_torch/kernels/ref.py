@@ -102,6 +102,47 @@ def sell_matvec_ref(slice_ptr: torch.Tensor, cols: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Lane-batched forms (the reference's ``jax.vmap`` of its kernels), written
+# lane by lane over the single-vector versions above.  A lane-batched operand
+# is (B, ...); an operand without the leading lane axis is shared by every
+# lane.
+# ---------------------------------------------------------------------------
+
+def _lane(t, b, batched_dim):
+    return t[b] if t.dim() == batched_dim else t
+
+
+def sell_matvec_lanes_ref(slice_ptr, cols, vals, x, n):
+    """Sliced-ELL SpMV over lanes: ``vals`` (B, n_slots) or (n_slots,),
+    ``x`` (B, m) or (m,), at least one of them lane-batched; (B, n)."""
+    lanes = vals.shape[0] if vals.dim() == 2 else x.shape[0]
+    return torch.stack([sell_matvec_ref(slice_ptr, cols, _lane(vals, b, 2),
+                                        _lane(x, b, 2), n)
+                        for b in range(lanes)])
+
+
+def stencil5_lanes_ref(val5, x):
+    """Stencil over lanes: ``val5`` (B, 5, nx, ny) or (5, nx, ny) shared,
+    ``x`` (B, nx, ny) or (nx, ny), at least one lane-batched; (B, nx, ny)."""
+    lanes = val5.shape[0] if val5.dim() == 4 else x.shape[0]
+    return torch.stack([stencil5_ref(_lane(val5, b, 4), _lane(x, b, 3))
+                        for b in range(lanes)])
+
+
+def fused_step_lanes_ref(name, vecs, scalars, lanes):
+    """Fused step body ``name`` over ``lanes`` lanes: vectors (B, n) or
+    (n,) shared, scalars (B,) or one for all.  Returns the outputs stacked
+    to (B, n) and the dots stacked to (B,)."""
+    fn = globals()[name + "_ref"]
+    per_lane = []
+    for b in range(lanes):
+        sc = [s[b] if isinstance(s, torch.Tensor) and s.dim() == 1 else s
+              for s in scalars]
+        per_lane.append(fn(*[_lane(v, b, 2) for v in vecs], *sc))
+    return tuple(torch.stack(parts) for parts in zip(*per_lane))
+
+
+# ---------------------------------------------------------------------------
 # Supernodal panel kernels (kernels/supernode.py)
 #
 # Lane-batched forms of the reference's single-lane bodies: a Python loop

@@ -17,6 +17,17 @@ Two arguments the reference does not have serve the solver loops:
 Scalars may be Python numbers or 0-dim tensors on the vectors' device; the
 dots come back as 0-dim tensors on that device, so the loop never waits on
 the host for a coefficient.
+
+**Lanes** (the reference's ``jax.vmap`` of its Krylov loops, written out):
+when any vector is 2-D, the call is lane-batched.  Vectors are ``(B, n)``
+contiguous rows or one ``(n,)`` vector shared by every lane (the Jacobi
+diagonal of a multi-rhs solve); outputs are ``(B, n)``; a scalar is ``(B,)``
+(one per lane) or one for all; ``active`` is a ``(B,)`` int32 mask (a lane
+whose flag is 0 keeps its vector state); the dots come back as ``(B,)``
+tensors.  The same CUDA template runs with the lane on the grid's y axis
+and the single-vector block count, so lane b's results equal the
+single-vector call on lane b bit for bit.  These launches count under
+``<name>_batched``.
 """
 from __future__ import annotations
 
@@ -42,8 +53,9 @@ BODIES = {
     "fused_bicg_tail": (7, 6, 2, 2, 2),
 }
 
-#: launches of each body's CUDA kernel (plain integers; reset by the caller)
-LAUNCHES = dict.fromkeys(BODIES, 0)
+#: launches of each body's CUDA kernel, single-vector and lane-batched
+#: (plain integers; reset by the caller)
+LAUNCHES = dict.fromkeys(list(BODIES) + [k + "_batched" for k in BODIES], 0)
 
 
 def default_interpret(device=None) -> bool:
@@ -58,21 +70,41 @@ def n_blocks(n: int) -> int:
     return max(1, min(-(-n // THREADS), MAX_BLOCKS))
 
 
-def _scalar(s, like: torch.Tensor) -> torch.Tensor:
+def _scalar(s, like: torch.Tensor, lanes: int) -> torch.Tensor:
+    """A scalar operand on the vectors' device: 0-dim, or (lanes,) when
+    it carries one value per lane of a lane-batched call."""
     if isinstance(s, torch.Tensor):
-        if s.numel() != 1:
-            raise ValueError(f"scalar argument has shape {tuple(s.shape)}")
-        return s.reshape(()).to(device=like.device, dtype=like.dtype)
+        if s.numel() == 1:
+            return s.reshape(()).to(device=like.device, dtype=like.dtype)
+        if lanes and tuple(s.shape) == (lanes,):
+            return s.to(device=like.device, dtype=like.dtype).contiguous()
+        raise ValueError(f"scalar argument has shape {tuple(s.shape)}")
     return torch.full((), float(s), dtype=like.dtype, device=like.device)
 
 
-def _run_cpu(name, vecs, scalars, out, active, n_out):
-    res = getattr(_ref, name + "_ref")(*vecs, *scalars)
+def _lanes(vecs) -> int:
+    """Rows of a lane-batched call (0 for a single-vector call)."""
+    return max((v.shape[0] for v in vecs if v.dim() == 2), default=0)
+
+
+def _run_cpu(name, vecs, scalars, out=None, active=None):
+    """The plain version of body ``name`` with the kernel's ``out`` /
+    ``active`` semantics (the path for CPU tensors)."""
+    n_out = BODIES[name][3]
+    lanes = _lanes(vecs)
+    if not lanes:
+        res = getattr(_ref, name + "_ref")(*vecs, *scalars)
+    else:
+        res = _ref.fused_step_lanes_ref(name, vecs, scalars, lanes)
     if out is None:
         return res
-    if active is None or bool(active):
+    if active is None or (not lanes and bool(active)):
         for o, v in zip(out, res[:n_out]):
             o.copy_(v)
+    elif lanes:
+        keep = active.reshape(-1, 1) != 0
+        for o, v in zip(out, res[:n_out]):
+            o.copy_(torch.where(keep, v, o))
     return tuple(out) + tuple(res[n_out:])
 
 
@@ -80,41 +112,53 @@ def _run(name, vecs, scalars, out=None, active=None):
     bid, n_in, n_sc, n_out, n_dot = BODIES[name]
     v0 = vecs[0]
     if v0.device.type == "cpu":
-        return _run_cpu(name, vecs, scalars, out, active, n_out)
-    dev, dtype, n = v0.device, v0.dtype, v0.numel()
+        return _run_cpu(name, vecs, scalars, out, active)
+    lanes = _lanes(vecs)
+    dev, dtype, n = v0.device, v0.dtype, v0.shape[-1]
     tag = _build.cuda_dtype_tag(dtype)
+    rows = (lanes, n) if lanes else (n,)
     for v in vecs:
-        if v.device != dev or v.dtype != dtype or v.dim() != 1 \
-                or v.numel() != n or not v.is_contiguous():
+        if v.device != dev or v.dtype != dtype or not v.is_contiguous() \
+                or tuple(v.shape) not in ((n,), rows):
             raise ValueError(
-                f"{name}: every vector must be a contiguous 1-D {dtype} "
-                f"tensor of length {n} on {dev}")
-    sc = [_scalar(s, v0) for s in scalars]
+                f"{name}: every vector must be a contiguous {dtype} tensor "
+                f"of shape {rows} (or ({n},), shared by every lane) on {dev}")
+    sc = [_scalar(s, v0, lanes) for s in scalars]
     if out is None:
-        out = [torch.empty_like(v0) for _ in range(n_out)]
+        out = [v0.new_empty(rows) for _ in range(n_out)]
     elif len(out) != n_out or any(
-            o.device != dev or o.dtype != dtype or o.numel() != n
+            o.device != dev or o.dtype != dtype or tuple(o.shape) != rows
             or not o.is_contiguous() for o in out):
-        raise ValueError(f"{name}: out must be {n_out} contiguous vectors "
-                         f"like the inputs")
-    if active is not None and (active.device != dev or active.numel() != 1
-                               or active.dtype != torch.int32):
-        raise ValueError(f"{name}: active must be a 0-dim int32 tensor on {dev}")
+        raise ValueError(f"{name}: out must be {n_out} contiguous tensors "
+                         f"of shape {rows}")
+    if active is not None and (
+            active.device != dev or active.dtype != torch.int32
+            or tuple(active.shape) != ((lanes,) if lanes else ())):
+        raise ValueError(f"{name}: active must be an int32 tensor of shape "
+                         f"{(lanes,) if lanes else ()} on {dev}")
     nb = n_blocks(n)
-    partials = torch.empty(nb * n_dot, dtype=dtype, device=dev) if n_dot else None
-    dots = torch.empty(n_dot, dtype=dtype, device=dev) if n_dot else None
+    nl = max(lanes, 1)
+    partials = v0.new_empty(nl * nb * n_dot) if n_dot else None
+    dots = v0.new_empty(nl, n_dot) if n_dot else None
     ptrs_in = (ctypes.c_void_p * 6)(*[v.data_ptr() for v in vecs])
     ptrs_out = (ctypes.c_void_p * 3)(*[o.data_ptr() for o in out])
     ptrs_sc = (ctypes.c_void_p * 3)(*[s.data_ptr() for s in sc])
+    in_stride = (ctypes.c_longlong * 6)(*[n if v.dim() == 2 else 0
+                                          for v in vecs])
+    sc_stride = (ctypes.c_int * 3)(*[int(s.dim() == 1) for s in sc])
     rc = _build.lib().fused_step(
         bid, 0 if tag == "f32" else 1, ptrs_in, ptrs_out, ptrs_sc,
+        in_stride, sc_stride,
         None if active is None else active.data_ptr(),
         None if partials is None else partials.data_ptr(),
         None if dots is None else dots.data_ptr(),
-        n, nb, _build.stream_ptr(v0))
+        n, nb, nl, _build.stream_ptr(v0))
     _build.check(rc, name)
+    if lanes:
+        LAUNCHES[name + "_batched"] += 1
+        return tuple(out) + tuple(dots[:, j] for j in range(n_dot))
     LAUNCHES[name] += 1
-    return tuple(out) + tuple(dots[j] for j in range(n_dot))
+    return tuple(out) + tuple(dots[0, j] for j in range(n_dot))
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,13 @@ here they would move ~50x the bytes the nonzeros need.  On a CUDA tensor
 :func:`bell_spmv` launches the hand-written Hopper kernel or raises; on a
 CPU tensor it runs the plain version ``ref.sell_matvec_ref``.  Bound: bytes
 — 12 B per padded entry (f64 value, int32 column) plus x read and y written.
+
+Lanes (the reference's ``jax.vmap`` of the kernel, written out), through
+one lane-batched kernel that reads each slot's column once for a chunk of
+16 lanes: :func:`bell_spmv_batched` (B value arrays on one pattern, times B
+right-hand sides or one) and :func:`bell_spmm` (one value array times k
+right-hand sides).  Lane b's sum keeps the single-vector kernel's order, so
+it equals :func:`bell_spmv` on lane b bit for bit.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from . import _build
 from . import ref as _ref
 
 #: launches of the CUDA kernel (plain integer; reset by the caller)
-LAUNCHES = {"bell_spmv": 0}
+LAUNCHES = {"bell_spmv": 0, "bell_spmv_batched": 0, "bell_spmm": 0}
 
 
 def bell_spmv(sell: SellLayout, vals: torch.Tensor, x: torch.Tensor,
@@ -52,3 +59,60 @@ def bell_spmv(sell: SellLayout, vals: torch.Tensor, x: torch.Tensor,
                     _build.stream_ptr(x)), "bell_spmv")
     LAUNCHES["bell_spmv"] += 1
     return y
+
+
+def _launch_lanes(name, sell, vals, x, n, lanes, val_stride, x_stride):
+    if x.device.type != "cuda" or vals.device != x.device \
+            or sell.cols.device != x.device:
+        raise ValueError(f"{name}: tensors must share one CUDA device")
+    if vals.dtype != x.dtype:
+        raise TypeError(f"{name}: dtypes {vals.dtype} / {x.dtype}")
+    if vals.shape[-1] != sell.n_slots:
+        raise ValueError(f"{name}: values {tuple(vals.shape)} do not match "
+                         f"{sell.n_slots} slots")
+    if not 0 <= n <= sell.n_rows:
+        raise ValueError(f"{name}: n={n} exceeds the layout's "
+                         f"{sell.n_rows} rows")
+    tag = _build.cuda_dtype_tag(x.dtype)
+    vals = vals.contiguous()
+    x = x.contiguous()
+    y = x.new_empty(lanes, n)
+    fn = getattr(_build.lib(), f"bell_spmv_lanes_{tag}")
+    _build.check(fn(sell.slice_ptr.data_ptr(), sell.cols.data_ptr(),
+                    vals.data_ptr(), x.data_ptr(), y.data_ptr(), n, lanes,
+                    val_stride, x_stride, _build.stream_ptr(x)), name)
+    LAUNCHES[name] += 1
+    return y
+
+
+def bell_spmv_batched(sell: SellLayout, vals: torch.Tensor, x: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """Y[b] = A_b @ x_b for B value arrays on one sliced-ELL pattern.
+
+    ``vals``: (B, n_slots); ``x``: (B, m), or (m,) shared by every lane.
+    Returns (B, n)."""
+    if vals.dim() != 2 or x.dim() not in (1, 2) or (
+            x.dim() == 2 and x.shape[0] != vals.shape[0]):
+        raise ValueError(f"bell_spmv_batched: values {tuple(vals.shape)} / x "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return _ref.sell_matvec_lanes_ref(sell.slice_ptr, sell.cols, vals,
+                                          x, n)
+    return _launch_lanes("bell_spmv_batched", sell, vals, x, n,
+                         vals.shape[0], sell.n_slots,
+                         x.shape[-1] if x.dim() == 2 else 0)
+
+
+def bell_spmm(sell: SellLayout, vals: torch.Tensor, X: torch.Tensor,
+              n: int) -> torch.Tensor:
+    """Y[j] = A @ X[j] for k right-hand sides: ``vals`` (n_slots,), ``X``
+    (k, m).  Returns (k, n).  Each value and column is read once and
+    applied to every right-hand side of a 16-lane chunk."""
+    if vals.dim() != 1 or X.dim() != 2:
+        raise ValueError(f"bell_spmm: values {tuple(vals.shape)} / X "
+                         f"{tuple(X.shape)}")
+    if X.device.type == "cpu":
+        return _ref.sell_matvec_lanes_ref(sell.slice_ptr, sell.cols, vals,
+                                          X, n)
+    return _launch_lanes("bell_spmm", sell, vals, X, n, X.shape[0], 0,
+                         X.shape[1])

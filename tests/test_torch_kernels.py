@@ -189,6 +189,13 @@ def test_kernel_wrappers_count_no_cpu_launches():
     from repro_torch.kernels.flash_attention import flash_attention
     qkv = torch.ones(2, 5, 16)
     flash_attention(qkv, qkv, qkv, causal=True)
+    # the lane-batched entry points (slice 5)
+    meta = Stencil5Meta(nx=8, ny=8)
+    tops.stencil5_matvec(meta, torch.tensor(v).repeat(2, 1),
+                         torch.tensor(x).repeat(2, 1))
+    X = torch.tensor(x).repeat(3, 1)
+    tfk.fused_dots2(X, X)
     assert set(kernels.launch_counts().values()) == {0}
     assert set(tsn.SWEEP_MODE_LAUNCHES.values()) == {0}
-    assert len(kernels.launch_counts()) == 15
+    # 15 single-vector kernels + 11 lane-batched entry points
+    assert len(kernels.launch_counts()) == 26

@@ -488,9 +488,12 @@ def test_cuda_kernel_func_rules_match_plain(cuda_device, product):
     card = _func_rules(product, cuda_device)
     torch.cuda.synchronize()
     name = "bell_spmv" if product == "bell" else "stencil5"
-    # y, two jvp terms, y and three probes under vmap, y under vjp (the
-    # stencil's Aᵀg launches once more, on the transposed planes)
-    assert launch_counts()[name] == (8 if product == "bell" else 9)
+    lanes = "bell_spmm" if product == "bell" else "stencil5_batched"
+    # y, two jvp terms, y under vmap, y under vjp (the stencil's Aᵀg
+    # launches once more, on the transposed planes); the three probes
+    # under vmap are one launch of the lane-batched kernel
+    assert launch_counts()[name] == (5 if product == "bell" else 6)
+    assert launch_counts()[lanes] == 1
     for a, b in zip(card, _func_rules(product, torch.device("cpu"))):
         assert rel(a, b) <= TOL[np.float64]
 
@@ -510,9 +513,9 @@ def _newton_problem(dev, ng=24):
 
 @pytest.mark.cuda
 def test_cuda_sparse_newton_assembly_matches_cpu(cuda_device):
-    """One colored Jacobian assembly on the card (the probe sweep on
-    ``bell_spmv``: one launch for F and one per color) against the CPU
-    port's."""
+    """One colored Jacobian assembly on the card (one ``bell_spmv`` launch
+    for F, and the probe sweep's colors as ONE ``bell_spmm`` launch)
+    against the CPU port's."""
     from repro_torch.core.nonlinear import SparseNewton
     from repro_torch.kernels import launch_counts, reset_launch_counts
     u = np.random.default_rng(3).normal(size=24 * 24)
@@ -526,7 +529,8 @@ def test_cuda_sparse_newton_assembly_matches_cpu(cuda_device):
                                              device=dev)))
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert launch_counts()["bell_spmv"] == 1 + sn.n_colors
+            assert launch_counts()["bell_spmv"] == 1
+            assert launch_counts()["bell_spmm"] == 1 and sn.n_colors > 1
     assert rel(vals[0], vals[1]) <= TOL[np.float64]
 
 
@@ -551,3 +555,190 @@ def test_cuda_lobpcg_matches_cpu(cuda_device, precond):
     assert rel(w_c, w) <= 1e-10
     sign = torch.sign((V_c.cpu() * V).sum(1, keepdim=True))
     assert rel(V_c.cpu() * sign, V) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# slice 5: the lane-batched kernels and the batched solve path
+# ---------------------------------------------------------------------------
+
+def _bitwise(a, b):
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_bell_lanes_match_plain_and_single(cuda_device, dtype):
+    """Batched values (x batched or shared) and SpMM: each against the
+    lane-by-lane plain version, each lane bit-equal to ``bell_spmv`` on
+    that lane, one lane equal to the single-vector entry point.  20 and 17
+    lanes cross the kernel's 16-lane chunks."""
+    from repro_torch.kernels.spmv_bell import (bell_spmm, bell_spmv,
+                                               bell_spmv_batched)
+    n, m = 300, 250
+    row, col, val, _ = bell_case(n, m, 0.04, np.float64, 3)
+    bell = bell_to_device(build_bell(row, col, (n, m)), cuda_device)
+    sell = bell.sell
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=cuda_device)
+    V = t(val[None] * rng.uniform(0.5, 1.5, (20, 1)))
+    X = t(rng.normal(size=(20, m)))
+    packed = tops.sell_assemble(sell, V)
+    p0 = tops.sell_assemble(sell, t(val))
+    cases = [("values", bell_spmv_batched(sell, packed, X, n),
+              lambda b: bell_spmv(sell, packed[b], X[b], n)),
+             ("shared x", bell_spmv_batched(sell, packed, X[0], n),
+              lambda b: bell_spmv(sell, packed[b], X[0], n)),
+             ("spmm", bell_spmm(sell, p0, X[:17], n),
+              lambda b: bell_spmv(sell, p0, X[b], n))]
+    torch.cuda.synchronize()
+    tl = tol(np.float32 if dtype == torch.float32 else np.float64)
+    for label, Y, single in cases:
+        assert Y.shape[1] == n, label
+        for b in range(Y.shape[0]):
+            assert _bitwise(Y[b], single(b)), (label, b)
+        vv = packed if label != "spmm" else p0
+        xx = X[0] if label == "shared x" else X[:Y.shape[0]]
+        plain = tref.sell_matvec_lanes_ref(sell.slice_ptr, sell.cols, vv,
+                                           xx, n)
+        assert_close(Y, plain, **tl)
+    Y1 = bell_spmv_batched(sell, packed[:1], X[:1], n)
+    assert _bitwise(Y1[0], bell_spmv(sell, packed[0], X[0], n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_stencil_lanes_match_plain_and_single(cuda_device, dtype):
+    from repro_torch.kernels.stencil5 import stencil5, stencil5_batched
+    nx, ny = 37, 300
+    v, _ = stencil_case(nx, ny, np.float64, 1)
+    rng = np.random.default_rng(2)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=cuda_device)
+    V = t(v.reshape(5, nx, ny)[None] * rng.uniform(0.5, 1.5, (3, 1, 1, 1)))
+    X = t(rng.normal(size=(4, nx, ny)))
+    meta = Stencil5Meta(nx=nx, ny=ny)
+    tl = tol(np.float32 if dtype == torch.float32 else np.float64)
+    Y = stencil5_batched(meta, V, X[:3])
+    Ys = stencil5_batched(meta, V[0], X)          # one operator, 4 rhs
+    torch.cuda.synchronize()
+    for b in range(3):
+        assert _bitwise(Y[b], stencil5(meta, V[b], X[b]))
+    for b in range(4):
+        assert _bitwise(Ys[b], stencil5(meta, V[0], X[b]))
+    assert_close(Y, tref.stencil5_lanes_ref(V, X[:3]), **tl)
+    assert_close(Ys, tref.stencil5_lanes_ref(V[0], X), **tl)
+    assert _bitwise(stencil5_batched(meta, V[:1], X[:1])[0],
+                    stencil5(meta, V[0], X[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FUSED_SIGS))
+def test_cuda_fused_lanes_match_plain_and_single(cuda_device, name):
+    """(B, n) lanes with the last vector shared and per-lane scalars: the
+    plain version, each lane bit-equal to the single-vector kernel on that
+    lane (outputs and dots), one lane equal to the unbatched call, and the
+    active mask leaving the inactive lanes' outputs untouched."""
+    n_vec, n_sc = FUSED_SIGS[name]
+    fn = getattr(tfk, name)
+    _, _, _, n_out, _ = tfk.BODIES[name]
+    for B, n in ((4, 300_001), (3, 1029)):
+        rng = np.random.default_rng(n)
+        t = lambda a: torch.tensor(a, device=cuda_device)
+        vecs = [t(rng.normal(size=(B, n))) for _ in range(n_vec - 1)]
+        vecs.append(t(rng.normal(size=n)))
+        sc = [t(rng.normal(size=B)) for _ in range(n_sc)]
+        if name == "fused_bicg_p":
+            sc[2] = t(np.array([0.0, 1.0, 0.0, 0.0][:B]))
+        out = fn(*vecs, *sc)
+        torch.cuda.synchronize()
+        for b in range(B):
+            one = fn(*[v[b] if v.dim() == 2 else v for v in vecs],
+                     *[s[b] for s in sc])
+            for got, want in zip(out, one):
+                assert _bitwise(got[b], want), (name, b)
+        plain = tref.fused_step_lanes_ref(name, vecs, sc, B)
+        for got, want in zip(out, plain):
+            assert_close(got, want, rtol=1e-10, atol=1e-9)
+        first = fn(*[v[:1] if v.dim() == 2 else v for v in vecs],
+                   *[s[:1] for s in sc])
+        single = fn(*[v[0] if v.dim() == 2 else v for v in vecs],
+                    *[s[0] for s in sc])
+        for got, want in zip(first, single):
+            assert _bitwise(got[0], want)
+        if n_out:
+            dst = [torch.full((B, n), 7.25, dtype=torch.float64,
+                              device=cuda_device) for _ in range(n_out)]
+            act = torch.tensor([1, 0] * B, dtype=torch.int32,
+                               device=cuda_device)[:B]
+            fn(*vecs, *sc, out=dst, active=act)
+            torch.cuda.synchronize()
+            for o, want in zip(dst, out):
+                assert bool((o[1] == 7.25).all())
+                assert _bitwise(o[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "stencil"])
+def test_cuda_batched_solve_matches_single_solves(cuda_device, backend):
+    """Batched values through ``solve_with_info`` on the lane-batched
+    kernels: per-lane iteration counts equal the single solves', the
+    solutions agree, and the single-vector kernels are not launched."""
+    from repro_torch import kernels, sla
+    from repro_torch.data.poisson import poisson2d, poisson2d_vc
+    ng = 40
+    if backend == "stencil":
+        kap = torch.tensor(1.0 + 0.5 * np.random.default_rng(0).random(
+            (ng, ng)), device=cuda_device)
+        A = poisson2d_vc(kap, use_stencil_kernel=True, device=cuda_device)
+    else:
+        A = poisson2d(ng, device=cuda_device)
+    scales = (1.0, 1.3, 0.7, 0.9)
+    vals = torch.stack([A.val * s for s in scales])
+    b = torch.ones(ng * ng, dtype=torch.float64, device=cuda_device)
+    kw = dict(backend=backend, method="cg", tol=1e-10)
+    kernels.reset_launch_counts()
+    res = sla.solve_with_info(A.with_values(vals), b, **kw)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    spmv = "stencil5" if backend == "stencil" else "bell_spmv"
+    assert counts[spmv + "_batched"] > 0
+    assert counts["fused_cg_update_batched"] > 0
+    assert counts[spmv] == counts["fused_cg_update"] == 0
+    for lane, s in enumerate(scales):
+        one = sla.solve_with_info(A.with_values(A.val * s), b, **kw)
+        assert int(res.iterations[lane]) == int(one.iterations)
+        assert_close(res.x[lane], one.x, rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.cuda
+def test_cuda_multi_rhs_block_cg_and_direct(cuda_device):
+    """k right-hand sides on one matrix: block CG on ``bell_spmm`` and one
+    direct factorization with ``sn_sweep`` carrying the k columns, both
+    against the CPU port."""
+    from repro_torch import kernels, sla
+    from repro_torch.core import dispatch as D
+    from repro_torch.data.poisson import poisson2d
+    B = np.random.default_rng(3).normal(size=(8, 576))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        A = poisson2d(24, device=dev)           # n > 512: supernodal
+        Bt = torch.tensor(B, device=dev)
+        kernels.reset_launch_counts()
+        D.reset_plan_stats()
+        X = sla.solve(A, Bt, backend="pallas", method="block_cg", tol=1e-11)
+        Xd = sla.solve(A, Bt, backend="direct")
+        out[dev.type] = (X.cpu(), Xd.cpu(), kernels.launch_counts(),
+                         dict(D.PLAN_STATS))
+    X, Xd, counts, stats = out["cuda"]
+    assert counts["bell_spmm"] > 0 and counts["sn_sweep"] > 0
+    assert stats["factorize"] == 1
+    assert_close(X, out["cpu"][0], rtol=1e-8, atol=1e-10)
+    assert_close(Xd, out["cpu"][1], rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_solve_server_smoke(cuda_device):
+    from repro_torch.launch.solve_serve import serve
+    rep = serve(n_requests=16, grid=12, n_patterns=2, max_batch=8,
+                backend="pallas", check=True, device=cuda_device)
+    assert rep["converged"] and rep["occupancy"] == 1.0
+    assert rep["plan_stats"]["analyze"] == 2

@@ -207,18 +207,23 @@ def test_solve_with_info_matches_reference():
 def test_later_slices_raise_with_their_slice():
     A = tpoisson.poisson2d(5, device=CPU)
     b = torch.ones(25, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        A.solve(torch.ones(2, 25, dtype=torch.float64), backend="jnp")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        A.with_values(torch.stack([A.val, A.val])).solve(b, backend="jnp")
+    x_ref = torch.linalg.solve(A.todense(), b)
+    # slice 5: multi-rhs, batched values and block_cg are ported
+    X = A.solve(torch.ones(2, 25, dtype=torch.float64), backend="jnp",
+                tol=1e-12)
+    assert_close(X, torch.stack([x_ref, x_ref]), rtol=1e-10, atol=1e-11)
+    X = A.with_values(torch.stack([A.val, A.val])).solve(b, backend="jnp",
+                                                          tol=1e-12)
+    assert_close(X, torch.stack([x_ref, x_ref]), rtol=1e-10, atol=1e-11)
+    x = A.solve(b, backend="jnp", method="block_cg", tol=1e-12)
+    assert_close(x, x_ref, rtol=1e-10, atol=1e-11)
+    # slice 5b: batched values through the direct route raise
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        A.with_values(torch.stack([A.val, A.val])).solve(b, backend="direct")
     x = A.solve(b, backend="direct")           # slice 2: ported
-    assert_close(x, torch.linalg.solve(A.todense(), b), rtol=1e-12,
-                 atol=1e-13)
+    assert_close(x, x_ref, rtol=1e-12, atol=1e-13)
     x = A.solve(b, backend="jnp", method="gmres", tol=1e-12)  # ported
-    assert_close(x, torch.linalg.solve(A.todense(), b), rtol=1e-10,
-                 atol=1e-11)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        A.solve(b, backend="jnp", method="block_cg")
+    assert_close(x, x_ref, rtol=1e-10, atol=1e-11)
     with pytest.raises(ValueError):
         A.solve(b, backend="nope")
 
