@@ -149,10 +149,32 @@ What it does, in order:
     cheb_step), and a direct solve at ``poisson2d(316)`` with k = 16: one
     factorization, one ``sn_sweep`` launch per bucket for all k columns,
     against 16 single solves (1e-10) with its gradient (1e-8);
-    15d. ``serve()`` with the reference CLI's stream (256 requests, grids
-    256 and 257, max_batch 32, CG + Jacobi, tol 1e-8, ``pallas``), parity
-    checked inside: analyze == 2, all converged, occupancy 1.0; solves/s,
-    p50/p99 of both drivers and the speedup (recorded, not gated);
+    15d. ``serve()`` with a quarter of the reference CLI's stream (64
+    requests, grids 256 and 257, max_batch 32, CG + Jacobi, tol 1e-8,
+    ``pallas``),
+    parity checked inside: analyze == 2, all converged, occupancy 1.0;
+    solves/s, p50/p99 of both drivers and the speedup (recorded, not
+    gated);
+    15e. batched values through the direct route and the heavy
+    preconditioners (f64, numpy seed 0, lanes scaled in [0.7, 1.4]): B = 8
+    lanes of the direct path's ``poisson2d(316)`` on its cached plan,
+    ``sla.solve`` + ``backward()`` — one setup and one factorization,
+    2 × buckets launches a factorization, a solve and a backward for all
+    lanes (as for one), every lane's true residual ≤ 1e-10 and its x and
+    gradient within 1e-12 of its single solve; one batched factorization
+    and solve (wall, device) against 8 one at a time; rows 4′–6′
+    (``panel_factor_lanes``, ``schur_update_lanes``, ``sn_sweep_lanes``)
+    against their plain versions lane by lane and against the single-lane
+    launch on each lane (bit for bit; 1e-13 where atomics add:
+    schur_update, sn_sweep modes l / ut), with their time over one batched
+    factorization beside the plain version's, 8 single-lane passes' and
+    the bound (values B times, shared tables once); then B = 4 lanes
+    through CG + AMG at ``poisson2d(1024)`` (phase 11b's cached analysis;
+    one Galerkin product), CG + MG at ng = 2048 (a κ per lane), CG +
+    Chebyshev at ``poisson2d(1024)`` and CG + ILU(0) at ``poisson2d(64)``
+    (the AMG and ILU lanes with random conductances, so that no lane is a
+    multiple of another), per-lane iterations equal to the single
+    solves', ms an iteration for the lanes against one;
 16. on-card tests: ``python -m pytest --noconftest -p no:cacheprovider -q
     tests/test_torch_on_card.py`` (``PYTHONPATH=src``), every hand-written
     kernel against its plain version over the tests' shape sweeps; fails
@@ -209,7 +231,11 @@ STENCIL_B = 4                        # 15a/15b: stencil operators
 STEP_B, STEP_N = 8, 1 << 20          # 15a: step bodies, lanes x length
 NG_BATCH_STENCIL = 256               # 15b: batched stencil CG
 NG_SERVE = 256                       # 15d: grids 256 and 257
-SERVE_REQUESTS, SERVE_MAX_BATCH = 256, 32   # 15d: the reference CLI's stream
+SERVE_REQUESTS, SERVE_MAX_BATCH = 64, 32    # 15d: a quarter of the reference CLI's
+                                            # stream (run-length budget)
+LANES_DIRECT = 8                     # 15e: value lanes of poisson2d(316)
+LANES_PRECOND = 4                    # 15e: lanes through AMG / MG / ...
+NG_ILU_LANES = 64                    # 15e: ILU(0)'s scalar program
 TOL_BATCH = 1e-10                    # batched vs single solves, relative
 TOL_BATCH_GRAD = 1e-8                # their values gradients, relative
 TRACE_ITERS = 64                     # 15b: profiled iterations
@@ -318,6 +344,8 @@ for _f in ("bell_spmv_batched", "bell_spmm"):
 KERNEL_SOURCES["stencil5_batched"] = KERNEL_SOURCES["stencil5"]
 for _f in FUSED:
     KERNEL_SOURCES[_f + "_batched"] = KERNEL_SOURCES[_f]
+for _f in PANEL_KERNELS:          # rows 4′–6′: the same under jax.vmap
+    KERNEL_SOURCES[_f + "_lanes"] = KERNEL_SOURCES[_f]
 
 
 class CheckFailed(AssertionError):
@@ -1056,20 +1084,23 @@ def _sum_ms(fn, reps=5, reset=None):
                    spin_ms=3.0 * _enqueue_ms(fn, reset) + 2.0)
 
 
-def _panel_work(bk, distinct=None, sdistinct=None):
+def _panel_work(bk, distinct=None, sdistinct=None, lanes=1):
     """(bytes, flops) per kernel that one bucket's true sizes need, f64,
-    each input read once and each output written once.  panel_factor reads
-    and writes its panels in place in C: w² + 2rw words, each with its
-    int32 slot (20 B a word).  schur_update reads the two panels (2rw words
-    with their slots, 12 B), one int32 index per live target (r² of them,
-    4 B), and reads and writes each distinct target once (``distinct``, the
-    bucket's distinct addresses: sibling lanes share some; 16 B).
-    sn_sweep: one mode-l sweep step with one right-hand side: the strict
-    lower triangle of D and L_sub with their slots (12 B a value), y_b read
-    and written with its row id (20 B a live block row), each distinct row
-    of y_s read and written once (``sdistinct``: sibling lanes share
-    ancestor rows; 16 B) with a row id per live sub-row (4 B), and w, r per
-    lane (8 B)."""
+    each input read once and each output written once, for ``lanes`` value
+    lanes of one pattern: the values are per lane, the int32 tables (slots,
+    targets, row ids, w and r) one copy for all lanes, and every lane does
+    the whole arithmetic.  panel_factor reads and writes its panels in place
+    in C: w² + 2rw words (16 B a lane), each with its int32 slot (4 B).
+    schur_update reads the two panels (2rw words, 8 B a lane, with their
+    slots, 4 B), one int32 index per live target (r² of them, 4 B), and
+    reads and writes each distinct target once (``distinct``, the bucket's
+    distinct addresses: sibling lanes share some; 16 B a lane).  sn_sweep:
+    one mode-l sweep step with one right-hand side: the strict lower
+    triangle of D and L_sub (8 B a lane) with their slots (4 B), y_b read
+    and written (16 B a lane) with its row id (4 B) per live block row,
+    each distinct row of y_s read and written once (``sdistinct``: sibling
+    lanes share ancestor rows; 16 B a lane) with a row id per live sub-row
+    (4 B), and w, r per bucket lane (8 B)."""
     w = bk.wvec.double().cpu().numpy()
     r = bk.rvec.double().cpu().numpy()
     k = bk.wvec.shape[0]
@@ -1079,13 +1110,20 @@ def _panel_work(bk, distinct=None, sdistinct=None):
         sdistinct = _sweep_distinct(bk)
     s1 = w * (w - 1) / 2                         # Σ_t (w-t-1)
     s2 = (w - 1) * w * (2 * w - 1) / 6           # Σ_t (w-t-1)²
-    pf = (20 * float((w * w + 2 * r * w).sum()),
+    words = float((w * w + 2 * r * w).sum())
+    tri = float((s1 + r * w).sum())
+    # (bytes a lane, shared bytes, flops a lane)
+    pf = (16 * words, 4 * words,
           float((2 * s2 + s1 + r * w + 4 * r * s1).sum()))
-    su = (float((12 * 2 * r * w + 4 * r * r).sum()) + 16.0 * distinct,
+    su = (8 * float((2 * r * w).sum()) + 16.0 * distinct,
+          float((4 * 2 * r * w + 4 * r * r).sum()),
           float((2 * w * r * r).sum()))
-    sw = (float((12 * (s1 + r * w) + 20 * w + 4 * r).sum()) + 16.0 * sdistinct
-          + 8.0 * k, float((2 * s1 + 2 * r * w).sum()))
-    return {"panel_factor": pf, "schur_update": su, "sn_sweep": sw}
+    sw = (8 * tri + 16 * float(w.sum()) + 16.0 * sdistinct,
+          4 * tri + float((4 * w + 4 * r).sum()) + 8.0 * k,
+          float((2 * s1 + 2 * r * w).sum()))
+    return {name: (lanes * lb + sb, lanes * f)
+            for name, (lb, sb, f) in (("panel_factor", pf),
+                                      ("schur_update", su), ("sn_sweep", sw))}
 
 
 def _sweep_distinct(bk):
@@ -1126,6 +1164,25 @@ def _lu_yardstick(Pm):
         return None, str(exc).splitlines()[0][:200]
 
 
+def _panel_cases(buckets):
+    """The buckets the panel-kernel checks hold: the widest, the one with
+    the most lanes and a ragged one (pad lanes and lanes narrower than the
+    bucket)."""
+    def ragged(bk):
+        w, r = bk.wvec.cpu(), bk.rvec.cpu()
+        live = w > 0
+        return bool((~live).any() and (w[live] < bk.wb).any()
+                    and (r[live] < bk.rb).any())
+
+    nk_of = lambda b: b.wvec.shape[0]
+    widest = max(buckets, key=lambda b: (b.wb * b.rb, nk_of(b)))
+    most = max(buckets, key=lambda b: (nk_of(b), b.wb * b.rb))
+    cands = [b for b in buckets if ragged(b)] or \
+        [b for b in buckets if bool((b.wvec == 0).any())]
+    rag = max(cands, key=lambda b: (b.wb * b.rb, nk_of(b)))
+    return (("widest", widest), ("most lanes", most), ("ragged", rag))
+
+
 def panel_kernel_phase(dev, art, val, ng, seed, out):
     """panel_factor and the fused schur_update (both in place in C) and
     sn_sweep (in place in y) against their plain versions on the main
@@ -1147,19 +1204,8 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
     C[sink] = 7.25                       # pad slots read NaN-free garbage
     tau64 = math.sqrt(np.finfo(np.float64).eps) * float(val.abs().max())
 
-    def ragged(bk):
-        w, r = bk.wvec.cpu(), bk.rvec.cpu()
-        live = w > 0
-        return bool((~live).any() and (w[live] < bk.wb).any()
-                    and (r[live] < bk.rb).any())
-
     nk_of = lambda b: b.wvec.shape[0]
-    widest = max(buckets, key=lambda b: (b.wb * b.rb, nk_of(b)))
-    most = max(buckets, key=lambda b: (nk_of(b), b.wb * b.rb))
-    cands = [b for b in buckets if ragged(b)] or \
-        [b for b in buckets if bool((b.wvec == 0).any())]
-    rag = max(cands, key=lambda b: (b.wb * b.rb, nk_of(b)))
-    cases = (("widest", widest), ("most lanes", most), ("ragged", rag))
+    cases = _panel_cases(buckets)
     errs = {k: [] for k in PANEL_KERNELS}
     abs_err = dict.fromkeys(PANEL_KERNELS, 0.0)
     trsv_errs = []                       # block_trsv: sn_sweep, no sub-rows
@@ -2173,9 +2219,11 @@ def _amg_case(dev, label, A0, b, tol, maxiter, jac):
     return res, launches
 
 
-def amg_path(dev, ng, n_graph, tol, maxiter, out):
+def amg_path(dev, ng, n_graph, tol, maxiter, out, keep):
     """Phase 11b: CG + smoothed-aggregation AMG on ``poisson2d(ng)`` and on
-    an unstructured graph Laplacian of the same order of n."""
+    an unstructured graph Laplacian of the same order of n.  The
+    ``poisson2d(ng)`` tensor, its AMG analysis in its plan cache, goes into
+    ``keep`` for phase 15e."""
     import torch
     from repro_torch import sla
     from repro_torch.data.graphs import graph_laplacian
@@ -2189,6 +2237,7 @@ def amg_path(dev, ng, n_graph, tol, maxiter, out):
     out["amg_path"] = {"poisson2d": dict(ng=ng, **res)}
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
+    keep["A"] = A0
     del A0
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -3582,9 +3631,10 @@ def multi_rhs_path(dev, seed, out, Ad):
 
 
 def serve_path(dev, seed, out):
-    """15d: ``serve()`` with the reference CLI's stream (256 requests, two
-    patterns, max_batch 32, CG + Jacobi, tol 1e-8) on the block-ELL
-    kernels, batched against one-at-a-time, parity checked inside."""
+    """15d: ``serve()`` with the reference CLI's stream (two patterns,
+    max_batch 32, CG + Jacobi, tol 1e-8; ``SERVE_REQUESTS`` of its 256
+    requests, one full batch a pattern) on the block-ELL kernels, batched
+    against one-at-a-time, parity checked inside."""
     from repro_torch.launch.solve_serve import serve
     _counts_reset()
     rep = serve(n_requests=SERVE_REQUESTS, grid=NG_SERVE, n_patterns=2,
@@ -3609,6 +3659,474 @@ def serve_path(dev, seed, out):
           "ran on bell_spmv_batched")
     out["serve_path"] = dict(rep, launches=launches)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 15e: batched values through the direct route and the heavy preconditioners
+# ---------------------------------------------------------------------------
+
+LANE_KERNELS = ("panel_factor_lanes", "schur_update_lanes", "sn_sweep_lanes")
+TOL_LANE_ATOMIC = 1e-13              # lane vs single launch where atomics add
+
+
+def _lane_values(A, B, rng, jitter=False):
+    """(B, nnz) values of A's pattern, lane b scaled by a factor in
+    [0.7, 1.4] (numpy ``rng``).  ``jitter`` also scales each off-diagonal
+    entry by its own factor in [0.5, 1], equal for (i, j) and (j, i), and
+    lowers the diagonal by what its row's off-diagonals lost (each row
+    keeps its excess of the diagonal over the off-diagonal sum): no lane
+    is then a multiple of another (AMG and ILU(0) are homogeneous in the
+    values, so scaled lanes cannot show a lane applied on another lane's
+    state), and a Poisson operator becomes one of random conductances,
+    SPD and about as well conditioned."""
+    import torch
+    s = torch.tensor(rng.uniform(0.7, 1.4, B), dtype=A.val.dtype,
+                     device=A.val.device)
+    V = A.val.detach()[None] * s[:, None]
+    if jitter:
+        r, c = A.row.long(), A.col.long()
+        key = torch.minimum(r, c) * A.shape[0] + torch.maximum(r, c)
+        _, inv = torch.unique(key, return_inverse=True)
+        f = 0.5 + 0.5 * torch.tensor(
+            rng.uniform(size=(B, int(inv.max()) + 1)), dtype=V.dtype,
+            device=V.device)[:, inv]
+        diag = r == c
+        f[:, diag] = 1.0
+        lost = V.new_zeros(B, A.shape[0]).index_add_(
+            1, r[~diag], (V.abs() * (1.0 - f))[:, ~diag])
+        V = V * f
+        V[:, diag] -= lost[:, r[diag]]
+    return V
+
+
+def lane_kernel_rows(dev, art, vals, ng, out):
+    """15e kernels: rows 4′–6′, the lane-stacked panel_factor, schur_update
+    and sn_sweep, on B value lanes of the direct path's own analysis —
+    against their plain versions lane by lane and, lane by lane, against
+    the single-lane launch on that lane's values (bit for bit, or 1e-13
+    where the kernel adds with atomics); their summed device time over one
+    batched factorization (one mode-l sweep) beside the plain version's (one
+    pass, lane by lane), B single-lane factorizations' and the bound (the
+    values' bytes and the operations B times, the shared int32 tables
+    once: ``_panel_work(..., lanes=B)``)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import supernode as ksn
+
+    B = vals.shape[0]
+    rng = np.random.default_rng(SEED + 21)
+    buckets = [bk for lvl in art.snode.schedule for bk in lvl]
+    n, sink = art.n, art.nnzF
+    C0 = vals.new_zeros(B, art.nnzF + 2)
+    C0.index_add_(1, art.a2f, vals)
+    C0[:, art.nnzF + 1] = 1.0
+    C0[:, sink] = 7.25                   # pad slots read NaN-free garbage
+    tau = math.sqrt(np.finfo(np.float64).eps) * vals.abs().amax(1)
+    k_max = max(bk.wvec.shape[0] for bk in buckets)
+    work = torch.zeros(B * k_max, dtype=torch.int32, device=dev)
+    # one batched factorization on the kernels; Cin: each bucket's panels as
+    # they enter panel_factor (the timed passes start from them)
+    Cf, Cin = C0.clone(), C0.clone()
+    nbad = vals.new_zeros(B)
+    for bk in buckets:
+        for t in (bk.pidx, bk.qidx):
+            Cin[:, t.long()] = Cf[:, t.long()]
+        ksn.panel_factor_inplace(Cf, bk.pidx, bk.qidx, bk.wvec, bk.rvec, tau,
+                                 bk.bkm, pairs=bk.pairs, nbad=nbad, work=work)
+        ksn.schur_update_inplace(Cf, bk.pidx, bk.qidx, bk.wvec, bk.rvec,
+                                 bk.uidx, bk.uoff)
+    torch.cuda.synchronize()
+    check(int(work.abs().sum()) == 0 and bool((Cf[:, sink] == 7.25).all()),
+          "batched factorization on the kernels: counters back at zero, "
+          "sinks untouched")
+    # lane b against B single-lane factorizations on the kernels
+    fac_err = 0.0
+    for b in range(B):
+        C1 = C0[b].clone()
+        nb1 = torch.zeros((), dtype=C1.dtype, device=dev)
+        for bk in buckets:
+            ksn.panel_factor_inplace(C1, bk.pidx, bk.qidx, bk.wvec, bk.rvec,
+                                     tau[b], bk.bkm, pairs=bk.pairs,
+                                     nbad=nb1, work=work)
+            ksn.schur_update_inplace(C1, bk.pidx, bk.qidx, bk.wvec, bk.rvec,
+                                     bk.uidx, bk.uoff)
+        fac_err = max(fac_err, rel_err([Cf[b]], [C1], [C1])[0])
+        check(float(nb1) == float(nbad[b]), f"lane {b}: clamp count "
+              f"{float(nbad[b]):.0f} equals its single factorization's")
+    check(fac_err <= TOL_LANE_ATOMIC, f"batched factorization of poisson2d"
+          f"({ng}), B = {B}: every lane equals its single-lane factorization "
+          f"on the kernels ({fac_err:.2e} <= {TOL_LANE_ATOMIC:.0e}; "
+          f"schur_update adds with atomics)")
+    # each kernel against its plain version (lane by lane) and, lane by
+    # lane, against the single-lane launch, on the three buckets phase 12
+    # holds (widest, most lanes, ragged), from the path's own values
+    errs = dict.fromkeys(LANE_KERNELS, 0.0)
+    abs_err = dict.fromkeys(LANE_KERNELS, 0.0)
+    single = dict.fromkeys(LANE_KERNELS, 0.0)   # lane vs single launch
+    bit = {"panel_factor_lanes": True, "sn_sweep_lanes u/lt": True}
+
+    def note(name, got, want):
+        for b in range(B):
+            e, ea = rel_err([got[b]], [want[b]], [want[b]])
+            errs[name] = max(errs[name], e)
+            abs_err[name] = max(abs_err[name], ea)
+
+    cases = _panel_cases(buckets)
+    for label, bk in cases:
+        slots = (bk.pidx, bk.qidx, bk.wvec, bk.rvec)
+        Ck, Cp = Cin.clone(), Cin.clone()
+        nk = ksn.panel_factor_inplace(Ck, *slots, tau, bk.bkm,
+                                      pairs=bk.pairs)
+        torch.cuda.synchronize()
+        npl = ref.sn_panel_factor_inplace_ref(Cp, *slots, tau, bk.bkm,
+                                              pairs=bk.pairs)
+        check(nk.tolist() == npl.tolist() and bool((Ck[:, sink] == 7.25)
+                                                   .all()),
+              f"panel_factor_lanes {label}: per-lane clamp counts equal the "
+              f"plain version's, sinks untouched")
+        note("panel_factor_lanes", Ck, Cp)
+        Sk, Sp = Ck.clone(), Ck.clone()
+        ksn.schur_update_inplace(Sk, *slots, bk.uidx, bk.uoff)
+        torch.cuda.synchronize()
+        ref.sn_schur_inplace_ref(Sp, *slots, bk.uidx)
+        note("schur_update_lanes", Sk, Sp)
+        Y0 = torch.tensor(rng.normal(size=(B, n + 1, 1)), device=dev)
+        Y0[:, n] = 7.25
+        wk, pt = ksn.sweep_buffers([bk], 1, torch.float64, dev, B)
+        for b in range(B):
+            C1 = Cin[b].clone()
+            ksn.panel_factor_inplace(C1, *slots, tau[b], bk.bkm,
+                                     pairs=bk.pairs)
+            bit["panel_factor_lanes"] &= torch.equal(C1, Ck[b])
+            ksn.schur_update_inplace(C1, *slots, bk.uidx, bk.uoff)
+            torch.cuda.synchronize()
+            single["schur_update_lanes"] = max(
+                single["schur_update_lanes"], rel_err([C1], [Sk[b]],
+                                                      [Sk[b]])[0])
+        for mode in ("l", "lt", "u", "ut"):
+            Yk = ksn.sn_sweep_inplace(Cf, Y0.clone(), bk, mode, work=wk,
+                                      part=pt)
+            torch.cuda.synchronize()
+            Yp = ref.sn_sweep_inplace_ref(
+                Cf, Y0.clone(), bk.pidx, bk.qidx, bk.rows, bk.wvec, bk.rvec,
+                bk.bkm, mode=mode, pairs=bk.pairs)
+            note("sn_sweep_lanes", Yk, Yp)
+            for b in range(B):
+                y1 = ksn.sn_sweep_inplace(Cf[b], Y0[b].clone(), bk, mode)
+                torch.cuda.synchronize()
+                if mode in ("u", "lt"):
+                    bit["sn_sweep_lanes u/lt"] &= torch.equal(y1, Yk[b])
+                else:
+                    single["sn_sweep_lanes"] = max(
+                        single["sn_sweep_lanes"],
+                        rel_err([y1], [Yk[b]], [Yk[b]])[0])
+        check(int(wk.abs().sum()) == 0, f"sn_sweep_lanes {label}: counters "
+              f"back at zero")
+        del Ck, Cp, Sk, Sp, Y0
+    say(f"  rows 4′–6′ at B = {B} on {', '.join(f'{l} (k={b.wvec.shape[0]}, wb={b.wb}, rb={b.rb})' for l, b in cases)}: "
+        + "; ".join(f"{k} rel err {errs[k]:.2e}" for k in LANE_KERNELS)
+        + f"; lane vs single launch: panel_factor bit-equal "
+        f"{bit['panel_factor_lanes']}, sn_sweep u/lt bit-equal "
+        f"{bit['sn_sweep_lanes u/lt']}, schur_update (atomics) "
+        f"{single['schur_update_lanes']:.2e}, sn_sweep l/ut (atomics) "
+        f"{single['sn_sweep_lanes']:.2e}")
+    for k in LANE_KERNELS:
+        check(errs[k] <= TOL_KERNEL["float64"], f"{k} matches its plain "
+              f"version lane by lane ({errs[k]:.2e} <= "
+              f"{TOL_KERNEL['float64']:.0e})")
+    check(bit["panel_factor_lanes"] and bit["sn_sweep_lanes u/lt"],
+          "lane b of panel_factor_lanes and of sn_sweep_lanes (modes u, lt) "
+          "equals the single-lane launch on lane b bit for bit")
+    check(single["schur_update_lanes"] <= TOL_LANE_ATOMIC
+          and single["sn_sweep_lanes"] <= TOL_LANE_ATOMIC,
+          f"lane b of schur_update_lanes and sn_sweep_lanes (modes l, ut), "
+          f"which add with atomics, within {TOL_LANE_ATOMIC:.0e} of the "
+          f"single-lane launch")
+
+    # -- time over one batched factorization (one mode-l sweep)
+    Cw = C0.clone()
+    Yb = torch.tensor(rng.normal(size=(B, n + 1, 1)), device=dev)
+    Yb[:, n] = 0.0
+    Yw = Yb.clone()
+    acc = vals.new_zeros(B)
+    acc1 = vals.new_zeros(())
+    sw_work, sw_part = ksn.sweep_buffers(buckets, 1, torch.float64, dev, B)
+    reset = {"panel_factor_lanes": lambda: Cw.copy_(Cin),
+             "schur_update_lanes": lambda: Cw.copy_(Cf),
+             "sn_sweep_lanes": lambda: Yw.copy_(Yb)}
+
+    def run(name, impl):
+        def one(bk):
+            slots = (bk.pidx, bk.qidx, bk.wvec, bk.rvec)
+            if name == "panel_factor_lanes":
+                if impl == "kernel":
+                    ksn.panel_factor_inplace(Cw, *slots, tau, bk.bkm,
+                                             pairs=bk.pairs, nbad=acc,
+                                             work=work)
+                elif impl == "plain":
+                    ref.sn_panel_factor_inplace_ref(Cw, *slots, tau, bk.bkm,
+                                                    pairs=bk.pairs)
+                else:
+                    for b in range(B):
+                        ksn.panel_factor_inplace(Cw[b], *slots, tau[b],
+                                                 bk.bkm, pairs=bk.pairs,
+                                                 nbad=acc1, work=work)
+            elif name == "schur_update_lanes":
+                if impl == "kernel":
+                    ksn.schur_update_inplace(Cw, *slots, bk.uidx, bk.uoff)
+                elif impl == "plain":
+                    ref.sn_schur_inplace_ref(Cw, *slots, bk.uidx)
+                else:
+                    for b in range(B):
+                        ksn.schur_update_inplace(Cw[b], *slots, bk.uidx,
+                                                 bk.uoff)
+            elif impl == "kernel":
+                ksn.sn_sweep_inplace(Cf, Yw, bk, "l", work=sw_work,
+                                     part=sw_part)
+            elif impl == "plain":
+                ref.sn_sweep_inplace_ref(Cf, Yw, bk.pidx, bk.qidx, bk.rows,
+                                         bk.wvec, bk.rvec, bk.bkm, mode="l",
+                                         pairs=bk.pairs)
+            else:
+                for b in range(B):
+                    ksn.sn_sweep_inplace(Cf[b], Yw[b], bk, "l", work=sw_work,
+                                         part=sw_part)
+        return lambda: [one(bk) for bk in buckets]
+
+    distinct = {id(bk): int(bk.uidx.unique().numel()) for bk in buckets}
+    sdistinct = {id(bk): _sweep_distinct(bk) for bk in buckets}
+    res = {}
+    for name in LANE_KERNELS:
+        base = name[:-len("_lanes")]
+        rs = reset[name]
+        work_b = [_panel_work(bk, distinct[id(bk)], sdistinct[id(bk)],
+                              lanes=B)[base] for bk in buckets]
+        tb = sum(w[0] for w in work_b)
+        tf = sum(w[1] for w in work_b)
+        bms, bby = bound_ms(tb, tf, "float64")
+        ms = _sum_ms(run(name, "kernel"), reset=rs)
+        singles = _sum_ms(run(name, "single"), reps=2, reset=rs)
+        wall = wall_ms(run(name, "kernel"), 3, reset=rs)
+        # the plain version is host-bound (seconds a pass): one pass, its
+        # device clock from the first launch to the last
+        plain = cuda_ms(run(name, "plain"), 1, warmup=0, spin_ms=0.0,
+                        reset=rs)
+        res[name] = dict(
+            ms=ms, wall_ms=wall, plain_ms=plain, library_ms=None,
+            singles_ms=singles, bytes=tb, flops=tf, dtype="float64",
+            bound_ms=bms, bound_by=bby, max_rel_err=errs[name],
+            max_abs_err=abs_err[name],
+            lane_vs_single=("bit for bit" if name == "panel_factor_lanes"
+                            else single[name]),
+            shape=(f"B={B} x poisson2d({ng}): {len(buckets)} buckets"
+                   + (", 1 sweep (mode l, m=1)" if base == "sn_sweep"
+                      else ", 1 factorization")))
+        say(f"  {name:18s} B={B}, summed over {len(buckets)} buckets: "
+            f"{ms:.4f} ms (host wall {wall:.3f} ms; {B} single-lane passes "
+            f"{singles:.4f} ms; plain, lane by lane, {plain:.1f} ms; bound "
+            f"{bms:.4f} ms by {bby}, library none)")
+    out["lane_kernel_rows"] = res
+    del Cf, Cin, C0, Cw, Yb, Yw
+    torch.cuda.empty_cache()
+    return res
+
+
+def batched_setup_path(dev, seed, out, direct_A, amg_A):
+    """15e: stacked values (B, nnz) through the direct route on the direct
+    path's cached plan (one factorization and one solve for the stack on
+    rows 4′–6′, the backward on the transposed sweeps of the same factors),
+    rows 4′–6′ against their plain versions, then CG + AMG (on phase 11b's
+    cached plan), CG + MG, CG + Chebyshev and CG + ILU on stacked values,
+    each held to the single solves of its lanes.  The direct and Chebyshev
+    lanes are scaled copies of one matrix; the AMG and ILU lanes have
+    random conductances (``_lane_values(..., jitter=True)``) and the MG
+    lanes a κ each, so that no lane is a multiple of another."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.core import direct as _direct
+    from repro_torch.data.poisson import poisson2d, poisson2d_vc
+    from repro_torch.kernels import launch_counts
+
+    rng = np.random.default_rng(seed + 21)
+    total, res = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # -- the direct route, B = 8 lanes of poisson2d(316) ------------------
+    B = LANES_DIRECT
+    Ad = direct_A
+    nd = Ad.shape[0]
+    plan = Ad.plan()                          # cached since phase 8
+    art = plan.artifacts["direct"]
+    nbk = sum(len(lvl) for lvl in art.snode.schedule)
+    vals = _lane_values(Ad, B, rng)
+    f = torch.tensor(rng.normal(size=nd), device=dev)
+    leaf = vals.clone().requires_grad_(True)
+    _sync(dev)
+    _peak_reset(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    X = sla.solve(Ad.with_values(leaf), f)
+    _sync(dev)
+    t1 = time.perf_counter()
+    lf = dict(launch_counts())
+    (X * X).sum().backward()
+    _sync(dev)
+    t2 = time.perf_counter()
+    ld, sd = _counts()
+    add(ld)
+    peak = _peak(dev)
+    fac_launches = lf["panel_factor_lanes"] + lf["schur_update_lanes"]
+    solve_launches = lf["sn_sweep_lanes"]
+    back_launches = ld["sn_sweep_lanes"] - solve_launches
+    relres = _true_rel_res(Ad.with_values(vals), X.detach(), f)
+    # one batched factorization against B one at a time (wall, device)
+    fac_b = lambda: _direct.numeric_factor(art, vals)
+    fac_1 = lambda: [_direct.numeric_factor(art, vals[b]) for b in range(B)]
+    wall_b, wall_1 = wall_ms(fac_b, 3), wall_ms(fac_1, 2)
+    dev_b, dev_1 = _sum_ms(fac_b, reps=3), _sum_ms(fac_1, reps=2)
+    Cs = fac_b()
+    sol_b = lambda: _direct.factored_solve(art, Cs, f.expand(B, nd))
+    swall_b = wall_ms(sol_b, 3)
+    sdev_b = _sum_ms(sol_b, reps=3)
+    # each lane against its single solve and single gradient
+    xerr = gerr = 0.0
+    for b in range(B):
+        v1 = vals[b].clone().requires_grad_(True)
+        x1 = sla.solve(Ad.with_values(v1), f)
+        (x1 * x1).sum().backward()
+        x1 = x1.detach()
+        xerr = max(xerr, float((X[b].detach() - x1).abs().max()
+                               / x1.abs().max()))
+        gerr = max(gerr, _grad_rel(leaf.grad[b], v1.grad))
+    say(f"  direct B={B} poisson2d({NG_DIRECT}) (cached plan {plan.cfg.backend}/"
+        f"{plan.cfg.method}, {nbk} buckets): solve {t1 - t0:.4f} s, backward "
+        f"{t2 - t1:.4f} s; launches a factorization {fac_launches}, a solve "
+        f"{solve_launches}, the backward {back_launches} (one lane: "
+        f"{2 * nbk} each); PLAN_STATS {json.dumps({k: v for k, v in sd.items() if v})}; "
+        f"peak {peak:.3f} GB")
+    say(f"  one batched factorization {wall_b:.2f} ms wall / {dev_b:.3f} ms "
+        f"device against {B} one at a time {wall_1:.2f} ms / {dev_1:.3f} ms "
+        f"({wall_1 / wall_b:.2f}x wall); one batched solve {swall_b:.2f} ms "
+        f"wall / {sdev_b:.3f} ms device; true residuals "
+        f"{relres.max().item():.2e}; lanes vs single solves: x {xerr:.2e}, "
+        f"gradient {gerr:.2e}")
+    check(plan.cfg.backend == "direct" and sd["setup"] == 1
+          and sd["factorize"] == 1 and sd["analyze"] == 0
+          and plan.transpose() is plan,
+          "batched direct: one setup and one factorization for the stack "
+          "across the solve and its backward, on the cached analysis, whose "
+          "adjoint plan is the plan itself")
+    check(fac_launches == 2 * nbk and solve_launches == 2 * nbk
+          and back_launches == 2 * nbk
+          and ld["panel_factor"] + ld["schur_update"] + ld["sn_sweep"] == 0,
+          f"batched direct: {2 * nbk} launches a factorization, a solve and "
+          f"a backward for all {B} lanes, as one lane costs")
+    check(relres.max().item() <= TOL_DIRECT_RES,
+          f"batched direct: every lane's true residual <= "
+          f"{TOL_DIRECT_RES:.0e}")
+    check(xerr <= 1e-12 and gerr <= 1e-12, f"batched direct: each lane's x "
+          f"and gradient equal its single solve's ({xerr:.2e}, {gerr:.2e} "
+          f"<= 1e-12)")
+    res["direct"] = dict(B=B, ng=NG_DIRECT, buckets=nbk, solve_s=t1 - t0,
+                         backward_s=t2 - t1, factorization_launches=fac_launches,
+                         solve_launches=solve_launches,
+                         backward_launches=back_launches,
+                         factorize_wall_ms=wall_b, factorize_device_ms=dev_b,
+                         singles_wall_ms=wall_1, singles_device_ms=dev_1,
+                         solve_wall_ms=swall_b, solve_device_ms=sdev_b,
+                         true_residual=relres.tolist(), x_rel_diff=xerr,
+                         grad_rel_diff=gerr, peak_gb=peak, plan_stats=sd,
+                         launches=ld)
+    del X, leaf, Cs
+    kres = lane_kernel_rows(dev, art, vals, NG_DIRECT, out)
+    del vals
+    torch.cuda.empty_cache()
+
+    # -- CG + AMG / MG / Chebyshev / ILU on stacked values ------------------
+    def lanes_case(label, A, b, kw, lanes, want_kernel, vals=None):
+        if vals is None:
+            vals = _lane_values(A, lanes, rng, jitter=True)
+        Ab = A.with_values(vals)
+        _sync(dev)
+        _counts_reset()
+        t0 = time.perf_counter()
+        r = sla.solve_with_info(Ab, b, **kw)
+        _sync(dev)
+        t1 = time.perf_counter()
+        lc, sc = _counts()
+        add(lc)
+        it = [int(i) for i in r.iterations.tolist()]
+        singles, walls = [], []
+        xerr = 0.0
+        for k in range(lanes):
+            t = time.perf_counter()
+            one = sla.solve_with_info(A.with_values(vals[k].clone()), b, **kw)
+            _sync(dev)
+            walls.append(time.perf_counter() - t)
+            singles.append(int(one.iterations))
+            xerr = max(xerr, float((r.x[k] - one.x).abs().max()
+                                   / one.x.abs().max()))
+        rr = _true_rel_res(Ab, r.x, b).max().item()
+        ms_b = (t1 - t0) / max(max(it), 1) * 1e3
+        ms_1 = walls[0] / max(singles[0], 1) * 1e3
+        say(f"  {label} B={lanes}: iterations {it} (single solves "
+            f"{singles}); {t1 - t0:.3f} s, {ms_b:.3f} ms an iteration for "
+            f"{lanes} lanes against {ms_1:.3f} ms for one (setup included); "
+            f"true residual {rr:.2e}; lanes vs single solves {xerr:.2e}; "
+            f"PLAN_STATS {json.dumps({k: v for k, v in sc.items() if v})}")
+        check(sc["setup"] == 1 and it == singles and rr <= 10 * kw["tol"]
+              and xerr <= TOL_BATCH,
+              f"{label}: one setup for the stack, per-lane iterations equal "
+              f"the single solves', true residuals <= 10·tol, lanes within "
+              f"{TOL_BATCH:.0e} of their single solves")
+        check(lc[want_kernel] > 0, f"{label}: ran on {want_kernel}")
+        return dict(lanes=lanes, iterations=it, single_iterations=singles,
+                    solve_s=t1 - t0, ms_per_iteration=ms_b,
+                    single_ms_per_iteration=ms_1, single_s=walls,
+                    true_residual=rr, x_rel_diff=xerr, plan_stats=sc,
+                    launches=lc), sc
+
+    b = torch.ones(amg_A.shape[0], dtype=torch.float64, device=dev)
+    kw = dict(backend="pallas", method="cg", precond="amg", tol=TOL,
+              maxiter=MAXITER)
+    res["amg"], sc = lanes_case(f"CG + AMG poisson2d({NG_BELL})", amg_A, b,
+                                kw, LANES_PRECOND, "sn_sweep_lanes")
+    check(sc["galerkin"] == 1 and sc["analyze"] == 0,
+          "batched AMG: one Galerkin product for the stack, on the cached "
+          "analysis")
+    del b
+    torch.cuda.empty_cache()
+    # MG: one smooth κ per lane (lane 0 phase 11a's)
+    As = [poisson2d_vc(torch.tensor(smooth_kappa(NG_STENCIL, seed + k),
+                                    device=dev),
+                       use_stencil_kernel=True, device=dev)
+          for k in range(LANES_PRECOND)]
+    b = torch.ones(As[0].shape[0], dtype=torch.float64, device=dev)
+    res["mg"], _ = lanes_case(
+        f"CG + MG ng={NG_STENCIL}", As[0], b,
+        dict(precond="mg", tol=TOL, maxiter=MAXITER), LANES_PRECOND,
+        "stencil5_batched", vals=torch.stack([a.val for a in As]))
+    del As, b
+    torch.cuda.empty_cache()
+    A1 = poisson2d(NG_BELL, device=dev)
+    b = torch.ones(A1.shape[0], dtype=torch.float64, device=dev)
+    res["chebyshev"], _ = lanes_case(
+        f"CG + Chebyshev poisson2d({NG_BELL})", A1, b,
+        dict(backend="pallas", method="cg", precond="chebyshev", tol=TOL,
+             maxiter=MAXITER), LANES_PRECOND, "fused_cheb_step_batched",
+        vals=_lane_values(A1, LANES_PRECOND, rng))
+    del A1, b
+    A2 = poisson2d(NG_ILU_LANES, device=dev)
+    b = torch.ones(A2.shape[0], dtype=torch.float64, device=dev)
+    res["ilu"], _ = lanes_case(
+        f"CG + ILU(0) poisson2d({NG_ILU_LANES})", A2, b,
+        dict(backend="pallas", method="cg", precond="ilu", tol=TOL,
+             maxiter=MAXITER), LANES_PRECOND, "bell_spmv_batched")
+    out["batched_setup_path"] = res
+    return kres, total
 
 
 def batch_phase(dev, seed, out, direct_A):
@@ -3775,7 +4293,10 @@ def main():
                            step_lanes=(STEP_B, STEP_N),
                            ng_batch_stencil=NG_BATCH_STENCIL,
                            ng_serve=NG_SERVE,
-                           serve=(SERVE_REQUESTS, SERVE_MAX_BATCH)))
+                           serve=(SERVE_REQUESTS, SERVE_MAX_BATCH),
+                           lanes_direct=LANES_DIRECT,
+                           lanes_precond=LANES_PRECOND,
+                           ng_ilu_lanes=NG_ILU_LANES))
 
     phases = []
 
@@ -3797,6 +4318,7 @@ def main():
     kres = phase("kernels", kernel_phase, dev, NG_STENCIL, NG_BELL, SEED, out)
     path_launches = {}
     direct = {}                        # the direct path's analysis, values
+    amg = {}                           # the AMG path's poisson2d(1024)
     for name, fn, a in (
             ("stencil path", stencil_path,
              (dev, NG_STENCIL, TOL, MAXITER, SEED, out)),
@@ -3811,7 +4333,8 @@ def main():
             ("indefinite path", indefinite_path, (dev, *SADDLE, SEED, out)),
             ("ILU path", ilu_path, (dev, NG_ILU, TOL, MAXITER, out)),
             ("MG path", mg_path, (dev, NG_STENCIL, TOL, MAXITER, SEED, out)),
-            ("AMG path", amg_path, (dev, NG_BELL, N_GRAPH, TOL, MAXITER, out)),
+            ("AMG path", amg_path,
+             (dev, NG_BELL, N_GRAPH, TOL, MAXITER, out, amg)),
             ("GMRES / Chebyshev path", krylov_path,
              (dev, NG_TRANSPOSE, NG_BELL, TOL_TRANSPOSE, TOL, MAXITER,
               out)),
@@ -3834,6 +4357,12 @@ def main():
         path_launches[k] = path_launches.get(k, 0) + v
     bres, blaunch = phase("batched solves and the solve server", batch_phase,
                           dev, SEED, out, direct_A)
+    kres.update(bres)
+    for k, v in blaunch.items():
+        path_launches[k] = path_launches.get(k, 0) + v
+    bres, blaunch = phase("batched direct and preconditioned setups (15e)",
+                          batched_setup_path, dev, SEED, out, direct_A,
+                          amg.pop("A"))
     del direct_A
     kres.update(bres)
     for k, v in blaunch.items():

@@ -394,8 +394,9 @@ def sparse_eigsh(A: SparseTensor, k: int = 6, *, method: str = "lobpcg",
     n = A.shape[0]
     if A.batch_shape:
         raise NotImplementedError(
-            "batched values in eigsh come with slice 5b of the PyTorch port "
-            "(a batched LOBPCG / Lanczos); call eigsh lane by lane")
+            "eigsh does not support batched values (B, nnz), as the "
+            "reference's eigsh does not; call eigsh lane by lane, on "
+            "A.with_values(vals[b]) for each b")
     if method not in ("lobpcg", "lanczos"):
         raise ValueError(f"unknown eig method {method!r}")
     pplan = None

@@ -1217,20 +1217,40 @@ def to_device(art: DirectArtifacts, device) -> DirectArtifacts:
 # ---------------------------------------------------------------------------
 
 def _pivot_tau(val: torch.Tensor, pivot_eps: Optional[float]) -> torch.Tensor:
+    """The 1x1 pivot clamp τ of ``val`` (nnz,) — 0-dim — or of each lane of
+    ``val`` (B, nnz) — (B,), as the reference's vmapped factorization
+    computes it lane by lane."""
     if pivot_eps is not None:
-        return torch.tensor(pivot_eps, dtype=val.dtype, device=val.device)
+        return torch.full(val.shape[:-1], pivot_eps, dtype=val.dtype,
+                          device=val.device)
     eps = torch.tensor(torch.finfo(val.dtype).eps, dtype=val.dtype,
                        device=val.device)
-    return torch.sqrt(eps) * torch.clamp_min(val.abs().max(), 1e-300)
+    return torch.sqrt(eps) * torch.clamp_min(val.abs().amax(-1), 1e-300)
 
 
-def _warn_perturbed(n_bad: int, tau: float) -> None:
-    warnings.warn(
-        f"numeric factorization hit {n_bad} numerically-zero "
-        f"pivot(s); applied a scaled diagonal perturbation "
-        f"(|d|<{tau:.2e} -> ±{tau:.2e}). The "
-        f"factors solve a nearby matrix — consider an iterative "
-        f"backend or a symmetric shift for indefinite systems.")
+def _warn_perturbed(nbad: torch.Tensor, tau: torch.Tensor) -> None:
+    """Warn with the count of clamped pivots — per lane for a lane stack —
+    after ONE host read of the counts and the clamps."""
+    counts, taus = torch.stack([nbad.to(tau.dtype), tau]).tolist()
+    if nbad.dim() == 0:
+        if counts:
+            warnings.warn(
+                f"numeric factorization hit {int(counts)} numerically-zero "
+                f"pivot(s); applied a scaled diagonal perturbation "
+                f"(|d|<{taus:.2e} -> ±{taus:.2e}). The "
+                f"factors solve a nearby matrix — consider an iterative "
+                f"backend or a symmetric shift for indefinite systems.")
+        return
+    hit = [(b, int(c), t) for b, (c, t) in enumerate(zip(counts, taus)) if c]
+    if hit:
+        warnings.warn(
+            f"numeric factorization of {len(counts)} value lanes hit "
+            f"numerically-zero pivots in lanes "
+            + ", ".join(f"{b} ({c}, |d|<{t:.2e} -> ±{t:.2e})"
+                        for b, c, t in hit)
+            + "; applied a scaled diagonal perturbation. The factors solve "
+            "nearby matrices — consider an iterative backend or a "
+            "symmetric shift for indefinite systems.")
 
 
 def _snode_numeric(art: DirectArtifacts, C: torch.Tensor, tau, guard: bool):
@@ -1240,11 +1260,13 @@ def _snode_numeric(art: DirectArtifacts, C: torch.Tensor, tau, guard: bool):
     sound: a bucket's lanes own disjoint columns, and its extend-add targets
     lie in ancestors, which are on higher levels.  Pad slots all name the
     scratch sink, which is read masked and never written.  Returns (C, nbad)
-    with nbad a device scalar."""
+    with nbad a device scalar.  A lane stack C (B, nnzF+2) with τ (B,)
+    factors every lane in the same launches (nbad (B,))."""
     from ..kernels import supernode as ksn
-    nbad = torch.zeros((), dtype=C.dtype, device=C.device)
+    nbad = C.new_zeros(C.shape[:-1])
+    lanes = C.shape[0] if C.dim() == 2 else 1
     k_max = max(bk.wvec.shape[0] for lvl in art.snode.schedule for bk in lvl)
-    work = torch.zeros(k_max, dtype=torch.int32, device=C.device)
+    work = torch.zeros(k_max * lanes, dtype=torch.int32, device=C.device)
     for lvl in art.snode.schedule:
         for bk in lvl:
             ksn.panel_factor_inplace(C, bk.pidx, bk.qidx, bk.wvec, bk.rvec,
@@ -1258,21 +1280,25 @@ def _snode_numeric(art: DirectArtifacts, C: torch.Tensor, tau, guard: bool):
 def _scalar_numeric(art: DirectArtifacts, C: torch.Tensor, tau, guard: bool):
     """The scalar packed scan, one Python iteration per step.  With the
     guard, every pivot with |d| < τ is replaced by ±τ in storage before its
-    divide; the count of perturbed pivots comes back as a device scalar."""
+    divide; the count of perturbed pivots comes back as a device scalar.
+    A lane stack C (B, nnzF+2) with τ (B,) runs every lane in each step's
+    tensor ops (counts (B,))."""
     f = art.factor
-    pert = torch.zeros(art.nnzF + 2, dtype=torch.bool, device=C.device) \
+    pert = torch.zeros(C.shape, dtype=torch.bool, device=C.device) \
         if guard else None
+    tl = tau[..., None]
     for s in range(f.fin_lpos.shape[0]):
         fl, fpv = f.fin_lpos[s], f.fin_piv[s]
         if guard:
-            piv = C[fpv]
-            bad = piv.abs() < tau            # pads divide by scratch 1.0
-            C[fpv] = torch.where(bad, torch.where(piv >= 0, tau, -tau), piv)
-            pert[fpv] = pert[fpv] | bad
-        C[fl] = C[fl] / C[fpv]
-        C.index_add_(0, f.up_dst[s], C[f.up_s1[s]] * C[f.up_s2[s]],
+            piv = C[..., fpv]
+            bad = piv.abs() < tl             # pads divide by scratch 1.0
+            C[..., fpv] = torch.where(bad, torch.where(piv >= 0, tl, -tl),
+                                      piv)
+            pert[..., fpv] = pert[..., fpv] | bad
+        C[..., fl] = C[..., fl] / C[..., fpv]
+        C.index_add_(-1, f.up_dst[s], C[..., f.up_s1[s]] * C[..., f.up_s2[s]],
                      alpha=-1)
-    return C, (pert[:art.n].sum() if guard else None)
+    return C, (pert[..., :art.n].sum(-1) if guard else None)
 
 
 def numeric_factor(art: DirectArtifacts, val: torch.Tensor, *,
@@ -1280,7 +1306,10 @@ def numeric_factor(art: DirectArtifacts, val: torch.Tensor, *,
                    pivot_eps: Optional[float] = None) -> torch.Tensor:
     """Numeric LU/LDLᵀ over the precomputed fill pattern (``art`` from
     :func:`to_device`, on ``val``'s device).  Duplicate COO entries
-    accumulate.
+    accumulate.  ``val`` (nnz,) gives the factor vector (nnzF+2,); stacked
+    values (B, nnz) of the pattern give the (B, nnzF+2) factor stack in ONE
+    pass — the same kernel launches as one lane, τ and the clamp count per
+    lane (the reference's ``jax.vmap``).
 
     ``pivot_guard`` (default on): no numerical pivoting is performed, so a
     structurally present but numerically (near-)zero pivot would turn the
@@ -1289,48 +1318,55 @@ def numeric_factor(art: DirectArtifacts, val: torch.Tensor, *,
     stay consistent, and warns once with the count (one host read per
     factorization).  Runs without autograd: gradients come from the adjoint
     functions, not through the factorization."""
+    if val.dim() not in (1, 2):
+        raise ValueError(f"numeric_factor: values must be (nnz,) or "
+                         f"(B, nnz), got {tuple(val.shape)}")
     with torch.no_grad():
         val = val.detach()
         tau = _pivot_tau(val, pivot_eps)
-        C = torch.zeros(art.nnzF + 2, dtype=val.dtype, device=val.device)
-        C.index_add_(0, art.a2f, val)
-        C[art.nnzF + 1] = 1.0
+        C = val.new_zeros(val.shape[:-1] + (art.nnzF + 2,))
+        C.index_add_(-1, art.a2f, val)
+        C[..., art.nnzF + 1] = 1.0
         if art.snode is not None:
             C, nbad = _snode_numeric(art, C, tau, pivot_guard)
         else:
             C, nbad = _scalar_numeric(art, C, tau, pivot_guard)
         if nbad is not None:
-            n_bad = int(nbad)
-            if n_bad:
-                _warn_perturbed(n_bad, float(tau))
+            _warn_perturbed(nbad, tau)
         return C
 
 
 # ---------------------------------------------------------------------------
-# triangular sweeps (the solve stage); y is (n+1, m), row n a scratch zero
+# triangular sweeps (the solve stage); y is (n+1, m), row n a scratch zero,
+# or (B, n+1, m) for a lane stack of factors (B, nnzF+2)
 # ---------------------------------------------------------------------------
 
 def _sweep(C, y, program: PackedSweep, use_upos: bool, divide: bool):
     pos = program.upos if use_upos else program.lpos
     for s in range(program.tgt.shape[0]):
-        y.index_add_(0, program.tgt[s],
-                     -C[pos[s]].unsqueeze(1) * y[program.src[s]])
+        y.index_add_(-2, program.tgt[s],
+                     -C[..., pos[s]].unsqueeze(-1) * y[..., program.src[s], :])
         if divide:
             dn = program.dn[s]
-            y[dn] = y[dn] / C[program.dpiv[s]].unsqueeze(1)
+            y[..., dn, :] = y[..., dn, :] / \
+                C[..., program.dpiv[s]].unsqueeze(-1)
     return y
 
 
-def _sweep_buffers(sn: SnodeProgram, m: int, dtype, device):
-    """The ``sn_sweep`` work / part buffers for up to m right-hand sides,
-    made once per plan and dtype and grown with m (every launch leaves the
-    counters at zero, so the next solve reuses them)."""
+def _sweep_buffers(sn: SnodeProgram, m: int, lanes: int, dtype, device):
+    """The ``sn_sweep`` work / part buffers for up to m right-hand sides on
+    up to ``lanes`` value lanes, made once per plan and dtype and grown with
+    m and the lanes (every launch leaves the counters at zero, so the next
+    solve reuses them)."""
     from ..kernels import supernode as ksn
     have = sn.buffers.get(dtype)
-    if have is None or have[0] < m:
-        have = sn.buffers[dtype] = (m,) + ksn.sweep_buffers(
-            [bk for lvl in sn.schedule for bk in lvl], m, dtype, device)
-    return have[1:]
+    if have is None or have[0] < m or have[1] < lanes:
+        m = m if have is None else max(m, have[0])
+        lanes = lanes if have is None else max(lanes, have[1])
+        have = sn.buffers[dtype] = (m, lanes) + ksn.sweep_buffers(
+            [bk for lvl in sn.schedule for bk in lvl], m, dtype, device,
+            lanes)
+    return have[2:]
 
 
 def _snode_solve(art: DirectArtifacts, C, y, transposed: bool):
@@ -1338,13 +1374,17 @@ def _snode_solve(art: DirectArtifacts, C, y, transposed: bool):
     ascending levels for L/Uᵀ, descending for U/Lᵀ — one ``sn_sweep``
     launch per bucket and sweep, in place in y.  Within a level this is
     sound: a bucket's lanes own disjoint block rows, and the rows they
-    scatter into or gather from lie in ancestors, on higher levels."""
+    scatter into or gather from lie in ancestors, on higher levels.  A lane
+    stack (C (B, nnzF+2), y (B, n+1, m)) sweeps every lane in the same
+    launches."""
     from ..kernels import supernode as ksn
     sched = art.snode.schedule
     first, second = ("ut", "lt") if transposed else ("l", "u")
     work = part = None
     if y.device.type != "cpu":
-        work, part = _sweep_buffers(art.snode, y.shape[1], C.dtype, y.device)
+        work, part = _sweep_buffers(art.snode, y.shape[-1],
+                                    C.shape[0] if C.dim() == 2 else 1,
+                                    C.dtype, y.device)
     for lvl in sched:
         for bk in lvl:
             ksn.sn_sweep_inplace(C, y, bk, first, work=work, part=part)
@@ -1357,18 +1397,28 @@ def _snode_solve(art: DirectArtifacts, C, y, transposed: bool):
 def factored_solve(art: DirectArtifacts, C: torch.Tensor, b: torch.Tensor,
                    *, transposed: bool = False) -> torch.Tensor:
     """x with A x = b (or Aᵀ x = b) from the factors ``C``; ``b`` is (n,)
-    or (n, m) for m right-hand sides.
+    or (n, m) for m right-hand sides.  Lane-stacked factors ``C``
+    (B, nnzF+2) (from stacked values) take ``b`` (B, n) or (B, n, m): lane
+    b's rows solve on lane b's factors, every lane in the same launches.
 
     Forward: permute, unit-L then U sweeps, unpermute.  Transposed: the SAME
     factors with Uᵀ then Lᵀ sweeps — the adjoint's zero-refactorize path.
     Supernodal factors route through the blocked panel sweeps."""
+    lanes = C.dim() - 1
+    if b.dim() not in (lanes + 1, lanes + 2) \
+            or lanes and b.shape[0] != C.shape[0]:
+        raise ValueError(f"factored_solve: b {tuple(b.shape)} does not fit "
+                         f"the factors {tuple(C.shape)}")
     with torch.no_grad():
-        vec = b.dim() == 1
-        B = b.detach().reshape(b.shape[0], -1)
+        vec = b.dim() == lanes + 1
+        B = b.detach().reshape(b.shape[:lanes + 1] + (-1,))
         n = art.n
-        y = B.new_empty(n + 1, B.shape[1])
-        torch.index_select(B, 0, art.perm, out=y[:n])
-        y[n] = 0.0
+        y = B.new_empty(B.shape[:-2] + (n + 1, B.shape[-1]))
+        if lanes:
+            y[:, :n] = B.index_select(1, art.perm)
+        else:
+            torch.index_select(B, 0, art.perm, out=y[:n])
+        y[..., n, :] = 0.0
         if art.snode is not None:
             y = _snode_solve(art, C, y, transposed)
         else:
@@ -1377,10 +1427,10 @@ def factored_solve(art: DirectArtifacts, C: torch.Tensor, b: torch.Tensor,
                 else ((art.row_sweep, False, False),
                       (art.col_sweep, True, True))
             y = _sweep(C, y, *first)
-            y[n] = 0.0
+            y[..., n, :] = 0.0
             y = _sweep(C, y, *second)
-        x = y[art.ipos]
-        return x[:, 0] if vec else x
+        x = y[..., art.ipos, :]
+        return x[..., 0] if vec else x
 
 
 def factor_slogdet(art: DirectArtifacts, C: torch.Tensor

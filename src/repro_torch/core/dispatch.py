@@ -27,9 +27,9 @@ factorization, one preconditioner build) and solve as lanes of one
 batch-native Krylov loop, or as one coupled ``block_cg`` solve, or as one
 multi-column factored solve; stacked values (B, nnz) on one pattern get ONE
 batched setup (:meth:`SolverPlan.setup_batch`, memoized on the stack) and
-one lane-batched loop on the lane-batched kernels.  Batched values through
-the direct route, MG, AMG, the plan Chebyshev and ILU are slice 5b of the
-port and raise ``NotImplementedError``.
+one lane-batched loop on the lane-batched kernels, or — on the direct
+route — one lane-stacked factorization and one lane-stacked factored solve,
+every lane in the launches of one.
 """
 from __future__ import annotations
 
@@ -410,22 +410,21 @@ class DirectBackend(Backend):
                 "transposed": False}
 
     def setup(self, plan, A):
-        if A.val.dim() > 1:
-            raise NotImplementedError(
-                "batched values through the direct route come with slice 5b "
-                "of the PyTorch port (a batch stride in panel_factor, "
-                "schur_update and sn_sweep); solve lane by lane, or use an "
-                "iterative backend")
+        """The numeric factorization: (nnzF+2,) factors, or — for stacked
+        values (B, nnz) — ONE factorization of the stack into (B, nnzF+2)
+        lane factors (one ``factorize``)."""
         PLAN_STATS["factorize"] += 1
         return _direct.numeric_factor(plan.artifacts["direct"], A.val)
 
     def solve(self, plan, C, A, b, x0, cfg):
         """x for b (n,), or for k right-hand sides (k, n) from ONE
         multi-column factored solve (each sweep launch carries the k
-        columns); a residual norm and a converged flag per right-hand
-        side."""
+        columns); with lane-stacked factors C (B, nnzF+2) (stacked values),
+        row b of ``b`` (B, n) solves on lane b's factors, every lane in the
+        same sweep launches.  A residual norm and a converged flag per
+        right-hand side."""
         art, tr = plan.artifacts["direct"], plan.artifacts["transposed"]
-        if b.dim() == 1:
+        if b.dim() == 1 or C.dim() == 2:
             x = _direct.factored_solve(art, C, b, transposed=tr)
         else:
             x = _direct.factored_solve(art, C, b.T, transposed=tr).T
@@ -553,7 +552,7 @@ class IterativeBackend(Backend):
         for i in range(b.shape[0]):
             st = state
             if stacked:
-                st = (val[i], tuple(t[i] for t in pstate),
+                st = (val[i], plan.artifacts["precond"].lane_state(pstate, i),
                       dinv if dinv is None or dinv.dim() == 1 else dinv[i],
                       None if packed is None else packed[i])
             x, info = self.solve(plan, st, A, b[i],

@@ -31,6 +31,16 @@ vary from run to run.  The CPU is deterministic.
 
 Both constructions produce a tuple of :class:`Level` closures consumed by
 the one :func:`v_cycle` routine.
+
+**Lanes** (stacked values (B, nnz) on one pattern, the reference's
+``jax.vmap`` of the setup): both constructions take lane-stacked values —
+(B, 5, ng, ng) planes, (B, nnz) AMG values — and build ONE lane-stacked
+hierarchy (one Galerkin pass, one coarse factorization of the stack); its
+apply runs ONE V-cycle for all lanes, row b of the residual on lane b's
+levels (MG: the level operators on ``stencil5_batched``; AMG: the coarse
+solve on the lane-stacked sweeps).  Whether a state is lane-stacked is read
+from the state, never from the residual's row count: on a one-lane state
+(k, n) rows are k right-hand sides, one V-cycle per row.
 """
 from __future__ import annotations
 
@@ -86,14 +96,21 @@ def v_cycle(levels: Tuple[Level, ...], b: torch.Tensor, level: int = 0):
 
 def _stencil_fn(v5: torch.Tensor) -> Callable:
     """x (ng, ng) -> the stencil of planes ``v5`` applied to x, through the
-    ``stencil5`` kernel wrapper (looked up at call time)."""
-    meta = _ks.Stencil5Meta(nx=int(v5.shape[1]), ny=int(v5.shape[2]))
+    ``stencil5`` kernel wrapper (looked up at call time); x (k, ng, ng), or
+    lane-stacked planes (B, 5, ng, ng) with x (B, ng, ng), go through
+    ``stencil5_batched`` (shared planes on k rows, one launch)."""
+    meta = _ks.Stencil5Meta(nx=int(v5.shape[-2]), ny=int(v5.shape[-1]))
     v5 = v5.contiguous()
-    return lambda x: _ks.stencil5(meta, v5, x)
+
+    def apply(x):
+        if v5.dim() == 4 or x.dim() == 3:
+            return _ks.stencil5_batched(meta, v5, x)
+        return _ks.stencil5(meta, v5, x)
+    return apply
 
 
 def _jacobi_weights(v5: torch.Tensor, omega: float) -> torch.Tensor:
-    diag = v5[0]
+    diag = v5[..., 0, :, :]
     return torch.where(diag.abs() > 1e-30, omega / diag,
                        torch.zeros_like(diag))
 
@@ -106,29 +123,32 @@ def _smooth(apply: Callable, inv: torch.Tensor, x, b, iters: int = 2):
 
 
 def _restrict(r: torch.Tensor) -> torch.Tensor:
-    """Full-weighting 2×2 restriction (cell-centred)."""
-    ng = r.shape[0]
-    return r.reshape(ng // 2, 2, ng // 2, 2).mean(dim=(1, 3))
+    """Full-weighting 2×2 restriction (cell-centred), over the last two
+    dims."""
+    ng = r.shape[-1]
+    return r.reshape(r.shape[:-2] + (ng // 2, 2, ng // 2, 2)).mean(
+        dim=(-3, -1))
 
 
 def _prolong(e: torch.Tensor) -> torch.Tensor:
     """Piecewise-constant prolongation (the transpose of the restriction up
     to its 1/4)."""
-    return e.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    return e.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
 
 def _dense_stencil(v5: torch.Tensor) -> torch.Tensor:
     """The (nc, nc) dense matrix of planes ``v5`` (out-of-domain neighbours
-    dropped, as the stencil reads them as zero)."""
-    ng = v5.shape[1]
+    dropped, as the stencil reads them as zero); (B, nc, nc) for lane
+    planes (B, 5, ng, ng)."""
+    ng = v5.shape[-1]
     nc = ng * ng
     idx = torch.arange(nc, device=v5.device).reshape(ng, ng)
-    A = v5.new_zeros((nc, nc))
-    A[idx, idx] = v5[0]
-    A[idx[1:, :], idx[:-1, :]] = v5[1][1:, :]      # N: x[i-1, j]
-    A[idx[:-1, :], idx[1:, :]] = v5[2][:-1, :]     # S: x[i+1, j]
-    A[idx[:, 1:], idx[:, :-1]] = v5[3][:, 1:]      # W: x[i, j-1]
-    A[idx[:, :-1], idx[:, 1:]] = v5[4][:, :-1]     # E: x[i, j+1]
+    A = v5.new_zeros(v5.shape[:-3] + (nc, nc))
+    A[..., idx, idx] = v5[..., 0, :, :]
+    A[..., idx[1:, :], idx[:-1, :]] = v5[..., 1, 1:, :]   # N: x[i-1, j]
+    A[..., idx[:-1, :], idx[1:, :]] = v5[..., 2, :-1, :]  # S: x[i+1, j]
+    A[..., idx[:, 1:], idx[:, :-1]] = v5[..., 3, :, 1:]   # W: x[i, j-1]
+    A[..., idx[:, :-1], idx[:, 1:]] = v5[..., 4, :, :-1]  # E: x[i, j+1]
     return A
 
 
@@ -142,13 +162,13 @@ def _build_levels(kappa: torch.Tensor, coarsest: int,
     ``vc_coefficients`` of the restricted κ."""
     levels: List[torch.Tensor] = []
     sizes: List[int] = []
-    ng = kappa.shape[0]
+    ng = kappa.shape[-1]
     k = kappa
 
     def level_op(k, ng):
         if fine_planes is not None and not levels:
             return fine_planes
-        return vc_coefficients(k).reshape(5, ng, ng)
+        return vc_coefficients(k).reshape(k.shape[:-2] + (5, ng, ng))
 
     while ng >= coarsest and ng % 2 == 0:
         levels.append(level_op(k, ng))
@@ -190,11 +210,13 @@ class MultigridPreconditioner:
         """Build from assembled (5, ng, ng) stencil planes: a κ proxy from
         the centre plane (C = Σ couplings ≈ 4κ), the given planes as the
         finest operator, the restricted proxy rediscretized below.  The
-        ``precond="mg"`` entry point of the plan."""
-        if v5.dim() != 3 or v5.shape[0] != 5 or v5.shape[1] != v5.shape[2]:
-            raise ValueError(
-                f"from_planes expects (5, ng, ng), got {tuple(v5.shape)}")
-        kappa_proxy = v5[0] / 4.0
+        ``precond="mg"`` entry point of the plan.  Lane-stacked planes
+        (B, 5, ng, ng) build one lane-stacked hierarchy."""
+        if v5.dim() not in (3, 4) or v5.shape[-3] != 5 \
+                or v5.shape[-2] != v5.shape[-1]:
+            raise ValueError(f"from_planes expects (5, ng, ng) or "
+                             f"(B, 5, ng, ng), got {tuple(v5.shape)}")
+        kappa_proxy = v5[..., 0, :, :] / 4.0
         levels, sizes = _build_levels(kappa_proxy, coarsest, fine_planes=v5)
         return cls(_levels=levels, _sizes=sizes, **kw)
 
@@ -204,13 +226,13 @@ class MultigridPreconditioner:
         for lvl, v5 in enumerate(self.levels):
             apply = _stencil_fn(v5)
             if lvl == last:
-                shape = (self.sizes[lvl],) * 2
                 LU, piv, _ = torch.linalg.lu_factor_ex(self.A_coarse)
                 out.append(Level(
                     matvec=apply, smooth=lambda x, b: x,
-                    coarse_solve=lambda b, LU=LU, piv=piv, shape=shape:
-                        torch.linalg.lu_solve(LU, piv, b.reshape(-1, 1))
-                        .reshape(shape)))
+                    coarse_solve=lambda b, LU=LU, piv=piv:
+                        torch.linalg.lu_solve(
+                            LU, piv, b.reshape(b.shape[:-2] + (-1, 1)))
+                        .reshape(b.shape)))
             else:
                 inv = _jacobi_weights(v5, self.omega)
                 out.append(Level(
@@ -239,18 +261,19 @@ class MultigridPreconditioner:
         mg = cls.__new__(cls)
         mg.pre, mg.post, mg.omega = pre_smooth, post_smooth, omega
         mg.levels = list(levels)
-        mg.sizes = [int(v5.shape[1]) for v5 in levels]
+        mg.sizes = [int(v5.shape[-1]) for v5 in levels]
         mg.A_coarse = A_coarse
         mg.scale = 4.0
         mg._hier = mg._build_hierarchy()
         return mg
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
-        """One V-cycle on r (n,); on (k, n) rows one V-cycle per row."""
-        if r.dim() == 2:
-            return torch.stack([self(ri) for ri in r])
+        """One V-cycle on r (n,), or on (k, n) rows all at once: k
+        right-hand sides of a one-lane hierarchy, or row b on lane b's
+        levels of a lane-stacked one."""
         ng = self.sizes[0]
-        return v_cycle(self._hier, r.reshape(ng, ng)).reshape(-1)
+        return v_cycle(self._hier, r.reshape(r.shape[:-1] + (ng, ng))
+                       ).reshape(r.shape)
 
 
 def make_mg_preconditioner(kappa: torch.Tensor, **kw) -> Callable:
@@ -392,21 +415,23 @@ def amg_to_device(art: AMGArtifacts, device) -> AMGArtifacts:
 
 
 def _segment_sum(data: torch.Tensor, seg: torch.Tensor, n: int):
-    return data.new_zeros(n).index_add_(0, seg, data)
+    """Segment sum over the last axis (leading lane dims carry through)."""
+    return data.new_zeros(data.shape[:-1] + (n,)).index_add_(-1, seg, data)
 
 
 def _amg_level_numeric(lev: AMGLevelSymbolic, aval: torch.Tensor,
                        theta: float, omega: float):
     """One level of the numeric setup: filtered-matrix weights, prolongator
     smoothing, the Galerkin product through the index programs.  Returns
-    ``(dinv, p_val, c_val)``."""
+    ``(dinv, p_val, c_val)``; lane-stacked ``aval`` (B, nnz) gives
+    lane-stacked arrays (every op on the last axis)."""
     zero = torch.zeros((), dtype=aval.dtype, device=aval.device)
     d = _segment_sum(torch.where(lev.diag_mask, aval, zero), lev.arow, lev.n)
     # strength filtering: keep |a_ij| ≥ θ √|a_ii a_jj|, lump the dropped mass
     # into the diagonal (Vaněk's filtered matrix Ā) — numeric, so the SAME
     # pattern program serves every values refresh
     strong = aval.abs() >= theta * torch.sqrt(
-        (d[lev.arow] * d[lev.acol]).abs() + 1e-300)
+        (d[..., lev.arow] * d[..., lev.acol]).abs() + 1e-300)
     keep = lev.diag_mask | strong
     a_f = torch.where(keep, aval, zero)
     lump = _segment_sum(torch.where(keep, zero, aval), lev.arow, lev.n)
@@ -416,13 +441,13 @@ def _amg_level_numeric(lev: AMGLevelSymbolic, aval: torch.Tensor,
     # at the tentative slot (Ā's diagonal adjustment), add T
     tent = lev.tent.to(aval.dtype)
     p_sum = _segment_sum(a_f, lev.a2p, lev.p_row.shape[0])
-    p_sum = p_sum - tent * lump[lev.p_row]
-    p_val = tent - omega * dinv_f[lev.p_row] * p_sum
+    p_sum = p_sum - tent * lump[..., lev.p_row]
+    p_val = tent - omega * dinv_f[..., lev.p_row] * p_sum
     # Galerkin A_c = Pᵀ (A P) — two gathers + two segment sums, unfiltered A
-    ap = _segment_sum(aval[lev.g1_a] * p_val[lev.g1_p], lev.g1_dst,
+    ap = _segment_sum(aval[..., lev.g1_a] * p_val[..., lev.g1_p], lev.g1_dst,
                       lev.nnz_ap)
-    c_val = _segment_sum(p_val[lev.g2_p] * ap[lev.g2_ap], lev.g2_dst,
-                         lev.nnz_c)
+    c_val = _segment_sum(p_val[..., lev.g2_p] * ap[..., lev.g2_ap],
+                         lev.g2_dst, lev.nnz_c)
     dinv = torch.where(d.abs() > 1e-30, 1.0 / d, zero)
     return dinv, p_val, c_val
 
@@ -432,7 +457,9 @@ def amg_numeric(art: AMGArtifacts, val: torch.Tensor):
     the smoothing weights, prolongator values and Galerkin coarse values,
     then the coarsest level's numeric LDLᵀ/LU (``art`` from
     :func:`amg_to_device`, on ``val``'s device).  Memoized per values
-    tensor by ``SolverPlan.setup``."""
+    tensor by ``SolverPlan.setup``.  Stacked values (B, nnz) build every
+    lane's hierarchy in one pass (one ``galerkin``), the coarsest level as
+    ONE lane-stacked factorization on the panel kernels."""
     from . import direct as _direct
     from .dispatch import PLAN_STATS
     PLAN_STATS["galerkin"] += 1
@@ -471,14 +498,17 @@ def amg_hierarchy(art: AMGArtifacts, state) -> Tuple[Level, ...]:
             matvec=mv,
             smooth=make_smooth(mv, dinv, art.pre),
             restrict=lambda r, lev=lev, p_val=p_val: _segment_sum(
-                p_val * r[lev.p_row], lev.p_col, lev.n_c),
+                p_val * r[..., lev.p_row], lev.p_col, lev.n_c),
             prolong=lambda e, lev=lev, p_val=p_val: _segment_sum(
-                p_val * e[lev.p_col], lev.p_row, lev.n),
+                p_val * e[..., lev.p_col], lev.p_row, lev.n),
             post_smooth=make_smooth(mv, dinv, art.post)))
-    levels.append(Level(
-        matvec=lambda x: x,
-        smooth=lambda x, b: x,
-        coarse_solve=lambda b: _direct.factored_solve(art.coarse, C, b)))
+    def coarse_solve(b):
+        if C.dim() == 1 and b.dim() == 2:       # k rhs of one lane
+            return _direct.factored_solve(art.coarse, C, b.T).T
+        return _direct.factored_solve(art.coarse, C, b)
+
+    levels.append(Level(matvec=lambda x: x, smooth=lambda x, b: x,
+                        coarse_solve=coarse_solve))
     return tuple(levels)
 
 
@@ -492,7 +522,7 @@ class AMGPreconditioner:
         self.levels = amg_hierarchy(art, state)
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
-        """One V-cycle on r (n,); on (k, n) rows one V-cycle per row."""
-        if r.dim() == 2:
-            return torch.stack([self(ri) for ri in r])
+        """One V-cycle on r (n,), or on (k, n) rows all at once: k
+        right-hand sides of a one-lane state, or row b on lane b's
+        hierarchy of a lane-stacked one."""
         return v_cycle(self.levels, r)

@@ -23,10 +23,14 @@ run per solve):
   ``incomplete=True`` symbolic program at analyze time, its numeric
   factorization per values tensor, the factored solve as M⁻¹.
 
-Lanes: ``none``, ``jacobi`` and ``block_jacobi`` set up from stacked values
-(B, nnz) in one pass (a (B, n) diagonal, a batched block inverse); every
-apply takes (k, n) rows.  Batched values through ``chebyshev``, ``mg``,
-``amg`` and ``ilu`` are slice 5b of the port and raise.
+Lanes: every preconditioner sets up from stacked values (B, nnz) in one
+pass — the reference's ``jax.vmap`` of the setup — into lane-stacked state:
+a (B, n) diagonal, a batched block inverse, (B,) Chebyshev bounds from one
+batched Lanczos run, one lane-stacked MG or AMG hierarchy, one (B, nnzF+2)
+ILU factor stack.  Its apply takes (B, n) rows, row b on lane b's state.
+On a one-lane state an apply takes (k, n) rows as k right-hand sides of that
+one matrix.  Which of the two a state is, is read from the state itself
+(:meth:`PreconditionerPlan.make_apply`), never from the row count.
 """
 from __future__ import annotations
 
@@ -40,8 +44,6 @@ __all__ = ["identity", "jacobi", "chebyshev", "estimate_spectrum",
 
 PRECONDITIONERS = ("none", "identity", "jacobi", "block_jacobi", "chebyshev",
                    "mg", "amg", "ilu")
-#: preconditioners whose setup takes stacked values (B, nnz)
-BATCHED_SETUP = ("none", "jacobi", "block_jacobi")
 
 
 def identity():
@@ -101,33 +103,58 @@ def _bj_apply(inv: torch.Tensor, n: int, nb: int, block: int):
 # Chebyshev
 # ---------------------------------------------------------------------------
 
-def chebyshev(matvec: Callable, lam_min: float, lam_max: float,
-              degree: int = 8, fused: bool = False):
+def _cheb_coeffs(lam_min, lam_max, degree: int):
+    """θ and the recurrence's per-step scalars c1, c2 (lists of degree-1):
+    floats from float bounds, f64 (B,) tensors from (B,) tensor bounds —
+    the same operations in the same order either way, so a lane's scalars
+    equal the single-lane ones."""
+    lo, hi = (lam_min.double(), lam_max.double()) \
+        if isinstance(lam_min, torch.Tensor) else (lam_min, lam_max)
+    theta = 0.5 * (hi + lo)
+    delta = 0.5 * (hi - lo)
+    sigma = theta / delta
+    rho_k = 1.0 / sigma
+    c1, c2 = [], []
+    for _ in range(degree - 1):
+        rho_k1 = 1.0 / (2.0 * sigma - rho_k)
+        c1.append(rho_k1 * rho_k)
+        c2.append(2.0 * rho_k1 / delta)
+        rho_k = rho_k1
+    return theta, c1, c2
+
+
+def chebyshev(matvec: Callable, lam_min, lam_max, degree: int = 8,
+              fused: bool = False):
     """Chebyshev-polynomial approximation of A⁻¹ on [lam_min, lam_max].
 
     With ``fused=True`` the inner d/x axpy pair runs as one
-    ``fused_cheb_step`` pass per degree; the recurrence is unchanged."""
-    theta = 0.5 * (lam_max + lam_min)
-    delta = 0.5 * (lam_max - lam_min)
-    sigma = theta / delta
+    ``fused_cheb_step`` pass per degree; the recurrence is unchanged.
+    Lanes: (B,) tensor bounds, one interval per lane of a lane-stacked
+    ``matvec`` — the apply takes r (B, n), row b on lane b's interval (the
+    per-lane scalars go to ``fused_cheb_step``'s lane-batched body); the
+    scalars are then computed on the device, once per call here."""
+    theta, c1, c2 = _cheb_coeffs(lam_min, lam_max, degree)
+    lanes = isinstance(theta, torch.Tensor)
+    if lanes:
+        dt = lam_min.dtype
+        theta = theta.to(dt)[:, None]
+        c1, c2 = [c.to(dt) for c in c1], [c.to(dt) for c in c2]
     if fused:
         from ..kernels import solve_step as _fk
 
     def apply(r):
         x = r / theta
         rk = r - matvec(x)
-        rho_k = 1.0 / sigma
         dk = x
-        for _ in range(degree - 1):
-            rho_k1 = 1.0 / (2.0 * sigma - rho_k)
+        for a, b in zip(c1, c2):
             if fused:
-                x, dk = _fk.fused_cheb_step(x, dk, rk, rho_k1 * rho_k,
-                                            2.0 * rho_k1 / delta)
+                x, dk = _fk.fused_cheb_step(x, dk, rk, a, b)
             else:
-                dk = rho_k1 * rho_k * dk + (2.0 * rho_k1 / delta) * rk
+                if lanes:
+                    a, b = a[:, None], b[:, None]
+                dk = a * dk + b * rk
                 x = x + dk
             rk = rk - matvec(dk)
-            rho_k = rho_k1
         return x
 
     return apply
@@ -135,20 +162,26 @@ def chebyshev(matvec: Callable, lam_min: float, lam_max: float,
 
 def estimate_spectrum(matvec: Callable, n: int, dtype=torch.float32,
                       steps: int = 16, seed: int = 0, *, v0=None,
-                      device=None):
+                      device=None, lanes: Optional[int] = None):
     """Lanczos-based extremal eigenvalue estimate for the Chebyshev bounds
     (once per setup, not per solve).  ``v0`` (tensor or numpy) replaces the
-    seeded start vector.  Returns 0-dim tensors ``(λ_min, λ_max)``."""
+    seeded start vector.  Returns 0-dim tensors ``(λ_min, λ_max)``; with
+    ``lanes`` = B (a matvec on (B, n) rows of B operators) every lane starts
+    from the same vector, as under the reference's ``jax.vmap``, and the
+    bounds are (B,)."""
     from .solvers import lanczos, seeded_normal
     if v0 is None:
         v0 = seeded_normal((n,), dtype, device, seed)
     else:
         v0 = torch.as_tensor(np.array(v0) if isinstance(v0, np.ndarray)
                              else v0).to(device=device, dtype=dtype)
+    if lanes is not None:
+        v0 = v0.expand(lanes, n).contiguous()
     a, b_, _ = lanczos(matvec, v0, steps)
-    T = torch.diag(a) + torch.diag(b_[:-1], 1) + torch.diag(b_[:-1], -1)
+    T = (torch.diag_embed(a) + torch.diag_embed(b_[..., :-1], 1)
+         + torch.diag_embed(b_[..., :-1], -1))
     w = torch.linalg.eigvalsh(T)
-    return w[0], w[-1]
+    return w[..., 0], w[..., -1]
 
 
 # ---------------------------------------------------------------------------
@@ -218,13 +251,9 @@ class PreconditionerPlan:
 
     def refresh_state(self, A, matvec: Callable) -> tuple:
         """Values-dependent stage, arrays only.  Stacked values (B, nnz)
-        give lane-stacked state for the :data:`BATCHED_SETUP`
-        preconditioners."""
-        if A.val.dim() > 1 and self.name not in BATCHED_SETUP:
-            raise NotImplementedError(
-                f"batched values with precond={self.name!r} come with slice "
-                f"5b of the PyTorch port (batched MG, AMG, Chebyshev and ILU "
-                f"setups); use one of {BATCHED_SETUP} or solve lane by lane")
+        (``matvec`` then on (B, n) rows) give lane-stacked state: every
+        array of it carries the lane as its leading dim."""
+        lanes = A.val.shape[0] if A.val.dim() > 1 else None
         if self.name == "none":
             return ()
         if self.name == "jacobi":
@@ -235,13 +264,13 @@ class PreconditionerPlan:
             return (torch.linalg.inv_ex(blocks)[0],)
         if self.name == "chebyshev":
             lmin, lmax = estimate_spectrum(matvec, self.shape[0], A.dtype,
-                                           device=A.device)
+                                           device=A.device, lanes=lanes)
             lmin = torch.maximum(lmin, lmax * 1e-4)
             return (lmin, lmax)
         if self.name == "mg":
             from .multigrid import MultigridPreconditioner
             nx, ny = self.stencil.nx, self.stencil.ny
-            v5 = A.val.reshape(5, nx, ny)
+            v5 = A.val.reshape(A.val.shape[:-1] + (5, nx, ny))
             return MultigridPreconditioner.from_planes(v5).state()
         if self.name == "ilu":
             from . import direct as _direct
@@ -253,11 +282,14 @@ class PreconditionerPlan:
 
     def make_apply(self, state, matvec: Callable,
                    fused: bool = False) -> Callable:
-        """Apply closure over a :meth:`refresh_state` tuple; it takes r
-        (n,) or (k, n) rows (MG, AMG: one V-cycle per row; ILU: one
-        multi-rhs factored solve).  ``fused`` routes Chebyshev's inner step
-        through ``fused_cheb_step``; it is a solve-time decision, never part
-        of the state."""
+        """Apply closure over a :meth:`refresh_state` tuple.  On a one-lane
+        state it takes r (n,) or (k, n) rows, k right-hand sides of the one
+        matrix (MG, AMG: one V-cycle for all rows; ILU: one multi-rhs
+        factored solve).  On a lane-stacked state (from stacked values) it takes
+        r (B, n), row b on lane b's state, all lanes at once (one V-cycle,
+        one lane-stacked factored solve, per-lane Chebyshev scalars).
+        ``fused`` routes Chebyshev's inner step through ``fused_cheb_step``;
+        it is a solve-time decision, never part of the state."""
         if self.name == "none":
             return identity()
         if self.name == "jacobi":
@@ -267,9 +299,13 @@ class PreconditionerPlan:
             (inv,) = state
             return _bj_apply(inv, self.shape[0], self.nb, self.block)
         if self.name == "chebyshev":
-            # the bounds as host floats: one read per solve, and the
-            # recurrence's scalars launch nothing
-            lmin, lmax = (float(t) for t in state)
+            lmin, lmax = state
+            if lmin.dim() == 0:
+                # the bounds as host floats: one read per solve, and the
+                # recurrence's scalars launch nothing
+                lmin, lmax = float(lmin), float(lmax)
+            # else (B,) lane bounds stay on the device: the per-lane
+            # scalars are computed there once per solve
             return chebyshev(matvec, lmin, lmax, degree=self.degree,
                              fused=fused)
         if self.name == "mg":
@@ -281,7 +317,7 @@ class PreconditionerPlan:
             (C,) = state
 
             def ilu(r):
-                if r.dim() == 1:
+                if r.dim() == 1 or C.dim() == 2:   # one rhs, or one per lane
                     return _direct.factored_solve(art, C, r)
                 return _direct.factored_solve(art, C, r.T).T
             return ilu
@@ -289,6 +325,16 @@ class PreconditionerPlan:
             from .multigrid import AMGPreconditioner
             return AMGPreconditioner(self._amg, state)
         raise ValueError(f"unknown preconditioner {self.name!r}")
+
+    @staticmethod
+    def lane_state(state, i: int):
+        """Lane i of a lane-stacked :meth:`refresh_state` tuple (every array
+        in it carries the lane as its leading dim): the one-lane state of
+        that lane's values."""
+        if isinstance(state, torch.Tensor):
+            return state[i]
+        return type(state)(PreconditionerPlan.lane_state(t, i)
+                           for t in state)
 
     def refresh(self, A, matvec: Callable, fused: bool = False) -> Callable:
         """:meth:`refresh_state` + :meth:`make_apply` in one call."""

@@ -578,26 +578,30 @@ def lanczos(matvec: Callable, v0: torch.Tensor, num_steps: int):
 
     Returns ``(alphas, betas, V)``; the eigenvalues of T approximate the
     extremal eigenvalues of A (Chebyshev bounds).  A fixed number of steps,
-    no host read."""
+    no host read.  Lanes: ``v0`` (B, n) with a matvec on (B, n) rows runs
+    B recurrences at once (alphas, betas (B, m), V (B, m+1, n)), one
+    batched matvec a step — the reference's ``jax.vmap``."""
     n = v0.shape[-1]
     m = num_steps
-    V = v0.new_zeros((m + 1, n))
-    V[0] = v0 / torch.linalg.norm(v0)
-    alphas = v0.new_zeros(m)
-    betas = v0.new_zeros(m)
+    lanes = v0.shape[:-1]
+    V = v0.new_zeros(lanes + (m + 1, n))
+    V[..., 0, :] = v0 / torch.linalg.norm(v0, dim=-1, keepdim=True)
+    alphas = v0.new_zeros(lanes + (m,))
+    betas = v0.new_zeros(lanes + (m,))
     for j in range(m):
-        w = matvec(V[j])
-        alpha = torch.sum(w * V[j])
-        w = w - alpha * V[j]
+        vj = V[..., j, :]
+        w = matvec(vj)
+        alpha = torch.sum(w * vj, dim=-1)
+        w = w - alpha[..., None] * vj
         if j > 0:
-            w = w - betas[j - 1] * V[j - 1]
+            w = w - betas[..., j - 1, None] * V[..., j - 1, :]
         # full reorthogonalization against V[0..j]
-        Vj = V[:j + 1]
-        w = w - (Vj @ w) @ Vj
-        beta = torch.linalg.norm(w)
-        V[j + 1] = w / (beta + 1e-30)
-        alphas[j] = alpha
-        betas[j] = beta
+        Vj = V[..., :j + 1, :]
+        w = w - ((Vj @ w[..., None]).transpose(-1, -2) @ Vj)[..., 0, :]
+        beta = torch.linalg.norm(w, dim=-1)
+        V[..., j + 1, :] = w / (beta[..., None] + 1e-30)
+        alphas[..., j] = alpha
+        betas[..., j] = beta
     return alphas, betas, V
 
 

@@ -75,11 +75,12 @@ def vc_pattern(ng: int) -> Tuple[np.ndarray, np.ndarray, Stencil5Meta]:
 
 
 def vc_coefficients(kappa: torch.Tensor) -> torch.Tensor:
-    """κ (ng, ng) cell conductivities → signed planes (5, ng, ng), flattened.
+    """κ (ng, ng) cell conductivities → signed planes (5, ng, ng), flattened
+    (leading lane dims of κ carry through: (B, ng, ng) → (B, 5·ng²)).
 
     Face coefficient = harmonic mean of adjacent cells; Dirichlet u=0 via
     boundary faces with coefficient κ_cell.  Differentiable in κ."""
-    ng = kappa.shape[0]
+    ng = kappa.shape[-1]
     ar = torch.arange(ng, device=kappa.device)
     first_row, last_row = ar[:, None] > 0, ar[:, None] < ng - 1
     first_col, last_col = ar[None, :] > 0, ar[None, :] < ng - 1
@@ -87,10 +88,10 @@ def vc_coefficients(kappa: torch.Tensor) -> torch.Tensor:
     def hmean(a, b):
         return 2.0 * a * b / (a + b + 1e-30)
 
-    kN = torch.where(first_row, hmean(kappa, torch.roll(kappa, 1, 0)), kappa)
-    kS = torch.where(last_row, hmean(kappa, torch.roll(kappa, -1, 0)), kappa)
-    kW = torch.where(first_col, hmean(kappa, torch.roll(kappa, 1, 1)), kappa)
-    kE = torch.where(last_col, hmean(kappa, torch.roll(kappa, -1, 1)), kappa)
+    kN = torch.where(first_row, hmean(kappa, torch.roll(kappa, 1, -2)), kappa)
+    kS = torch.where(last_row, hmean(kappa, torch.roll(kappa, -1, -2)), kappa)
+    kW = torch.where(first_col, hmean(kappa, torch.roll(kappa, 1, -1)), kappa)
+    kE = torch.where(last_col, hmean(kappa, torch.roll(kappa, -1, -1)), kappa)
     C = kN + kS + kW + kE
     zero = torch.zeros((), dtype=kappa.dtype, device=kappa.device)
     # neighbour couplings: zero at the domain boundary (Dirichlet)
@@ -98,7 +99,8 @@ def vc_coefficients(kappa: torch.Tensor) -> torch.Tensor:
     S = torch.where(last_row, -kS, zero)
     W = torch.where(first_col, -kW, zero)
     E = torch.where(last_col, -kE, zero)
-    return torch.stack([C, N, S, W, E]).reshape(-1)
+    return torch.stack([C, N, S, W, E], dim=-3).reshape(
+        kappa.shape[:-2] + (-1,))
 
 
 def poisson2d_vc(kappa, *, use_stencil_kernel: bool = False,

@@ -58,11 +58,14 @@ _SIGNATURES = {
     "bell_spmv_lanes_f64": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P],
     "fused_step": [_I, _I, _PP, _PP, _PP, _LP, _IP, _P, _P, _P, _L, _I, _I,
                    _P],
-    "sn_panel_factor": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _P],
-    "sn_schur_update": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "sn_sweep": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                 _I, _I, _P],
+    # the supernodal kernels take nl value lanes: C's lane stride ldc (and
+    # y's, ldy) and the lane count nl after the factor vector
+    "sn_panel_factor": [_I, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                        _I, _I, _I, _I, _P],
+    "sn_schur_update": [_I, _P, _L, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _P],
+    "sn_sweep": [_I, _I, _I, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P,
+                 _P, _I, _I, _I, _I, _P],
     "flash_attention_f32": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
                             _I, _P],
     "flash_attention_bf16": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,

@@ -81,6 +81,15 @@
 //   the card is a launch's fixed cost and the block solve's serial chain of
 //   wb steps (each with an f64 division in u / ut), not its bytes.
 //
+// Lanes (the reference's jax.vmap of its kernels over B value arrays of one
+// pattern, rows 4', 5' and 6' of the port's kernel table): every kernel
+// takes nl lanes, each with its own factor vector at C + b*ldc and, for the
+// sweep, its own solution at y + b*ldy.  The lane is blockIdx.z (folded with
+// the right-hand-side group in sn_sweep), the slot tables are shared, and
+// per-lane state (tau, the clamp count nbad, the work counters and the
+// sweep's partial sums) sits at lane-strided offsets.  One launch per bucket
+// serves every lane; a one-lane launch is the same code with b = 0.
+//
 // The file is compiled with -fmad=false (see _build.py) so that no a - b*c
 // is contracted into an FMA: the factor and solve keep the reference's
 // per-element rounding.  schur_update sums with explicit fma().
@@ -143,15 +152,16 @@ struct PanelShared {
   int32_t idx[kPfMaxThreads][WBC + 1]; // each item's slots in C
 };
 
-// Grid (lane, tile of up to 128 items); thread it of a tile takes sub-row
-// it, or U column it - rb, of the lane.  The slot tables of D and of the
-// tile come in first, coalesced (consecutive threads on consecutive
+// Grid (lane, tile of up to 128 items, value lane); thread it of a tile
+// takes sub-row it, or U column it - rb, of the lane.  The slot tables of D
+// and of the tile come in first, coalesced (consecutive threads on consecutive
 // words), into shared memory; then the items' values and D, every load of
 // a level independent and unrolled: a block waits for two memory
 // latencies, not one per element.
 template <typename T, int WBC, bool PAIRS>
 __global__ void __launch_bounds__(kPfMaxThreads)
-panel_factor_kernel(T* __restrict__ C, const int32_t* __restrict__ pidx,
+panel_factor_kernel(T* __restrict__ C, long long ldc,
+                    const int32_t* __restrict__ pidx,
                     const int32_t* __restrict__ qidx,
                     const int32_t* __restrict__ wvec,
                     const int32_t* __restrict__ rvec,
@@ -161,6 +171,12 @@ panel_factor_kernel(T* __restrict__ C, const int32_t* __restrict__ pidx,
   __shared__ PanelShared<T, WBC> sm;
   const int lane = blockIdx.x;
   const int tile = blockIdx.y;
+  // value lane b: its factor vector, clamp, clamp count and counters
+  const size_t vb = blockIdx.z;
+  C += vb * ldc;
+  tau_p += vb;
+  nbad += vb;
+  work += vb * gridDim.x;
   const int tpb = blockDim.x;
   const int tid = threadIdx.x;
   const int w = wvec[lane];
@@ -403,35 +419,36 @@ panel_factor_kernel(T* __restrict__ C, const int32_t* __restrict__ pidx,
 }
 
 template <typename T, int WBC>
-int launch_pf(void* C, const void* pidx, const void* qidx, const void* wvec,
-              const void* rvec, const void* tau, const void* bkm, void* nbad,
-              void* work, int k, int wb, int rb, int pairs, int guard, cudaStream_t s) {
+int launch_pf(void* C, long long ldc, int nl, const void* pidx, const void* qidx,
+              const void* wvec, const void* rvec, const void* tau, const void* bkm,
+              void* nbad, void* work, int k, int wb, int rb, int pairs, int guard,
+              cudaStream_t s) {
   int tpb = 32;
   while (tpb < 2 * rb && tpb < kPfMaxThreads) tpb *= 2;
   const int tiles = rb > 0 ? (2 * rb + tpb - 1) / tpb : 1;
-  if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(k, tiles);
+  if (tiles > 65535 || nl > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(k, tiles, nl);
   if (pairs)
     panel_factor_kernel<T, WBC, true><<<grid, tpb, 0, s>>>(
-        (T*)C, (const int32_t*)pidx, (const int32_t*)qidx, (const int32_t*)wvec,
+        (T*)C, ldc, (const int32_t*)pidx, (const int32_t*)qidx, (const int32_t*)wvec,
         (const int32_t*)rvec, (const T*)tau, (const uint8_t*)bkm, (T*)nbad,
         (int32_t*)work, wb, rb, guard);
   else
     panel_factor_kernel<T, WBC, false><<<grid, tpb, 0, s>>>(
-        (T*)C, (const int32_t*)pidx, (const int32_t*)qidx, (const int32_t*)wvec,
+        (T*)C, ldc, (const int32_t*)pidx, (const int32_t*)qidx, (const int32_t*)wvec,
         (const int32_t*)rvec, (const T*)tau, (const uint8_t*)bkm, (T*)nbad,
         (int32_t*)work, wb, rb, guard);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int panel_factor_t(void* C, const void* pidx, const void* qidx, const void* wvec,
-                   const void* rvec, const void* tau, const void* bkm, void* nbad,
-                   void* work, int k, int wb, int rb, int pairs, int guard,
+int panel_factor_t(void* C, long long ldc, int nl, const void* pidx, const void* qidx,
+                   const void* wvec, const void* rvec, const void* tau, const void* bkm,
+                   void* nbad, void* work, int k, int wb, int rb, int pairs, int guard,
                    cudaStream_t s) {
 #define REPRO_PF(WBC)                                                          \
-  return launch_pf<T, WBC>(C, pidx, qidx, wvec, rvec, tau, bkm, nbad, work, k, \
-                           wb, rb, pairs, guard, s)
+  return launch_pf<T, WBC>(C, ldc, nl, pidx, qidx, wvec, rvec, tau, bkm, nbad, \
+                           work, k, wb, rb, pairs, guard, s)
   if (wb <= 2) REPRO_PF(2);
   if (wb <= 4) REPRO_PF(4);
   if (wb <= 8) REPRO_PF(8);
@@ -450,7 +467,7 @@ constexpr int kSchurOut = kTile * kTile / kSchurThreads;   // outputs a thread
 constexpr int kSchurBatch = 8;                             // loads in flight
 constexpr int kSchurSmem = 48 * 1024;
 
-// Grid (lane group, output tile).  Output o = tid + q*256 of the block is
+// Grid (lane group, output tile, value lane).  Output o = tid + q*256 of the block is
 // (lane l, row i, column j) of its lanes' tiles; with 32 x 32 tiles (one
 // lane per block) a thread's kSchurOut outputs share column j and read
 // U[., j] once.  Every global load is issued in batches, so a block pays a few
@@ -458,7 +475,7 @@ constexpr int kSchurSmem = 48 * 1024;
 // r), then the panel slots, then the panel values.
 template <typename T>
 __global__ void __launch_bounds__(kSchurThreads)
-schur_kernel(T* __restrict__ C, const int32_t* __restrict__ pidx,
+schur_kernel(T* __restrict__ C, long long ldc, const int32_t* __restrict__ pidx,
              const int32_t* __restrict__ qidx, const int32_t* __restrict__ wvec,
              const int32_t* __restrict__ rvec, const int32_t* __restrict__ tgt,
              const long long* __restrict__ toff, int k, int wb, int rb, int td,
@@ -469,6 +486,7 @@ schur_kernel(T* __restrict__ C, const int32_t* __restrict__ pidx,
   T* Bs = As + (size_t)lpb * td * wp;         // [lpb][wb][td]: U columns
   const int tid = threadIdx.x;
   const int lane0 = blockIdx.x * lpb;
+  C += (size_t)blockIdx.z * ldc;              // value lane b's factors
   const int i0 = (blockIdx.y / tiles) * td;
   const int j0 = (blockIdx.y % tiles) * td;
   if (lpb == 1) {                             // a tile past the lane's r
@@ -564,9 +582,9 @@ schur_kernel(T* __restrict__ C, const int32_t* __restrict__ pidx,
 }
 
 template <typename T>
-int schur_t(void* C, const void* pidx, const void* qidx, const void* wvec,
-            const void* rvec, const void* tgt, const void* toff, int k, int wb,
-            int rb, cudaStream_t s) {
+int schur_t(void* C, long long ldc, int nl, const void* pidx, const void* qidx,
+            const void* wvec, const void* rvec, const void* tgt, const void* toff,
+            int k, int wb, int rb, cudaStream_t s) {
   const int td = rb < kTile ? rb : kTile;
   const int tiles = (rb + td - 1) / td;
   const size_t lane_smem = (size_t)td * (2 * wb + 1) * sizeof(T);
@@ -578,11 +596,11 @@ int schur_t(void* C, const void* pidx, const void* qidx, const void* wvec,
     if (lpb < 1) lpb = 1;
   }
   const size_t smem = lpb * lane_smem;
-  if (smem > (size_t)kSchurSmem || (long long)tiles * tiles > 65535)
+  if (smem > (size_t)kSchurSmem || (long long)tiles * tiles > 65535 || nl > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((k + lpb - 1) / lpb, tiles * tiles);
+  dim3 grid((k + lpb - 1) / lpb, tiles * tiles, nl);
   schur_kernel<T><<<grid, kSchurThreads, smem, s>>>(
-      (T*)C, (const int32_t*)pidx, (const int32_t*)qidx, (const int32_t*)wvec,
+      (T*)C, ldc, (const int32_t*)pidx, (const int32_t*)qidx, (const int32_t*)wvec,
       (const int32_t*)rvec, (const int32_t*)tgt, (const long long*)toff, k, wb,
       rb, td, tiles, lpb);
   return (int)cudaGetLastError();
@@ -703,15 +721,18 @@ __device__ __forceinline__ T warp_transpose_sum(const T (&v)[WBC], T f, int li) 
   return a[0];
 }
 
-// Grid (lane, item tile, right-hand-side group).  Item it of a tile is
-// sub-row a = it of the lane (l, lt: a row of L_sub) or U column j = it (u,
-// ut); a group is kSwRhs columns of y.  y is (n+1, m) row-major; rows
+// Grid (lane, item tile, value lane x right-hand-side group): z = b*groups
+// + group, value lane b's factors at C + b*ldc and its y at y + b*ldy; the
+// work counters and partial sums are per (value lane, lane, group).  Item it
+// of a tile is sub-row a = it of the lane (l, lt: a row of L_sub) or U
+// column j = it (u, ut); a group is kSwRhs columns of y.  y is (n+1, m) row-major; rows
 // (k, wb+rb) its row ids: the block's rows_b, then the sub-rows' rows_s.
 // WBC is the compile-time width (wb <= WBC): the item's values live in
 // registers, unrolled over it.
 template <typename T, int WBC, int MODE, bool PAIRS>
 __global__ void __launch_bounds__(kSwMaxThreads)
-sn_sweep_kernel(const T* __restrict__ C, T* __restrict__ y,
+sn_sweep_kernel(const T* __restrict__ C, long long ldc, T* __restrict__ y,
+                long long ldy, int groups,
                 const int32_t* __restrict__ pidx, const int32_t* __restrict__ qidx,
                 const int32_t* __restrict__ rows, const int32_t* __restrict__ wvec,
                 const int32_t* __restrict__ rvec, const uint8_t* __restrict__ bkm,
@@ -721,7 +742,12 @@ sn_sweep_kernel(const T* __restrict__ C, T* __restrict__ y,
   constexpr bool kLower = MODE == kModeL || MODE == kModeLT;
   constexpr int kDPer = SweepDPer<WBC>::value;
   __shared__ SweepShared<T, WBC> sm;
-  const int lane = blockIdx.x, tile = blockIdx.y, grp = blockIdx.z;
+  const int lane = blockIdx.x, tile = blockIdx.y;
+  const int grp = blockIdx.z % groups;
+  const size_t vb = blockIdx.z / groups;
+  C += vb * ldc;
+  y += vb * ldy;
+  const size_t lid = vb * gridDim.x + lane;     // (value lane, lane)
   const int tpb = blockDim.x, tid = threadIdx.x;
   const int li = tid & 31, wid = tid >> 5, nw = tpb >> 5;
   const int w = wvec[lane], r = rvec[lane];
@@ -838,7 +864,7 @@ sn_sweep_kernel(const T* __restrict__ C, T* __restrict__ y,
     if (tid == 0) {
       int last = 1;
       if (npart > 1) {
-        int32_t* cnt = work + (size_t)lane * gridDim.z + grp;
+        int32_t* cnt = work + lid * groups + grp;
         __threadfence();
         last = atomicAdd(cnt, 1) == npart - 1;
         if (last) {
@@ -888,7 +914,7 @@ sn_sweep_kernel(const T* __restrict__ C, T* __restrict__ y,
     }
   }
   __syncthreads();
-  T* pl_part = part + ((size_t)lane * gridDim.z + grp) * gridDim.y * (kSwRhs * 32);
+  T* pl_part = part + (lid * groups + grp) * gridDim.y * (kSwRhs * 32);
   for (int e = tid; e < g * w; e += tpb) {
     const int q = e / w, t = e - q * w;
     T s = T(0);
@@ -905,7 +931,7 @@ sn_sweep_kernel(const T* __restrict__ C, T* __restrict__ y,
     __threadfence();                      // every writer's partials, then
     __syncthreads();                      // the count
     if (tid == 0) {
-      int32_t* cnt = work + (size_t)lane * gridDim.z + grp;
+      int32_t* cnt = work + lid * groups + grp;
       const int last = atomicAdd(cnt, 1) == npart - 1;
       if (last) {
         *cnt = 0;
@@ -933,7 +959,8 @@ sn_sweep_kernel(const T* __restrict__ C, T* __restrict__ y,
 }
 
 template <typename T, int WBC, int MODE>
-int launch_sweep(bool pairs, const void* C, void* y, const void* pidx,
+int launch_sweep(bool pairs, const void* C, long long ldc, void* y, long long ldy,
+                 int nl, const void* pidx,
                  const void* qidx, const void* rows, const void* wvec,
                  const void* rvec, const void* bkm, void* work, void* part, int k,
                  int wb, int rb, int m, cudaStream_t s) {
@@ -943,13 +970,15 @@ int launch_sweep(bool pairs, const void* C, void* y, const void* pidx,
     tpb *= 2;
   const int tiles = rb > 0 ? (rb + tpb - 1) / tpb : 1;
   const int groups = (m + kSwRhs - 1) / kSwRhs;
-  if (tiles > 65535 || groups > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(k, tiles, groups);
+  if (tiles > 65535 || (long long)groups * nl > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(k, tiles, groups * nl);
 #define REPRO_SW(P)                                                             \
   sn_sweep_kernel<T, WBC, MODE, P><<<grid, tpb, 0, s>>>(                        \
-      (const T*)C, (T*)y, (const int32_t*)pidx, (const int32_t*)qidx,           \
-      (const int32_t*)rows, (const int32_t*)wvec, (const int32_t*)rvec,         \
-      (const uint8_t*)bkm, (int32_t*)work, (T*)part, wb, rb, m)
+      (const T*)C, ldc, (T*)y, ldy, groups, (const int32_t*)pidx,               \
+      (const int32_t*)qidx, (const int32_t*)rows, (const int32_t*)wvec,        \
+      (const int32_t*)rvec, (const uint8_t*)bkm, (int32_t*)work, (T*)part, wb,  \
+      rb, m)
   if (pairs)
     REPRO_SW(true);
   else
@@ -959,13 +988,14 @@ int launch_sweep(bool pairs, const void* C, void* y, const void* pidx,
 }
 
 template <typename T, int MODE>
-int sweep_mode(bool pairs, const void* C, void* y, const void* pidx,
+int sweep_mode(bool pairs, const void* C, long long ldc, void* y, long long ldy,
+               int nl, const void* pidx,
                const void* qidx, const void* rows, const void* wvec,
                const void* rvec, const void* bkm, void* work, void* part, int k,
                int wb, int rb, int m, cudaStream_t s) {
 #define REPRO_SWW(WBC)                                                          \
-  return launch_sweep<T, WBC, MODE>(pairs, C, y, pidx, qidx, rows, wvec, rvec,  \
-                                    bkm, work, part, k, wb, rb, m, s)
+  return launch_sweep<T, WBC, MODE>(pairs, C, ldc, y, ldy, nl, pidx, qidx, rows, \
+                                    wvec, rvec, bkm, work, part, k, wb, rb, m, s)
   if (wb <= 2) REPRO_SWW(2);
   if (wb <= 4) REPRO_SWW(4);
   if (wb <= 8) REPRO_SWW(8);
@@ -975,13 +1005,14 @@ int sweep_mode(bool pairs, const void* C, void* y, const void* pidx,
 }
 
 template <typename T>
-int sweep_t(int mode, int pairs, const void* C, void* y, const void* pidx,
+int sweep_t(int mode, int pairs, const void* C, long long ldc, void* y, long long ldy,
+            int nl, const void* pidx,
             const void* qidx, const void* rows, const void* wvec, const void* rvec,
             const void* bkm, void* work, void* part, int k, int wb, int rb, int m,
             cudaStream_t s) {
 #define REPRO_SWM(M)                                                            \
-  return sweep_mode<T, M>(pairs != 0, C, y, pidx, qidx, rows, wvec, rvec, bkm,  \
-                          work, part, k, wb, rb, m, s)
+  return sweep_mode<T, M>(pairs != 0, C, ldc, y, ldy, nl, pidx, qidx, rows,     \
+                          wvec, rvec, bkm, work, part, k, wb, rb, m, s)
   switch (mode) {
     case kModeL: REPRO_SWM(kModeL);
     case kModeLT: REPRO_SWM(kModeLT);
@@ -994,39 +1025,47 @@ int sweep_t(int mode, int pairs, const void* C, void* y, const void* pidx,
 
 }  // namespace
 
-REPRO_EXPORT int sn_panel_factor(int f64, void* C, const void* pidx, const void* qidx,
+// nl value lanes: lane b's factors at C + b*ldc, its clamp at tau[b], its
+// clamp count at nbad[b] and its k work counters at work + b*k.
+REPRO_EXPORT int sn_panel_factor(int f64, void* C, long long ldc, int nl,
+                                 const void* pidx, const void* qidx,
                                  const void* wvec, const void* rvec, const void* tau,
                                  const void* bkm, void* nbad, void* work, int k, int wb,
                                  int rb, int pairs, int guard, void* stream) {
-  if (k <= 0) return 0;
+  if (k <= 0 || nl <= 0) return 0;
   if (wb < 1 || wb > 32 || rb < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return f64 ? panel_factor_t<double>(C, pidx, qidx, wvec, rvec, tau, bkm, nbad, work,
-                                      k, wb, rb, pairs, guard, s)
-             : panel_factor_t<float>(C, pidx, qidx, wvec, rvec, tau, bkm, nbad, work,
-                                     k, wb, rb, pairs, guard, s);
+  return f64 ? panel_factor_t<double>(C, ldc, nl, pidx, qidx, wvec, rvec, tau, bkm, nbad,
+                                      work, k, wb, rb, pairs, guard, s)
+             : panel_factor_t<float>(C, ldc, nl, pidx, qidx, wvec, rvec, tau, bkm, nbad,
+                                     work, k, wb, rb, pairs, guard, s);
 }
 
-REPRO_EXPORT int sn_schur_update(int f64, void* C, const void* pidx, const void* qidx,
+REPRO_EXPORT int sn_schur_update(int f64, void* C, long long ldc, int nl,
+                                 const void* pidx, const void* qidx,
                                  const void* wvec, const void* rvec, const void* tgt,
                                  const void* toff, int k, int wb, int rb, void* stream) {
-  if (k <= 0 || rb <= 0) return 0;
+  if (k <= 0 || rb <= 0 || nl <= 0) return 0;
   if (wb < 1 || wb > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return f64 ? schur_t<double>(C, pidx, qidx, wvec, rvec, tgt, toff, k, wb, rb, s)
-             : schur_t<float>(C, pidx, qidx, wvec, rvec, tgt, toff, k, wb, rb, s);
+  return f64 ? schur_t<double>(C, ldc, nl, pidx, qidx, wvec, rvec, tgt, toff, k, wb, rb, s)
+             : schur_t<float>(C, ldc, nl, pidx, qidx, wvec, rvec, tgt, toff, k, wb, rb, s);
 }
 
-REPRO_EXPORT int sn_sweep(int f64, int mode, int pairs, const void* C, void* y,
+// nl value lanes: lane b's factors at C + b*ldc and its (n+1, m) y at
+// y + b*ldy; work holds nl*k*groups counters, part nl*k*groups*tiles partial
+// blocks (sweep_buffers in supernode.py).
+REPRO_EXPORT int sn_sweep(int f64, int mode, int pairs, const void* C, long long ldc,
+                          void* y, long long ldy, int nl,
                           const void* pidx, const void* qidx, const void* rows,
                           const void* wvec, const void* rvec, const void* bkm,
                           void* work, void* part, int k, int wb, int rb, int m,
                           void* stream) {
-  if (k <= 0 || m <= 0) return 0;
+  if (k <= 0 || m <= 0 || nl <= 0) return 0;
   if (wb < 1 || wb > 32 || rb < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return f64 ? sweep_t<double>(mode, pairs, C, y, pidx, qidx, rows, wvec, rvec, bkm,
-                               work, part, k, wb, rb, m, s)
-             : sweep_t<float>(mode, pairs, C, y, pidx, qidx, rows, wvec, rvec, bkm,
-                              work, part, k, wb, rb, m, s);
+  return f64 ? sweep_t<double>(mode, pairs, C, ldc, y, ldy, nl, pidx, qidx, rows, wvec,
+                               rvec, bkm, work, part, k, wb, rb, m, s)
+             : sweep_t<float>(mode, pairs, C, ldc, y, ldy, nl, pidx, qidx, rows, wvec,
+                              rvec, bkm, work, part, k, wb, rb, m, s);
 }

@@ -305,7 +305,14 @@ def sn_panel_factor_inplace_ref(C, pidx, qidx, wvec, rvec, tau, bkm, *,
     """:func:`sn_panel_factor_ref` on the factor vector ``C`` in place:
     gather the panels through the slot tables ``pidx`` (k, wb+rb, wb) and
     ``qidx`` (k, wb, rb), factor them, write the live entries back; pad
-    slots keep their values.  Returns nbad."""
+    slots keep their values.  Returns nbad.  Lanes: ``C`` (B, nnzF+2)
+    factors lane by lane, ``tau`` one number or (B,); nbad is then (B,)."""
+    if C.dim() == 2:
+        taus = torch.as_tensor(tau, dtype=C.dtype, device=C.device)
+        taus = taus.reshape(-1).expand(C.shape[0])
+        return torch.stack([sn_panel_factor_inplace_ref(
+            C[b], pidx, qidx, wvec, rvec, taus[b], bkm, pairs=pairs,
+            guard=guard) for b in range(C.shape[0])])
     Pg, Qg = sn_gather(C, pidx), sn_gather(C, qidx)
     P, Q, nbad = sn_panel_factor_ref(Pg, Qg, wvec, rvec, tau, bkm,
                                      pairs=pairs, guard=guard)
@@ -329,7 +336,12 @@ def sn_schur_inplace_ref(C, pidx, qidx, wvec, rvec, tgt):
     """The Schur update fused with the extend-add, in place: S = L_sub · U
     (:func:`sn_schur_ref`) on the masked factored panels gathered from
     ``C``, then ``C[tgt] -= S`` over the live entries (:func:`sn_target_mask`,
-    in the live-only target table's order; the pads are dropped)."""
+    in the live-only target table's order; the pads are dropped).  Lanes:
+    ``C`` (B, nnzF+2), lane by lane."""
+    if C.dim() == 2:
+        for b in range(C.shape[0]):
+            sn_schur_inplace_ref(C[b], pidx, qidx, wvec, rvec, tgt)
+        return
     P, Q = sn_panel_mask(sn_gather(C, pidx), sn_gather(C, qidx), wvec, rvec)
     S = sn_schur_ref(P, Q).reshape(-1)
     live = sn_target_mask(rvec, qidx.shape[2], C.device).reshape(-1)
@@ -431,7 +443,14 @@ def sn_sweep_inplace_ref(C, y, pidx, qidx, rows, wvec, rvec, bkm, *, mode,
     x = L_D⁻¹ y_b, y_s −= L_sub x; ``"ut"``: x = U_D⁻ᵀ y_b, y_s −= Uᵀ x;
     ``"u"``: x = U_D⁻¹ (y_b − U y_s); ``"lt"``: x = L_D⁻ᵀ (y_b − L_subᵀ y_s);
     then y_b = x (:func:`sn_trsv_ref` for the block solves).  Pad rows keep
-    their values (the scatter adds an exact zero to them).  Returns y."""
+    their values (the scatter adds an exact zero to them).  Lanes: ``C``
+    (B, nnzF+2) and ``y`` (B, n+1, m), lane b's sweep on lane b's factors,
+    lane by lane.  Returns y."""
+    if C.dim() == 2:
+        for b in range(C.shape[0]):
+            sn_sweep_inplace_ref(C[b], y[b], pidx, qidx, rows, wvec, rvec,
+                                 bkm, mode=mode, pairs=pairs)
+        return y
     k, mw, wb = pidx.shape
     pmask, qmask = sn_live_masks(wvec, rvec, wb, mw - wb, C.device)
     rows = rows.long()

@@ -16,6 +16,15 @@ Replaces the TPU kernels of ``repro/kernels/supernode.py``:
 - :func:`block_trsv` — the diagonal-block solves alone, on (k, wb, wb)
   blocks, for m ≥ 1 right-hand sides (the same kernel, with no sub-rows).
 
+**Lanes** (the reference's ``jax.vmap`` of these kernels over B value
+arrays of one pattern): ``C`` may be a ``(B, nnzF+2)`` stack of factor
+vectors, one per lane, with ``tau`` and ``nbad`` then ``(B,)`` (a 0-dim
+``tau`` serves every lane) and the sweep's ``y`` a ``(B, n+1, m)`` stack.
+The slot tables are shared; ONE launch per call serves every lane (the lane
+is on the kernel's grid z), so a factorization or a sweep costs the
+launches of one lane whatever B is.  Lane-stacked launches count under
+``<name>_lanes``.
+
 On CUDA tensors each function launches its hand-written kernel (or
 raises); on CPU tensors it runs the plain version in ``ref.py``.  Every
 kernel masks pad rows, columns and lanes itself (pad slots hold garbage);
@@ -30,7 +39,9 @@ from . import _build
 from . import ref as _ref
 
 #: launches of each CUDA kernel (plain integers; reset by the caller)
-LAUNCHES = {"panel_factor": 0, "schur_update": 0, "sn_sweep": 0}
+LAUNCHES = dict.fromkeys(("panel_factor", "schur_update", "sn_sweep",
+                          "panel_factor_lanes", "schur_update_lanes",
+                          "sn_sweep_lanes"), 0)
 SWEEP_MODES = {"l": 0, "lt": 1, "u": 2, "ut": 3}
 #: sn_sweep launches by mode (the adjoint's transposed sweeps run ut / lt)
 SWEEP_MODE_LAUNCHES = dict.fromkeys(SWEEP_MODES, 0)
@@ -63,10 +74,23 @@ def _lane_flags(bkm, k, wb, what):
     return bkm.to(torch.bool).contiguous()
 
 
+def _value_lanes(what, C):
+    """(lanes, lane stride) of a factor vector (nnzF+2,) — one lane, stride
+    0 — or of a contiguous lane stack (B, nnzF+2)."""
+    if C.dim() not in (1, 2) or not C.is_contiguous():
+        raise ValueError(f"{what}: C must be a contiguous vector or a "
+                         f"contiguous (B, nnzF+2) lane stack")
+    return (1, 0) if C.dim() == 1 else (C.shape[0], C.shape[1])
+
+
+def _count(name, C):
+    LAUNCHES[name + ("_lanes" if C.dim() == 2 else "")] += 1
+
+
 def _slot_tables(what, C, pidx, qidx):
-    """(k, wb, rb) of a bucket's int32 slot tables on ``C``'s device."""
-    if C.dim() != 1 or not C.is_contiguous():
-        raise ValueError(f"{what}: C must be a contiguous vector")
+    """(k, wb, rb) of a bucket's int32 slot tables on ``C``'s device, and
+    (lanes, lane stride) of ``C`` (:func:`_value_lanes`)."""
+    lanes = _value_lanes(what, C)
     if pidx.dim() != 3 or qidx.dim() != 3:
         raise ValueError(f"{what}: pidx / qidx must be 3-D")
     k, m, wb = pidx.shape
@@ -80,14 +104,16 @@ def _slot_tables(what, C, pidx, qidx):
                 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous int32 "
                              f"tensor on {C.device}")
-    return k, wb, rb
+    return (k, wb, rb) + lanes
 
 
 def panel_factor_inplace(C, pidx, qidx, wvec, rvec, tau, bkm, *, pairs=False,
                          guard=True, nbad=None, work=None):
     """Factorize a bucket of supernode panels in place in ``C``.
 
-    ``C`` the factor vector; ``pidx`` (k, wb+rb, wb) / ``qidx`` (k, wb, rb)
+    ``C`` the factor vector, or a (B, nnzF+2) stack of them (see Lanes
+    above: ``tau`` then 0-dim or (B,), ``nbad`` (B,), ``work`` B·k zeros);
+    ``pidx`` (k, wb+rb, wb) / ``qidx`` (k, wb, rb)
     int32 slots of the [D-block; L-panel] columns and the U-panel rows (pad
     entries may all name one scratch slot: it is read, masked, and never
     written); ``wvec``/``rvec`` (k,) true width/sub-row counts, ``tau`` the
@@ -99,32 +125,40 @@ def panel_factor_inplace(C, pidx, qidx, wvec, rvec, tau, bkm, *, pairs=False,
     that the kernel leaves zeroed (one per factorization serves every
     bucket); allocated here when None."""
     if nbad is None:
-        nbad = torch.zeros((), dtype=C.dtype, device=C.device)
+        nbad = C.new_zeros(C.shape[:-1])
     if C.device.type == "cpu":
         return nbad.add_(_ref.sn_panel_factor_inplace_ref(
             C, pidx, qidx, wvec, rvec, tau, bkm, pairs=pairs, guard=guard))
     what = "panel_factor"
     f64 = _cuda_args(what, (C,), C.dtype)
-    k, wb, rb = _slot_tables(what, C, pidx, qidx)
+    k, wb, rb, nl, ldc = _slot_tables(what, C, pidx, qidx)
     wv = _lane_vec(wvec, k, what, "wvec")
     rv = _lane_vec(rvec, k, what, "rvec")
     bk = _lane_flags(bkm, k, wb, what)
-    tau_t = torch.as_tensor(tau, dtype=C.dtype, device=C.device).reshape(())
-    if nbad.dim() != 0 or nbad.dtype != C.dtype or nbad.device != C.device:
-        raise ValueError(f"{what}: nbad must be a 0-dim {C.dtype} tensor on "
+    tau_t = torch.as_tensor(tau, dtype=C.dtype, device=C.device)
+    if tau_t.numel() == 1:
+        tau_t = tau_t.reshape(1).expand(nl)
+    elif tuple(tau_t.shape) != tuple(C.shape[:-1]):
+        raise ValueError(f"{what}: tau must be one number or one per lane "
+                         f"{tuple(C.shape[:-1])}, got {tuple(tau_t.shape)}")
+    tau_t = tau_t.contiguous()
+    if tuple(nbad.shape) != tuple(C.shape[:-1]) or nbad.dtype != C.dtype \
+            or nbad.device != C.device or not nbad.is_contiguous():
+        raise ValueError(f"{what}: nbad must be a contiguous {C.dtype} "
+                         f"tensor of shape {tuple(C.shape[:-1])} on "
                          f"{C.device}")
     if work is None:
-        work = torch.zeros(k, dtype=torch.int32, device=C.device)
+        work = torch.zeros(nl * k, dtype=torch.int32, device=C.device)
     if work.dtype != torch.int32 or work.device != C.device \
-            or work.numel() < k:
+            or work.numel() < nl * k:
         raise ValueError(f"{what}: work must be an int32 tensor of at least "
-                         f"{k} zeros on {C.device}")
+                         f"{nl * k} zeros on {C.device}")
     _build.check(_build.lib().sn_panel_factor(
-        int(f64), C.data_ptr(), pidx.data_ptr(), qidx.data_ptr(),
+        int(f64), C.data_ptr(), ldc, nl, pidx.data_ptr(), qidx.data_ptr(),
         wv.data_ptr(), rv.data_ptr(), tau_t.data_ptr(), bk.data_ptr(),
         nbad.data_ptr(), work.data_ptr(), k, wb, rb, int(bool(pairs)),
         int(bool(guard)), _build.stream_ptr(C)), what)
-    LAUNCHES["panel_factor"] += 1
+    _count("panel_factor", C)
     return nbad
 
 
@@ -139,13 +173,14 @@ def schur_update_inplace(C, pidx, qidx, wvec, rvec, tgt, toff):
     the factored panels read from ``C`` through ``pidx``/``qidx`` (pads
     masked).  ``tgt`` the live-only int32 target table (per lane its
     r_l x r_l block, lane by lane), ``toff`` (k+1,) int64 its lane offsets.
-    No S is formed and no pad slot is touched.  Returns ``C``."""
+    No S is formed and no pad slot is touched.  ``C`` (B, nnzF+2): each
+    lane's panels into its own factors, one launch.  Returns ``C``."""
     if C.device.type == "cpu":
         _ref.sn_schur_inplace_ref(C, pidx, qidx, wvec, rvec, tgt)
         return C
     what = "schur_update"
     f64 = _cuda_args(what, (C,), C.dtype)
-    k, wb, rb = _slot_tables(what, C, pidx, qidx)
+    k, wb, rb, nl, ldc = _slot_tables(what, C, pidx, qidx)
     wv = _lane_vec(wvec, k, what, "wvec")
     rv = _lane_vec(rvec, k, what, "rvec")
     if tgt.dtype != torch.int32 or tgt.dim() != 1 or toff.dtype != torch.int64 \
@@ -154,10 +189,10 @@ def schur_update_inplace(C, pidx, qidx, wvec, rvec, tgt, toff):
         raise ValueError(f"{what}: tgt must be an int32 vector and toff a "
                          f"({k + 1},) int64 vector on {C.device}")
     _build.check(_build.lib().sn_schur_update(
-        int(f64), C.data_ptr(), pidx.data_ptr(), qidx.data_ptr(),
+        int(f64), C.data_ptr(), ldc, nl, pidx.data_ptr(), qidx.data_ptr(),
         wv.data_ptr(), rv.data_ptr(), tgt.contiguous().data_ptr(),
         toff.contiguous().data_ptr(), k, wb, rb, _build.stream_ptr(C)), what)
-    LAUNCHES["schur_update"] += 1
+    _count("schur_update", C)
     return C
 
 
@@ -171,14 +206,15 @@ def sweep_grid(rb, m):
     return max(1, -(-rb // SWEEP_ITEMS)), -(-m // SWEEP_RHS)
 
 
-def sweep_buffers(buckets, m, dtype, device):
+def sweep_buffers(buckets, m, dtype, device, lanes=1):
     """(work, part) for sn_sweep launches on ``buckets`` with m right-hand
-    sides: ``work`` int32 zeros, one counter per (lane, group), left zeroed
-    by every launch; ``part`` the partial sums of lanes split over several
-    blocks (None where no bucket splits).  One pair serves a whole solve."""
+    sides and ``lanes`` value lanes: ``work`` int32 zeros, one counter per
+    (value lane, lane, group), left zeroed by every launch; ``part`` the
+    partial sums of lanes split over several blocks (None where no bucket
+    splits).  One pair serves a whole solve."""
     nwork, npart = 1, 0
     for bk in buckets:
-        k = bk.wvec.shape[0]
+        k = bk.wvec.shape[0] * lanes
         tiles, groups = sweep_grid(bk.rb, m)
         nwork = max(nwork, k * groups)
         if tiles > 1:
@@ -214,16 +250,18 @@ def check_sweep_bucket(bk, device):
 
 
 def _sweep_launch(what, C, y, pidx, qidx, rows, wvec, rvec, bkm, work, part,
-                  k, wb, rb, mode, pairs):
+                  k, wb, rb, mode, pairs, nl=1, ldc=0, ldy=0):
+    """One sn_sweep launch; ``nl`` value lanes, lane b's factors at
+    C + b·ldc and its y at y + b·ldy."""
     f64 = _cuda_args(what, (C, y), C.dtype)
     _build.check(_build.lib().sn_sweep(
-        int(f64), SWEEP_MODES[mode], int(bool(pairs)), C.data_ptr(),
-        y.data_ptr(), pidx.data_ptr(), qidx.data_ptr(), rows.data_ptr(),
+        int(f64), SWEEP_MODES[mode], int(bool(pairs)), C.data_ptr(), ldc,
+        y.data_ptr(), ldy, nl,
+        pidx.data_ptr(), qidx.data_ptr(), rows.data_ptr(),
         wvec.data_ptr(), rvec.data_ptr(), bkm.data_ptr(),
         0 if work is None else work.data_ptr(),
-        0 if part is None else part.data_ptr(), k, wb, rb, y.shape[1],
+        0 if part is None else part.data_ptr(), k, wb, rb, y.shape[-1],
         _build.stream_ptr(y)), what)
-    LAUNCHES["sn_sweep"] += 1
     SWEEP_MODE_LAUNCHES[mode] += 1
 
 
@@ -231,7 +269,8 @@ def sn_sweep_inplace(C, y, bk, mode, *, work=None, part=None):
     """One bucket of a supernodal triangular sweep, in place in ``y``.
 
     ``y`` (n+1, m) the permuted solution, row n a scratch row; ``C`` the
-    factor vector; ``bk`` the bucket (a ``direct.SnodeBucket`` from
+    factor vector — or, for B value lanes, ``C`` (B, nnzF+2) and ``y``
+    (B, n+1, m), lane b's sweep on lane b's factors; ``bk`` the bucket (a ``direct.SnodeBucket`` from
     ``direct.to_device``: ``pidx``, ``qidx``, ``rows`` — each lane's wb
     block rows then its rb sub-rows, pads naming row n — ``wvec``, ``rvec``,
     ``bkm``, ``pairs``).  ``mode``: ``"l"`` x = L_D⁻¹ y_b, y_s −= L_sub x;
@@ -249,19 +288,25 @@ def sn_sweep_inplace(C, y, bk, mode, *, work=None, part=None):
                                   bk.rvec, bk.bkm, mode=mode, pairs=bk.pairs)
         return y
     what = "sn_sweep"
-    if C.dim() != 1 or y.dim() != 2 or not y.is_contiguous():
-        raise ValueError(f"{what}: C must be a vector and y a contiguous "
-                         f"(n+1, m) matrix")
-    k = bk.wvec.shape[0]
-    tiles, groups = sweep_grid(bk.rb, y.shape[1])
+    nl, ldc = _value_lanes(what, C)
+    if y.dim() != C.dim() + 1 or not y.is_contiguous() \
+            or C.dim() == 2 and y.shape[0] != nl:
+        raise ValueError(f"{what}: C {tuple(C.shape)} and y "
+                         f"{tuple(y.shape)} are not a vector and a contiguous "
+                         f"(n+1, m) matrix, or ({nl}, nnzF+2) lanes and a "
+                         f"contiguous ({nl}, n+1, m) stack")
+    k = bk.wvec.shape[0] * nl
+    tiles, groups = sweep_grid(bk.rb, y.shape[-1])
     if work is None:
-        work, part = sweep_buffers((bk,), y.shape[1], C.dtype, C.device)
+        work, part = sweep_buffers((bk,), y.shape[-1], C.dtype, C.device, nl)
     if work.numel() < k * groups or tiles > 1 and (
             part is None or part.numel() < k * groups * tiles * SWEEP_PART):
         raise ValueError(f"{what}: work / part are smaller than the launch "
                          f"needs (sweep_buffers)")
     _sweep_launch(what, C, y, bk.pidx, bk.qidx, bk.rows, bk.wvec, bk.rvec,
-                  bk.bkm, work, part, k, bk.wb, bk.rb, mode, bk.pairs)
+                  bk.bkm, work, part, bk.wvec.shape[0], bk.wb, bk.rb, mode,
+                  bk.pairs, nl, ldc, y[0].numel() if C.dim() == 2 else 0)
+    _count("sn_sweep", C)
     return y
 
 
@@ -309,6 +354,7 @@ def block_trsv(D, y, wvec, bkm, *, mode, pairs=False):
                   torch.empty(k, wb, 0, dtype=torch.int32, device=dev), rows,
                   wv, torch.zeros(k, dtype=torch.int32, device=dev), bk, None,
                   None, k, wb, 0, mode, pairs)
+    LAUNCHES["sn_sweep"] += 1
     x = x[:k * wb].view(k, wb, m)
     return x[:, :, 0] if vec else x
 

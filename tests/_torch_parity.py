@@ -53,6 +53,39 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def jittered_lanes(row, col, val, B, seed):
+    """(B, nnz) values of one pattern whose lanes are not multiples of one
+    another: lane b scales each off-diagonal entry by its own factor in
+    [0.5, 1], equal for (i, j) and (j, i), and lowers the diagonal by what
+    its row's off-diagonals lost, so that each row keeps its excess of the
+    diagonal over the off-diagonal sum.  A Poisson operator becomes one of
+    random conductances, symmetric, SPD and about as well conditioned."""
+    row, col, val = np.asarray(row), np.asarray(col), np.asarray(val)
+    n = int(max(row.max(), col.max())) + 1
+    key = np.minimum(row, col).astype(np.int64) * n + np.maximum(row, col)
+    _, inv = np.unique(key, return_inverse=True)
+    f = 0.5 + 0.5 * np.random.default_rng(seed).uniform(
+        size=(B, inv.max() + 1))[:, inv]
+    off = row != col
+    f[:, ~off] = 1.0
+    lost = np.zeros((B, n))
+    for b in range(B):
+        np.add.at(lost[b], row[off], np.abs(val[off]) * (1.0 - f[b, off]))
+    V = val[None] * f
+    V[:, ~off] -= lost[:, row[~off]]
+    return V
+
+
+def not_proportional(x, floor=1e-3):
+    """Smallest distance, relative to |x_b|, of a lane x_b of x (B, n) from
+    the line through lane 0: above ``floor`` when no lane is a multiple of
+    lane 0."""
+    x = np_of(x)
+    x0 = x[0] / np.linalg.norm(x[0])
+    return min(float(np.linalg.norm(xb - (xb @ x0) * x0)
+                     / np.linalg.norm(xb)) for xb in x[1:])
+
+
 def rel(got, want, scale=None):
     """max |got − want| over max |scale| (default: |want|)."""
     got, want = np_of(got).astype(np.float64), np_of(want).astype(np.float64)

@@ -195,7 +195,18 @@ def test_kernel_wrappers_count_no_cpu_launches():
                          torch.tensor(x).repeat(2, 1))
     X = torch.tensor(x).repeat(3, 1)
     tfk.fused_dots2(X, X)
+    # the lane-stacked panel kernels (slice 5b): two value lanes of C
+    C2 = torch.stack([C, 2.0 * C])
+    tsn.panel_factor_inplace(C2, pidx, qidx, w, r,
+                             torch.tensor([1e-8, 2e-8], dtype=torch.float64),
+                             bk)
+    tsn.schur_update_inplace(C2, pidx, qidx, w, r,
+                             torch.arange(60, 108, dtype=torch.int32),
+                             torch.arange(0, 64, 16))
+    tsn.sn_sweep_inplace(C2, torch.zeros(2, 19, 2, dtype=torch.float64),
+                         sweep, "lt")
     assert set(kernels.launch_counts().values()) == {0}
     assert set(tsn.SWEEP_MODE_LAUNCHES.values()) == {0}
-    # 15 single-vector kernels + 11 lane-batched entry points
-    assert len(kernels.launch_counts()) == 26
+    # 15 single-vector kernels + 11 lane-batched entry points + the 3
+    # lane-stacked panel kernels
+    assert len(kernels.launch_counts()) == 29

@@ -32,6 +32,7 @@ from repro_torch.kernels.stencil5 import Stencil5Meta
 
 from _torch_parity import (FUSED_SIGS, assert_close, bell_case,  # noqa: F401
                            cuda_device, fused_inputs, inplace_bucket,
+                           jittered_lanes, not_proportional, np_of,
                            panel_bucket, port_inplace, port_panel, rel,
                            stencil_case, sweep_bucket, sweep_bucket_on, tol)
 
@@ -403,6 +404,39 @@ def test_cuda_amg_vcycle_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["mg", "amg"])
+def test_cuda_one_lane_vcycle_on_k_rows(cuda_device, precond):
+    """k right-hand sides of one matrix in ONE V-cycle on the card (MG: the
+    levels on ``stencil5_batched`` with shared planes; AMG: one coarse
+    factored solve with k columns): each row equals the V-cycle on that row
+    alone, and the launches are one cycle's, whatever k."""
+    from repro_torch.core.precond import PreconditionerPlan
+    from repro_torch.data.poisson import poisson2d_vc
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(6)
+    A = poisson2d_vc(torch.tensor(1.0 + 0.5 * rng.random((128, 128)),
+                                  device=cuda_device),
+                     use_stencil_kernel=True, device=cuda_device) \
+        if precond == "mg" else _amg_graph(cuda_device)
+    pre = PreconditionerPlan(precond, A.row, A.col, A.shape,
+                             stencil=A.stencil)
+    M = pre.make_apply(pre.refresh_state(A, None), None)
+    R = torch.tensor(rng.normal(size=(5, A.shape[0])), device=cuda_device)
+
+    def counted(r):
+        reset_launch_counts()
+        z = M(r)
+        torch.cuda.synchronize()
+        return z, {k: v for k, v in launch_counts().items() if v}
+    _, one = counted(R[0])
+    Z, many = counted(R)
+    assert many == ({"stencil5_batched": one["stencil5"]} if precond == "mg"
+                    else one), (one, many)
+    for row in range(5):
+        assert rel(Z[row], M(R[row])) <= TOL_CYCLE[torch.float64]
+
+
+@pytest.mark.cuda
 def test_cuda_amg_iterations_stable_over_runs(cuda_device):
     """Three card solves, each with a fresh values tensor (a fresh Galerkin
     product, summed in a fresh atomic order), and the CPU's: one
@@ -742,3 +776,220 @@ def test_cuda_solve_server_smoke(cuda_device):
                 backend="pallas", check=True, device=cuda_device)
     assert rep["converged"] and rep["occupancy"] == 1.0
     assert rep["plan_stats"]["analyze"] == 2
+
+
+# ---------------------------------------------------------------------------
+# slice 5b: the lane-stacked panel kernels (B value lanes of one pattern in
+# one launch) and the batched direct route and preconditioners
+# ---------------------------------------------------------------------------
+
+LANES = (1, 3, 8)
+
+
+def _lane_scales(B):
+    return np.random.default_rng(B).uniform(0.7, 1.4, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("B", LANES)
+def test_cuda_lane_panel_factor_and_schur_match_plain(cuda_device, B, pairs):
+    """``panel_factor`` and ``schur_update`` on a (B, nnzF+2) stack with a
+    per-lane τ in ONE launch each: the plain version lane by lane (1e-12 of
+    the scale), the single-lane launch on lane b's values (panel_factor bit
+    for bit; schur_update, which scatters with atomics, to 1e-13), per-lane
+    clamp counts, the sink untouched."""
+    for shape in SHAPES + [(3, 32, 1024), (7, 3, 5)]:
+        b = inplace_bucket(*shape, np.float64, 3, pairs)
+        s = _lane_scales(B)
+        C = np.stack([b["C"] * sc for sc in s])
+        C[:, b["sink"]] = 7.25
+        tau = 0.5 * s
+        t = lambda a, dev=cuda_device: torch.tensor(a, device=dev)
+        args = lambda dev: (t(b["pidx"], dev), t(b["qidx"], dev),
+                            t(b["w"], dev), t(b["r"], dev))
+        Ck, Cp = t(C), t(C, "cpu")
+        n0 = tsn.LAUNCHES["panel_factor_lanes"]
+        nbk = tsn.panel_factor_inplace(Ck, *args(cuda_device), t(tau),
+                                       t(b["bkm"]), pairs=pairs)
+        torch.cuda.synchronize()
+        assert tsn.LAUNCHES["panel_factor_lanes"] == n0 + 1
+        nbp = tsn.panel_factor_inplace(Cp, *args("cpu"), t(tau, "cpu"),
+                                       t(b["bkm"], "cpu"), pairs=pairs)
+        assert nbk.tolist() == nbp.tolist()
+        Sk, Sp = Ck.clone(), Cp.clone()
+        n0 = tsn.LAUNCHES["schur_update_lanes"]
+        tsn.schur_update_inplace(Sk, *args(cuda_device), t(b["tgt"]),
+                                 t(b["toff"]))
+        torch.cuda.synchronize()
+        assert tsn.LAUNCHES["schur_update_lanes"] == n0 + 1
+        tsn.schur_update_inplace(Sp, *args("cpu"), t(b["tgt"], "cpu"),
+                                 t(b["toff"], "cpu"))
+        for lane in range(B):
+            assert rel(Ck[lane], Cp[lane]) <= TOL[np.float64], (shape, lane)
+            assert rel(Sk[lane], Sp[lane]) <= TOL[np.float64], (shape, lane)
+            assert float(Sk[lane, b["sink"]]) == 7.25
+            C1 = t(C[lane])
+            nb1 = tsn.panel_factor_inplace(C1, *args(cuda_device),
+                                           float(tau[lane]), t(b["bkm"]),
+                                           pairs=pairs)
+            assert torch.equal(C1, Ck[lane]) and float(nb1) == nbp[lane]
+            tsn.schur_update_inplace(C1, *args(cuda_device), t(b["tgt"]),
+                                     t(b["toff"]))
+            torch.cuda.synchronize()
+            assert rel(C1, Sk[lane]) <= 1e-13
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_lane_sweep_matches_plain(cuda_device, mode, pairs):
+    """One ``sn_sweep`` launch on B value lanes ((B, nnzF+2) factors,
+    (B, n+1, m) y), B in 1, 3, 8 and m in 1, 5, lanes split over several
+    blocks: the plain version lane by lane, the single-lane launch on lane
+    b (bit for bit in the gathering modes u / lt; the scattering modes l /
+    ut add with atomics: 1e-13), the rows no live entry names kept, the
+    counters back at zero, one launch whatever B."""
+    for shape in [(5, 8, 16), (7, 3, 5), (3, 32, 1024), (2, 32, 200)]:
+        for m in (1, 5):
+            C, y, tb = sweep_bucket(*shape, np.float64, 5 + m, pairs, m=m)
+            n = y.shape[0] - 1
+            bk = sweep_bucket_on(tb, cuda_device)
+            keep = torch.tensor(_untouched(tb, n), device=cuda_device)
+            for B in LANES:
+                s = _lane_scales(B)
+                Cs = torch.tensor(np.stack([C * sc for sc in s]),
+                                  device=cuda_device)
+                rng = np.random.default_rng(B + m)
+                Y = rng.normal(size=(B, n + 1, m))
+                Y[:, n] = 7.25
+                Y0 = torch.tensor(Y, device=cuda_device)
+                work, part = tsn.sweep_buffers([bk], m, Cs.dtype,
+                                               cuda_device, B)
+                n0 = tsn.LAUNCHES["sn_sweep_lanes"]
+                Yk = tsn.sn_sweep_inplace(Cs, Y0.clone(), bk, mode,
+                                          work=work, part=part)
+                torch.cuda.synchronize()
+                assert tsn.LAUNCHES["sn_sweep_lanes"] == n0 + 1
+                assert int(work.abs().sum()) == 0
+                Yp = tref.sn_sweep_inplace_ref(
+                    Cs, Y0.clone(), bk.pidx, bk.qidx, bk.rows, bk.wvec,
+                    bk.rvec, bk.bkm, mode=mode, pairs=pairs)
+                what = f"{shape} m={m} B={B}"
+                for lane in range(B):
+                    assert rel(Yk[lane], Yp[lane]) <= TOL[np.float64], what
+                    assert torch.equal(Yk[lane][keep], Y0[lane][keep]), what
+                    y1 = tsn.sn_sweep_inplace(Cs[lane].clone(),
+                                              Y0[lane].clone(), bk, mode)
+                    torch.cuda.synchronize()
+                    if mode in ("u", "lt"):
+                        assert torch.equal(y1, Yk[lane]), what
+                    else:
+                        assert rel(y1, Yk[lane]) <= 1e-13, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [False, True])
+def test_cuda_lane_direct_route_matches_plain(cuda_device, pairs):
+    """``numeric_factor`` on (B, nnz) values and ``factored_solve`` on the
+    (B, nnzF+2) stack, forward and transposed, with (B, n) and (B, n, 3)
+    right-hand sides: the CPU port lane by lane (1e-12), each lane's single
+    factorization on the card (1e-13: schur_update's atomics), and ONE
+    launch per bucket and kernel for the stack."""
+    val, row, col = poisson2d_arrays(24)
+    n = 24 * 24
+    kw = {"supernodal": "on", "pivot_blocks": "auto" if pairs else None}
+    art = td.symbolic_factor(row, col, n, **kw)
+    nb = sum(len(lvl) for lvl in art.snode.schedule)
+    on_card, on_cpu = td.to_device(art, cuda_device), td.to_device(art, "cpu")
+    B = 3
+    V = np.stack([val * sc for sc in _lane_scales(B)])
+    before = dict(tsn.LAUNCHES)
+    Ck = td.numeric_factor(on_card, torch.tensor(V, device=cuda_device))
+    torch.cuda.synchronize()
+    for name in ("panel_factor_lanes", "schur_update_lanes"):
+        assert tsn.LAUNCHES[name] == before[name] + nb
+    Cp = td.numeric_factor(on_cpu, torch.tensor(V))
+    for lane in range(B):
+        assert rel(Ck[lane, :-2], Cp[lane, :-2]) <= 1e-12
+        C1 = td.numeric_factor(on_card, torch.tensor(V[lane],
+                                                     device=cuda_device))
+        assert rel(C1[:-2], Ck[lane, :-2]) <= 1e-13
+    R = np.random.default_rng(1).standard_normal((B, n, 3))
+    for transposed in (False, True):
+        for rhs in (R[..., 0], R):
+            n0 = tsn.LAUNCHES["sn_sweep_lanes"]
+            xk = td.factored_solve(on_card, Ck, torch.tensor(
+                rhs, device=cuda_device), transposed=transposed)
+            torch.cuda.synchronize()
+            assert tsn.LAUNCHES["sn_sweep_lanes"] == n0 + 2 * nb
+            xp = td.factored_solve(on_cpu, Cp, torch.tensor(rhs),
+                                   transposed=transposed)
+            assert rel(xk, xp) <= 1e-12
+
+
+def _slice_5b_route(dev, precond, proportional):
+    """Stacked values through ``precond`` (or the direct route) on the
+    card: one setup for the stack, each lane its single solve on the card
+    (iterations equal), the lane-stacked kernels launched.  Lanes are
+    scaled copies of one matrix, or (``proportional=False``) each entry
+    jittered on its own (a random κ per lane for MG)."""
+    from repro_torch import kernels, sla
+    from repro_torch.core import dispatch as D
+    from repro_torch.data.poisson import poisson2d, poisson2d_vc
+    B = 4
+    rng = np.random.default_rng(0)
+    if precond == "mg":
+        kaps = [torch.tensor(1.0 + 0.5 * rng.random((64, 64)), device=dev)
+                for _ in range(B if not proportional else 1)]
+        ops = [poisson2d_vc(k, use_stencil_kernel=True, device=dev)
+               for k in kaps]
+        A = ops[0]
+        kw = dict(backend="stencil", method="cg", precond="mg", tol=1e-10)
+    else:
+        A = poisson2d(24, device=dev)
+        kw = dict(backend="direct") if precond == "direct" else \
+            dict(backend="pallas", method="cg", precond=precond, tol=1e-10)
+    if proportional:
+        vals = torch.stack([A.val * float(sc) for sc in _lane_scales(B)])
+    elif precond == "mg":
+        vals = torch.stack([op.val for op in ops])
+    else:
+        vals = torch.tensor(jittered_lanes(np_of(A.row), np_of(A.col),
+                                           np_of(A.val), B, seed=7),
+                            device=dev)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    kernels.reset_launch_counts()
+    D.reset_plan_stats()
+    res = sla.solve_with_info(A.with_values(vals), b, **kw)
+    counts = kernels.launch_counts()
+    assert D.PLAN_STATS["setup"] == 1
+    want = {"direct": "sn_sweep_lanes", "amg": "sn_sweep_lanes",
+            "mg": "stencil5_batched", "chebyshev": "bell_spmv_batched",
+            "ilu": "bell_spmv_batched"}[precond]
+    assert counts[want] > 0, counts
+    if not proportional:
+        assert not_proportional(res.x) > 1e-3
+    for lane in range(B):
+        one = sla.solve_with_info(A.with_values(vals[lane].clone()), b, **kw)
+        assert int(res.iterations[lane]) == int(one.iterations)
+        assert_close(res.x[lane], one.x, rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["direct", "amg", "mg", "chebyshev",
+                                     "ilu"])
+def test_cuda_batched_values_slice_5b_routes(cuda_device, precond):
+    """Stacked values, lanes scaled copies of one matrix, through the direct
+    route and CG + MG / AMG / Chebyshev / ILU on the card."""
+    _slice_5b_route(cuda_device, precond, proportional=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["direct", "amg", "mg", "chebyshev",
+                                     "ilu"])
+def test_cuda_batched_values_lanes_not_proportional(cuda_device, precond):
+    """The same routes on lanes that are not multiples of one another (AMG,
+    MG and ILU(0) are homogeneous in the values, so scaled lanes cannot
+    show a lane applied on another lane's state)."""
+    _slice_5b_route(cuda_device, precond, proportional=False)

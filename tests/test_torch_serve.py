@@ -4,10 +4,11 @@
 The same numpy inputs go through both packages: the reference batches by
 ``jax.vmap``, the port through its lane-batched kernels and batch-native
 Krylov loops.  Solutions, gradients, per-lane iteration counts and
-``PLAN_STATS`` are held to the reference at its own tolerances.  The
-combinations left to slice 5b (batched values through the direct route, MG,
-AMG, the plan Chebyshev, ILU and eigsh) must raise ``NotImplementedError``
-naming slice 5b.
+``PLAN_STATS`` are held to the reference at its own tolerances.  Slice 5b's
+routes (batched values through the direct route, MG, AMG, the plan
+Chebyshev and ILU) are held to the reference here in one case each
+(``tests/test_torch_batch_direct.py`` has the rest); batched values in
+eigsh raise ``NotImplementedError``, as the reference does not take them.
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ from repro.kernels import solve_step as rfk
 from repro.kernels.stencil5 import Stencil5Meta as RMeta
 from repro_torch import sla as tsla
 from repro_torch.core import dispatch as tdisp
+from repro_torch.core import solvers as tsol
 from repro_torch.core.sparse import bell_to_device, build_bell
 from repro_torch.data import poisson as tpoisson
 from repro_torch.kernels import ops as tops
@@ -428,25 +430,53 @@ def test_lane_by_lane_methods_match_reference(method, stacked):
 
 
 # ---------------------------------------------------------------------------
-# slice 5b: what is left raises
+# slice 5b: batched values through the direct route, MG, AMG, Chebyshev and
+# ILU match the reference; batched eigsh raises, as in the reference
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("case", ["direct", "amg", "mg", "chebyshev", "ilu",
                                   "eigsh"])
-def test_slice_5b_combinations_raise(case):
-    A = tpoisson.poisson2d_vc(torch.tensor(_kappa(8)), use_stencil_kernel=True,
-                              device=CPU) if case == "mg" \
-        else tpoisson.poisson2d(8, device=CPU)
-    Ab = A.with_values(torch.stack([A.val, 1.5 * A.val]))
-    b = torch.ones(A.shape[0], dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        if case == "direct":
-            Ab.solve(b, backend="direct")
-        elif case == "eigsh":
+def test_slice_5b_combinations_raise(case, monkeypatch):
+    """Two value lanes through each slice-5b route: the reference's batched
+    solve (its ``jax.vmap``) at its tolerances, the same PLAN_STATS (one
+    setup for the stack).  eigsh takes no batched values in either package:
+    the port raises, naming no slice."""
+    if case == "mg":
+        A_ref = rpoisson.poisson2d_vc(jnp.asarray(_kappa(8)),
+                                      use_stencil_kernel=True)
+    else:
+        A_ref = rpoisson.poisson2d(8)
+    A = port_of(A_ref)
+    vals = np.stack([np.asarray(A_ref.val), 1.5 * np.asarray(A_ref.val)])
+    Ab = A.with_values(torch.tensor(vals))
+    b = np.ones(A.shape[0])
+    if case == "eigsh":
+        with pytest.raises(NotImplementedError,
+                           match="does not support batched values") as exc:
             Ab.eigsh(k=2)
-        else:
-            Ab.solve(b, backend="stencil" if case == "mg" else "jnp",
-                     method="cg", precond=case)
+        assert "slice" not in str(exc.value)
+        return
+    if case == "chebyshev":              # the reference's Lanczos start
+        def start(shape, dtype, device, seed):
+            v = jax.random.normal(jax.random.PRNGKey(seed), tuple(shape),
+                                  jnp.float64)
+            return torch.tensor(np.asarray(v), dtype=dtype, device=device)
+        monkeypatch.setattr(tsol, "seeded_normal", start)
+    kw = dict(backend="direct") if case == "direct" else dict(
+        backend="stencil" if case == "mg" else "jnp", method="cg",
+        precond=case, tol=1e-11)
+    rdisp.reset_plan_stats()
+    res_r = rsla.solve_with_info(A_ref.with_values(jnp.asarray(vals)),
+                                 jnp.asarray(b), **kw)
+    stats_r = _stats(rdisp.PLAN_STATS)
+    tdisp.reset_plan_stats()
+    res_t = tsla.solve_with_info(Ab, torch.tensor(b), **kw)
+    stats_t = _stats(tdisp.PLAN_STATS)
+    assert stats_t == stats_r and stats_t["setup"] == 1
+    assert np_of(res_t.iterations).tolist() == \
+        np.asarray(res_r.iterations).tolist()
+    assert_close(res_t.x, res_r.x, rtol=1e-9 if case == "direct" else 1e-8,
+                 atol=1e-11 if case == "direct" else 1e-10)
 
 
 # ---------------------------------------------------------------------------

@@ -217,9 +217,11 @@ def test_later_slices_raise_with_their_slice():
     assert_close(X, torch.stack([x_ref, x_ref]), rtol=1e-10, atol=1e-11)
     x = A.solve(b, backend="jnp", method="block_cg", tol=1e-12)
     assert_close(x, x_ref, rtol=1e-10, atol=1e-11)
-    # slice 5b: batched values through the direct route raise
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        A.with_values(torch.stack([A.val, A.val])).solve(b, backend="direct")
+    # slice 5b: batched values through the direct route are ported
+    X = A.with_values(torch.stack([A.val, 2.0 * A.val])).solve(
+        b, backend="direct")
+    assert_close(X, torch.stack([x_ref, x_ref / 2.0]), rtol=1e-12,
+                 atol=1e-13)
     x = A.solve(b, backend="direct")           # slice 2: ported
     assert_close(x, x_ref, rtol=1e-12, atol=1e-13)
     x = A.solve(b, backend="jnp", method="gmres", tol=1e-12)  # ported
