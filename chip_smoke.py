@@ -4231,10 +4231,13 @@ def ptxas_report(log, sources):
     out = []
     for e in entries:
         dyn = ""
-        m = re.match(r"(tc_kernel|simt_kernel)<(\d+)>", e["name"])
+        m = re.match(r"(tc_kernel|simt_kernel)<(\d+)(?:, (\d+), (\d+))?>",
+                     e["name"])
         if m:
+            # the f32 kernel's tile: thread rows x query rows a thread
             nbytes = _build.lib().flash_attention_smem(
-                int(m.group(2)), int(m.group(1) == "tc_kernel"))
+                int(m.group(2)), int(m.group(1) == "tc_kernel"),
+                int(m.group(3) or 0) * int(m.group(4) or 0))
             dyn = f", {nbytes} B dynamic smem"
         out.append(f"ptxas {e['name']}: {e['regs']} registers, {e['smem']} "
                    f"B static smem{dyn}; {e['spill']}")

@@ -54,8 +54,8 @@ _SIGNATURES = {
     "stencil5_lanes_f64": [_P, _P, _P, _I, _I, _I, _L, _P],
     "bell_spmv_f32": [_P, _P, _P, _P, _P, _L, _P],
     "bell_spmv_f64": [_P, _P, _P, _P, _P, _L, _P],
-    "bell_spmv_lanes_f32": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P],
-    "bell_spmv_lanes_f64": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P],
+    "bell_spmv_lanes_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _P],
+    "bell_spmv_lanes_f64": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _P],
     "fused_step": [_I, _I, _PP, _PP, _PP, _LP, _IP, _P, _P, _P, _L, _I, _I,
                    _P],
     # the supernodal kernels take nl value lanes: C's lane stride ldc (and
@@ -67,10 +67,10 @@ _SIGNATURES = {
     "sn_sweep": [_I, _I, _I, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P,
                  _P, _I, _I, _I, _I, _P],
     "flash_attention_f32": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
-                            _I, _P],
+                            _I, _I, _I, _P],
     "flash_attention_bf16": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
                              _I, _P],
-    "flash_attention_smem": [_I, _I],
+    "flash_attention_smem": [_I, _I, _I],
 }
 
 

@@ -57,15 +57,33 @@
 //
 // f32: SIMT kernel (simt_kernel), all arithmetic f32 on the FMA pipes (no
 // tensor cores, no TF32: the f32 decode == forward check needs f32
-// scores).  One block of 128 threads owns a 64-query tile of one head,
-// keeps its Q tile in shared memory and m / l / acc in registers, and
-// streams 64-key K and V tiles through one shared buffer.  Thread layout
-// 8 x 16: thread (ty, tx) owns query rows ty*8 .. ty*8+7, key columns
-// tx + 16 j of each score tile and head dims tx + 16 c of the accumulator,
-// so the rows a thread rescales are the rows whose max and sum it helped
-// reduce (a shuffle over the 16 lanes of its half-warp).  K is stored
-// transposed and P and Q with padded strides, so the inner loops read
-// shared memory without bank conflicts.  Its bound is the f32 FMA rate.
+// scores).  Bound: the f32 FMA rate (67 TFLOP/s), 2 d FMAs per kept
+// (query, key) pair.  A block of 256 threads takes `heads` query heads of
+// one KV head (the largest of 8, 4, 2, 1 dividing H / K) at rows / heads
+// query positions, so every K / V tile it loads serves all its rows (GQA
+// tiles are loaded once per group, not once per query head).  Its rows: 128
+// where that grid fills the SMs twice over, else 32, so small batches still
+// cover the card (flash_attention.f32_tile, a pure function of the shapes,
+// picks both; the launch code only checks them).  Shared memory holds the Q
+// tile, two K buffers, one V buffer and the P tile, rows padded by 16 bytes
+// against bank conflicts; all tiles arrive by 16-byte cp.async with zeros
+// past S, T.  K(t + 1) loads while tile t runs its softmax and P V, and
+// V(t + 1) while tile t + 1 runs Q K^T: three barriers a 64-key tile.
+// Thread (ty, tx), ty < 16, tx < 16 (a half-warp), owns query rows
+// ty + 16 i (i < TM), keys tx + 16 u of a tile (u < 4) and head dims
+// 4 tx + 64 c (4-wide chunks; d 16 / 32: 1 / 2 dims at tx d / 16).  Q K^T
+// reads float4 of Q and K along d, 16 TM FMAs per TM + 4 128-bit loads
+// (10.7 a load at TM = 8); P V reads float4 of P along keys and V's row
+// chunk, the same ratio.  Scores are scaled by log2(e) / sqrt(d) once and
+// exponentiated by ex2; the mask is evaluated only on a tile that reaches
+// past T or (causal) past the block's first query; the row max is reduced
+// over the half-warp each tile, the row sums once at the end (each
+// thread's partial sum rescaled with the row's max).  Masking and
+// normalisation as the reference: -1e30 masked scores, max(l, 1e-30), the
+// causal loop ending at the block's last query.  The large tile runs one
+// block (8 warps, up to 254 registers a thread at d 128) an SM: blocks of
+// 8 thread rows, two an SM, were no faster on an H100
+// (tests/_torch_flash_f32_bench.py).
 #include "common.cuh"
 
 #include <cuda.h>
@@ -96,169 +114,282 @@ struct Attn {
 
 namespace simt {
 
-constexpr int kBQ = 64;              // queries per block
-constexpr int kBK = 64;              // keys per KV tile
-constexpr int kTY = 8;               // thread rows
 constexpr int kTX = 16;              // thread columns (one half-warp)
-constexpr int kThreads = kTY * kTX;  // 128
-constexpr int kRows = kBQ / kTY;     // query rows per thread: 8
-constexpr int kCols = kBK / kTX;     // key columns per thread: 4
+constexpr int kBK = 64;              // keys per K / V tile
+constexpr int kTN = kBK / kTX;       // key columns per thread: 4
 
-// shared-memory layout (floats): Q tile, one K^T / V buffer, P tile
-template <int D>
-struct Smem {
-  static constexpr int kQStride = D + 1;
-  static constexpr int kKtStride = kBK + 1;
-  static constexpr int kPStride = kBK + 1;
-  static constexpr int kQ = kBQ * kQStride;
-  static constexpr int kKV = D * kKtStride > kBK * D ? D * kKtStride : kBK * D;
-  static constexpr int kP = kBQ * kPStride;
-  static constexpr size_t kBytes = sizeof(float) * (kQ + kKV + kP);
+// Shared memory (floats): Q tile, two K buffers, one V buffer, P tile.  Row
+// strides of 16 bytes past a multiple of 128 keep the float4 reads of a
+// quarter-warp on distinct banks.
+template <int D, int TY, int TM>
+struct Cfg {
+  static constexpr int kThreads = TY * kTX;       // TY thread rows
+  static constexpr int kRows = TY * TM;           // query rows a block
+  static constexpr int kStride = D + 4;           // Q, K, V rows
+  static constexpr int kPStride = kBK + 16;       // P rows
+  static constexpr int kQ = kRows * kStride;
+  static constexpr int kKV = kBK * kStride;
+  static constexpr int kP = kRows * kPStride;
+  static constexpr int kDT = D / kTX;             // head dims per thread in P V
+  static constexpr size_t kBytes = sizeof(float) * (kQ + 3 * kKV + kP);
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) simt_kernel(const Attn a) {
-  using L = Smem<D>;
-  constexpr int kDC = D / kTX;       // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* kv_s = q_s + L::kQ;
-  float* p_s = kv_s + L::kKV;
+// the two tiles (thread rows x query rows a thread): 128 rows and 32
+constexpr int kLargeTY = 16, kLargeTM = 8;
+constexpr int kSmallTY = 16, kSmallTM = 2;
 
-  const int S = a.S, Tk = a.T;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / a.G;
-  const int q0 = (gridDim.y - 1 - (int)blockIdx.y) * kBQ;   // heaviest first
-  const float* q = (const float*)a.q + b * a.sqb + h * a.sqh;
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most one group (the newest) is in flight
+__device__ __forceinline__ void cp_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// this thread's head dims of a row in P V: 4-wide chunks 4 tx + 64 c, or
+// (d 16 / 32) dims tx d / 16 .. + d / 16
+template <int DT>
+__device__ __forceinline__ int dim_of(int tx, int c) {
+  return DT >= 4 ? 4 * tx + kTX * 4 * (c / 4) + c % 4 : tx * DT + c;
+}
+template <int DT>
+__device__ __forceinline__ void lds_dims(float (&r)[DT], const float* row, int tx) {
+  if constexpr (DT >= 4) {
+#pragma unroll
+    for (int c = 0; c < DT; c += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(row + dim_of<DT>(tx, c));
+      r[c] = t.x; r[c + 1] = t.y; r[c + 2] = t.z; r[c + 3] = t.w;
+    }
+  } else if constexpr (DT == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(row + 2 * tx);
+    r[0] = t.x; r[1] = t.y;
+  } else {
+    r[0] = row[tx];
+  }
+}
+__device__ __forceinline__ float comp(const float4& f, int u) {
+  return u == 0 ? f.x : u == 1 ? f.y : u == 2 ? f.z : f.w;
+}
+
+template <int D, int TY, int TM>
+__global__ void __launch_bounds__(TY * kTX, 256 / (TY * kTX) * (TM >= 8 ? 1 : 2))
+simt_kernel(const Attn a, int heads, int bq) {
+  using C = Cfg<D, TY, TM>;
+  constexpr int kC4 = D / 4;         // 16-byte chunks a row
+  constexpr int DT = C::kDT;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + C::kQ;          // K buffers t % 2
+  float* v_s = k_s + 2 * C::kKV;
+  float* p_s = v_s + C::kKV;
+
+  const int S = a.S, T = a.T;
+  const int groups = a.G / heads;    // blocks per KV head and query tile
+  const int K = a.H / a.G;
+  const int bk = blockIdx.x / groups;
+  const int b = bk / K, kvh = bk % K;
+  const int h0 = kvh * a.G + (blockIdx.x % groups) * heads;
+  const int q0 = (gridDim.y - 1 - (int)blockIdx.y) * bq;   // heaviest first
+  const float* q = (const float*)a.q + b * a.sqb;
   const float* k = (const float*)a.k + b * a.skb + kvh * a.skh;
   const float* v = (const float*)a.v + b * a.svb + kvh * a.svh;
-  float* o = (float*)a.o + ((long long)b * S * a.H + h) * D;
-  const long long so = (long long)a.H * D;        // o's row stride
   const int tid = threadIdx.x;
-  const int ty = tid / kTX, tx = tid % kTX;
-  const int r0 = ty * kRows;
+  const int tx = tid % kTX, ty = tid / kTX;
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int qi = q0 + r;
-    q_s[r * L::kQStride + c] = qi < S ? q[qi * a.sqs + c] : 0.f;
+  // row r of the block: query position q0 + r / heads of head h0 + r % heads
+  for (int e = tid; e < C::kRows * kC4; e += C::kThreads) {
+    const int r = e / kC4, c = (e % kC4) * 4;
+    const int qi = q0 + r / heads;
+    const bool ok = qi < S;
+    cp16(q_s + r * C::kStride + c,
+         ok ? q + qi * a.sqs + (h0 + r % heads) * a.sqh + c : q, ok);
   }
+  auto load_tile = [&](float* dst, const float* src, long long rs, int k0) {
+    for (int e = tid; e < kBK * kC4; e += C::kThreads) {
+      const int r = e / kC4, c = (e % kC4) * 4;
+      const int kj = k0 + r;
+      const bool ok = kj < T;
+      cp16(dst + r * C::kStride + c, ok ? src + kj * rs + c : src, ok);
+    }
+  };
+  // causal: keys j <= i <= the block's last query; later tiles lie above
+  // the diagonal
+  const int kend = a.causal ? min(T, min(S, q0 + bq)) : T;
+  const int nt = (kend + kBK - 1) / kBK;
+  load_tile(k_s, k, a.sks, 0);
+  cp_commit();                       // group: Q and K(0)
+  load_tile(v_s, v, a.svs, 0);
+  cp_commit();                       // group: V(0)
 
-  float m[kRows], l[kRows], acc[kRows][kDC];
+  int qpos[TM];
+  float m[TM], l[TM], acc[TM][DT];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < TM; ++i) {
+    qpos[i] = q0 + (ty + TY * i) / heads;
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kDC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < DT; ++c) acc[i][c] = 0.f;
   }
+  const float sl2 = a.scale * 1.4426950408889634f;   // scale * log2(e)
 
-  // causal: keys j <= i <= q0 + kBQ - 1; later tiles lie above the diagonal
-  const int kend = a.causal ? min(Tk, q0 + kBQ) : Tk;
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
-    __syncthreads();                 // Q stored / last tile's V reads done
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const int kj = k0 + r;
-      kv_s[c * L::kKtStride + r] = kj < Tk ? k[kj * a.sks + c] : 0.f;
-    }
+  for (int t = 0; t < nt; ++t) {
+    const int k0 = t * kBK;
+    const float* kb = k_s + (t & 1) * C::kKV;
+    cp_wait_one();                   // K(t) landed (V(t) may be in flight)
     __syncthreads();
 
-    float s[kRows][kCols];
+    float s[TM][kTN];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float kk[kCols];
+      for (int u = 0; u < kTN; ++u) s[i][u] = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) kk[j] = kv_s[d * L::kKtStride + tx + kTX * j];
+    for (int d = 0; d < D; d += 4) {
+      float4 qf[TM], kf[kTN];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float qv = q_s[(r0 + i) * L::kQStride + d];
+      for (int i = 0; i < TM; ++i)
+        qf[i] = *reinterpret_cast<const float4*>(q_s + (ty + TY * i) * C::kStride + d);
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv, kk[j], s[i][j]);
-      }
+      for (int u = 0; u < kTN; ++u)
+        kf[u] = *reinterpret_cast<const float4*>(kb + (tx + kTX * u) * C::kStride + d);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int u = 0; u < kTN; ++u) {
+          s[i][u] = fmaf(qf[i].x, kf[u].x, s[i][u]);
+          s[i][u] = fmaf(qf[i].y, kf[u].y, s[i][u]);
+          s[i][u] = fmaf(qf[i].z, kf[u].z, s[i][u]);
+          s[i][u] = fmaf(qf[i].w, kf[u].w, s[i][u]);
+        }
     }
+    // K(t + 1) into the other buffer: its readers (tile t - 1) are past
+    // that tile's barriers
+    if (t + 1 < nt) load_tile(k_s + ((t + 1) & 1) * C::kKV, k, a.sks, k0 + kBK);
+    cp_commit();
 
+    // scale (log2 units), mask (only a tile that reaches past T or, causal,
+    // past the block's first query), online softmax; P to shared memory
+    const bool edge = k0 + kBK > T || (a.causal && k0 + kBK - 1 > q0);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + r0 + i;
+    for (int i = 0; i < TM; ++i) {
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kj = k0 + tx + kTX * j;
-        const bool keep = kj < Tk && (!a.causal || kj <= qi);
-        s[i][j] = keep ? s[i][j] * a.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+      for (int u = 0; u < kTN; ++u) {
+        const int kj = k0 + tx + kTX * u;
+        const bool keep = !edge || (kj < T && (!a.causal || kj <= qpos[i]));
+        s[i][u] = keep ? s[i][u] * sl2 : kNegInf;
+        mx = fmaxf(mx, s[i][u]);
       }
 #pragma unroll
       for (int off = kTX / 2; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+      const float mn = fmaxf(m[i], mx);
+      const float alpha = ex2(m[i] - mn);
+      m[i] = mn;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        p_s[(r0 + i) * L::kPStride + tx + kTX * j] = p;
+      for (int u = 0; u < kTN; ++u) {
+        const float p = ex2(s[i][u] - mn);
+        p_s[(ty + TY * i) * C::kPStride + tx + kTX * u] = p;
         sum += p;
       }
-#pragma unroll
-      for (int off = kTX / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
       l[i] = alpha * l[i] + sum;
-      m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < kDC; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < DT; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();                 // K^T reads done, P complete
-
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const int kj = k0 + r;
-      kv_s[r * D + c] = kj < Tk ? v[kj * a.svs + c] : 0.f;
-    }
-    __syncthreads();
+    cp_wait_one();                   // V(t) landed (K(t + 1) may be in flight)
+    __syncthreads();                 // P complete
 
 #pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float vv[kDC];
+    for (int j = 0; j < kBK; j += 4) {
+      float4 pf[TM];
 #pragma unroll
-      for (int c = 0; c < kDC; ++c) vv[c] = kv_s[j * D + tx + kTX * c];
+      for (int i = 0; i < TM; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(p_s + (ty + TY * i) * C::kPStride + j);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = p_s[(r0 + i) * L::kPStride + j];
+      for (int u = 0; u < 4; ++u) {
+        float vv[DT];
+        lds_dims<DT>(vv, v_s + (j + u) * C::kStride, tx);
 #pragma unroll
-        for (int c = 0; c < kDC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        for (int i = 0; i < TM; ++i) {
+          const float p = comp(pf[i], u);
+#pragma unroll
+          for (int c = 0; c < DT; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        }
       }
     }
+    __syncthreads();                 // V(t) and P reads done
+    if (t + 1 < nt) load_tile(v_s, v, a.svs, k0 + kBK);
+    cp_commit();
   }
 
+  // the row sums over the half-warp; normalise and store
+  float* o = (float*)a.o;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + r0 + i;
+  for (int i = 0; i < TM; ++i) {
+    float lt = l[i];
+#pragma unroll
+    for (int off = kTX / 2; off > 0; off >>= 1)
+      lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    const int r = ty + TY * i, qi = qpos[i];
     if (qi >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = fmaxf(lt, 1e-30f);
+    float* orow = o + (((long long)b * S + qi) * a.H + h0 + r % heads) * D;
 #pragma unroll
-    for (int c = 0; c < kDC; ++c) o[qi * so + tx + kTX * c] = acc[i][c] / denom;
+    for (int c = 0; c < DT; ++c) orow[dim_of<DT>(tx, c)] = acc[i][c] / denom;
   }
 }
 
-template <int D>
-int launch(const Attn& a, int BH, void* stream) {
+template <int D, int TY, int TM>
+int launch_tile(const Attn& a, int hx, int heads, void* stream) {
+  using C = Cfg<D, TY, TM>;
   // above 48 KB a block's shared memory is granted only on request
   static bool granted = false;
   if (!granted) {
-    cudaError_t e = cudaFuncSetAttribute(simt_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(simt_kernel<D, TY, TM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)Smem<D>::kBytes);
+                                         (int)C::kBytes);
     if (e != cudaSuccess) return (int)e;
     granted = true;
   }
-  dim3 grid(BH, (a.S + kBQ - 1) / kBQ);
-  simt_kernel<D><<<grid, kThreads, Smem<D>::kBytes, (cudaStream_t)stream>>>(a);
+  const int bq = C::kRows / heads;
+  const int tiles = (a.S + bq - 1) / bq;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(hx, tiles);
+  simt_kernel<D, TY, TM><<<grid, C::kThreads, C::kBytes, (cudaStream_t)stream>>>(a, heads, bq);
   return (int)cudaGetLastError();
+}
+
+// rows: query rows a block (the large or the small tile's); heads: query
+// heads of a KV head a block takes (1, 2, 4 or 8, dividing H / K)
+template <int D>
+int launch(const Attn& a, int B, int K, int rows, int heads, void* stream) {
+  if ((heads != 1 && heads != 2 && heads != 4 && heads != 8) || a.G % heads)
+    return (int)cudaErrorInvalidValue;
+  const long long hx = (long long)B * K * (a.G / heads);
+  if (hx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (rows == kLargeTY * kLargeTM)
+    return launch_tile<D, kLargeTY, kLargeTM>(a, (int)hx, heads, stream);
+  if (rows == kSmallTY * kSmallTM)
+    return launch_tile<D, kSmallTY, kSmallTM>(a, (int)hx, heads, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int smem_bytes(int rows) {
+  return rows == kLargeTY * kLargeTM ? (int)Cfg<D, kLargeTY, kLargeTM>::kBytes
+                                     : (int)Cfg<D, kSmallTY, kSmallTM>::kBytes;
 }
 
 }  // namespace simt
@@ -638,24 +769,50 @@ int launch(const Attn& a, int B, int K, int BH, void* stream) {
 
 }  // namespace tc
 
-template <bool kTensorCores>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const long long* strides, int B, int H, int K, int S, int T, int d,
-           int causal, void* stream) {
+// q, k, v, o and the 9 strides as an Attn; false on shapes the kernels
+// do not take
+bool make_attn(Attn* a, const void* q, const void* k, const void* v, void* o,
+               const long long* strides, int B, int H, int K, int S, int T, int d,
+               int causal) {
+  if (T <= 0 || H <= 0 || K <= 0 || H % K != 0 || (long long)B * H > 0x7fffffffLL)
+    return false;
+  *a = Attn{q, k, v, o,
+            strides[0], strides[1], strides[2], strides[3], strides[4],
+            strides[5], strides[6], strides[7], strides[8],
+            H, H / K, S, T, (float)(1.0 / sqrt((double)d)), causal};
+  return true;
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                const long long* strides, int B, int H, int K, int S, int T, int d,
+                int causal, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (T <= 0 || H <= 0 || K <= 0 || H % K != 0 ||
-      (long long)B * H > 0x7fffffffLL || (S + 63) / 64 > 65535)
+  Attn a;
+  if (!make_attn(&a, q, k, v, o, strides, B, H, K, S, T, d, causal) ||
+      (S + tc::kBQ - 1) / tc::kBQ > 65535)
     return (int)cudaErrorInvalidValue;
-  Attn a{q, k, v, o,
-         strides[0], strides[1], strides[2], strides[3], strides[4],
-         strides[5], strides[6], strides[7], strides[8],
-         H, H / K, S, T, (float)(1.0 / sqrt((double)d)), causal};
   const int BH = B * H;
   switch (d) {
-    case 16: return kTensorCores ? tc::launch<16>(a, B, K, BH, stream) : simt::launch<16>(a, BH, stream);
-    case 32: return kTensorCores ? tc::launch<32>(a, B, K, BH, stream) : simt::launch<32>(a, BH, stream);
-    case 64: return kTensorCores ? tc::launch<64>(a, B, K, BH, stream) : simt::launch<64>(a, BH, stream);
-    case 128: return kTensorCores ? tc::launch<128>(a, B, K, BH, stream) : simt::launch<128>(a, BH, stream);
+    case 16: return tc::launch<16>(a, B, K, BH, stream);
+    case 32: return tc::launch<32>(a, B, K, BH, stream);
+    case 64: return tc::launch<64>(a, B, K, BH, stream);
+    case 128: return tc::launch<128>(a, B, K, BH, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const long long* strides, int B, int H, int K, int S, int T, int d,
+               int causal, int rows, int heads, void* stream) {
+  if (B <= 0 || S <= 0) return 0;
+  Attn a;
+  if (!make_attn(&a, q, k, v, o, strides, B, H, K, S, T, d, causal))
+    return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 16: return simt::launch<16>(a, B, K, rows, heads, stream);
+    case 32: return simt::launch<32>(a, B, K, rows, heads, stream);
+    case 64: return simt::launch<64>(a, B, K, rows, heads, stream);
+    case 128: return simt::launch<128>(a, B, K, rows, heads, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -664,28 +821,31 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 // q (B, S, H, d), k and v (B, T, K, d) with `strides` = the batch, row and
 // head strides of q, k, v in elements (9 values); o (B, S, H, d) contiguous.
+// f32: `rows` (128 or 32) and `heads` (1, 2, 4 or 8) pick the block's tile
+// (flash_attention.f32_tile).
 REPRO_EXPORT int flash_attention_f32(const void* q, const void* k, const void* v,
                                      void* o, const long long* strides, int B,
                                      int H, int K, int S, int T, int d, int causal,
-                                     void* stream) {
-  return launch<false>(q, k, v, o, strides, B, H, K, S, T, d, causal, stream);
+                                     int rows, int heads, void* stream) {
+  return launch_f32(q, k, v, o, strides, B, H, K, S, T, d, causal, rows, heads,
+                    stream);
 }
 
 REPRO_EXPORT int flash_attention_bf16(const void* q, const void* k, const void* v,
                                       void* o, const long long* strides, int B,
                                       int H, int K, int S, int T, int d, int causal,
                                       void* stream) {
-  return launch<true>(q, k, v, o, strides, B, H, K, S, T, d, causal, stream);
+  return launch_bf16(q, k, v, o, strides, B, H, K, S, T, d, causal, stream);
 }
 
 // dynamic shared memory of the kernel for head dim d (tensor_cores: the
-// bf16 kernel, else the f32 one), for reports
-REPRO_EXPORT int flash_attention_smem(int d, int tensor_cores) {
+// bf16 kernel, else the f32 one with `rows` query rows a block), for reports
+REPRO_EXPORT int flash_attention_smem(int d, int tensor_cores, int rows) {
   switch (d) {
-    case 16: return tensor_cores ? tc::Cfg<16>::kSmem : (int)simt::Smem<16>::kBytes;
-    case 32: return tensor_cores ? tc::Cfg<32>::kSmem : (int)simt::Smem<32>::kBytes;
-    case 64: return tensor_cores ? tc::Cfg<64>::kSmem : (int)simt::Smem<64>::kBytes;
-    case 128: return tensor_cores ? tc::Cfg<128>::kSmem : (int)simt::Smem<128>::kBytes;
+    case 16: return tensor_cores ? tc::Cfg<16>::kSmem : simt::smem_bytes<16>(rows);
+    case 32: return tensor_cores ? tc::Cfg<32>::kSmem : simt::smem_bytes<32>(rows);
+    case 64: return tensor_cores ? tc::Cfg<64>::kSmem : simt::smem_bytes<64>(rows);
+    case 128: return tensor_cores ? tc::Cfg<128>::kSmem : simt::smem_bytes<128>(rows);
     default: return -1;
   }
 }

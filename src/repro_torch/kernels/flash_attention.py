@@ -8,7 +8,10 @@ reference's (BH, S, d) form, the case B = BH, H = K = 1.  On a CUDA tensor
 they launch a hand-written Hopper kernel or raise: bf16 runs on the tensor
 cores (``wgmma``, K/V tiles by TMA into a warp-specialised pipeline; p·v
 as two bf16 passes, p = hi + lo, so p keeps ~16 bits), f32 on the FMA
-pipes (all f32, no TF32).  On a CPU tensor they run
+pipes (all f32, no TF32): a block takes the query heads of one KV head that
+share its K/V tiles, loaded by ``cp.async`` into separate double-buffered K
+and single V buffers, register tiles fed by 128-bit shared loads, at 128 or
+32 query rows a block as :func:`f32_tile` picks.  On a CPU tensor they run
 the plain version ``ref.flash_attention_ref`` (p in f32; ``round_p=True``
 rounds p to bf16 once, as the reference model's jnp attention does).  Bound:
 operations — 4·B·H·S·T·d flops (about halved by the causal mask at S = T)
@@ -28,6 +31,25 @@ from . import ref as _ref
 LAUNCHES = {"flash_attention": 0, "flash_attention_f32": 0}
 #: head dims the kernels are built for
 HEAD_DIMS = (16, 32, 64, 128)
+#: query rows a bf16 block takes (the grid's query tiles must fit 65535)
+BF16_ROWS = 128
+
+
+def f32_tile(B: int, H: int, K: int, S: int, sms: int) -> tuple:
+    """(rows, heads) of the f32 kernel's block for q (B, S, H, ·) and K KV
+    heads on a card of ``sms`` streaming multiprocessors: the block takes
+    ``heads`` query heads of one KV head (the largest of 8, 4, 2, 1
+    dividing H/K, so each K/V tile it loads serves all of them) at
+    rows/heads query positions.  128 rows when that grid still fills the
+    SMs twice over, else 32 rows, so a small batch covers the card (B 2 ×
+    32 heads at S 128 on 132 SMs: 256 blocks of 32 rows, not 64 of 128)."""
+    G = H // K
+    heads = next(c for c in (8, 4, 2, 1) if G % c == 0)
+
+    def blocks(rows):
+        return B * K * (G // heads) * -(-S // (rows // heads))
+
+    return (128 if blocks(128) >= 2 * sms else 32), heads
 
 
 def _plain(q, k, v, causal: bool) -> torch.Tensor:
@@ -86,10 +108,14 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{v.dtype} differ")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if T == 0 or -(-S // 64) > 65535:
-        raise ValueError(f"flash_attention: needs 1 <= T and S <= 4,194,240,"
-                         f" got T={T}, S={S}")
     tag = _build.cuda_dtype_tag(q.dtype, allowed=("f32", "bf16"))
+    tile = f32_tile(B, H, K, S, torch.cuda.get_device_properties(
+        q.device).multi_processor_count) if tag == "f32" else ()
+    span = tile[0] // tile[1] if tile else BF16_ROWS    # positions a block
+    if T == 0 or -(-S // span) > 65535:
+        raise ValueError(f"flash_attention: needs 1 <= T and S <= "
+                         f"{65535 * span:,} at {span} query positions a "
+                         f"block, got T={T}, S={S}")
     o = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
     if B == 0 or S == 0:
         return o
@@ -98,7 +124,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         for i in range(3)))
     fn = getattr(_build.lib(), f"flash_attention_{tag}")
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    strides, B, H, K, S, T, d, int(causal),
+                    strides, B, H, K, S, T, d, int(causal), *tile,
                     _build.stream_ptr(q)), "flash_attention")
     LAUNCHES["flash_attention" if tag == "bf16" else
              "flash_attention_f32"] += 1

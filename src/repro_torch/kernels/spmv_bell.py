@@ -13,10 +13,13 @@ CPU tensor it runs the plain version ``ref.sell_matvec_ref``.  Bound: bytes
 
 Lanes (the reference's ``jax.vmap`` of the kernel, written out), through
 one lane-batched kernel that reads each slot's column once for a chunk of
-16 lanes: :func:`bell_spmv_batched` (B value arrays on one pattern, times B
-right-hand sides or one) and :func:`bell_spmm` (one value array times k
-right-hand sides).  Lane b's sum keeps the single-vector kernel's order, so
-it equals :func:`bell_spmv` on lane b bit for bit.
+lanes and applies it to all of them: :func:`bell_spmv_batched` (B value
+arrays on one pattern, times B right-hand sides or one) and
+:func:`bell_spmm` (one value array times k right-hand sides).  The chunk
+size is a compile-time accumulator count (1, 2, 4 or 8);
+:func:`lane_chunks` splits B into such chunks, all run by one launch.  Lane
+b's sum keeps the single-vector kernel's order, so it equals
+:func:`bell_spmv` on lane b bit for bit.
 """
 from __future__ import annotations
 
@@ -61,6 +64,21 @@ def bell_spmv(sell: SellLayout, vals: torch.Tensor, x: torch.Tensor,
     return y
 
 
+#: lanes a thread of the lane kernel carries: its compile-time chunk sizes
+LANE_CHUNKS = (8, 4, 2, 1)
+
+
+def lane_chunks(lanes: int) -> list:
+    """The chunks the lane kernel splits ``lanes`` lanes into, as (chunk
+    size, chunks) pairs, largest first: as many 8-lane chunks as fit, then
+    one chunk per binary digit of the rest (20 → 2 × 8 + 4; 15 → 8 + 4 + 2
+    + 1), so no thread carries an accumulator it does not use.  One launch
+    runs them all; it is built for the first size and derives the rest."""
+    full, rest = divmod(lanes, LANE_CHUNKS[0])
+    out = [(LANE_CHUNKS[0], full)] if full else []
+    return out + [(c, 1) for c in LANE_CHUNKS[1:] if rest & c]
+
+
 def _launch_lanes(name, sell, vals, x, n, lanes, val_stride, x_stride):
     if x.device.type != "cuda" or vals.device != x.device \
             or sell.cols.device != x.device:
@@ -78,10 +96,12 @@ def _launch_lanes(name, sell, vals, x, n, lanes, val_stride, x_stride):
     x = x.contiguous()
     y = x.new_empty(lanes, n)
     fn = getattr(_build.lib(), f"bell_spmv_lanes_{tag}")
-    _build.check(fn(sell.slice_ptr.data_ptr(), sell.cols.data_ptr(),
-                    vals.data_ptr(), x.data_ptr(), y.data_ptr(), n, lanes,
-                    val_stride, x_stride, _build.stream_ptr(x)), name)
-    LAUNCHES[name] += 1
+    if lanes and n:                     # else the kernel has nothing to do
+        _build.check(fn(sell.slice_ptr.data_ptr(), sell.cols.data_ptr(),
+                        vals.data_ptr(), x.data_ptr(), y.data_ptr(), n, lanes,
+                        lane_chunks(lanes)[0][0], val_stride, x_stride,
+                        _build.stream_ptr(x)), name)
+        LAUNCHES[name] += 1
     return y
 
 
@@ -106,8 +126,9 @@ def bell_spmv_batched(sell: SellLayout, vals: torch.Tensor, x: torch.Tensor,
 def bell_spmm(sell: SellLayout, vals: torch.Tensor, X: torch.Tensor,
               n: int) -> torch.Tensor:
     """Y[j] = A @ X[j] for k right-hand sides: ``vals`` (n_slots,), ``X``
-    (k, m).  Returns (k, n).  Each value and column is read once and
-    applied to every right-hand side of a 16-lane chunk."""
+    (k, m).  Returns (k, n).  Each value and column is read once for a
+    chunk of right-hand sides (:func:`lane_chunks`) and applied to each of
+    them; one launch for all k."""
     if vals.dim() != 1 or X.dim() != 2:
         raise ValueError(f"bell_spmm: values {tuple(vals.shape)} / X "
                          f"{tuple(X.shape)}")

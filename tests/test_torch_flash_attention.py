@@ -212,3 +212,24 @@ def test_gqa_form_matches_expanded_form(K, causal):
     want = flash_attention(heads(q), heads(k), heads(v), causal=causal)
     assert_close(got, want.reshape(B, H, S, d).transpose(1, 2), rtol=0,
                  atol=0)
+
+
+def test_f32_tile_rule():
+    """The f32 kernel's block: query heads of one KV head that share its
+    K/V tiles (the largest of 8, 4, 2, 1 dividing H/K), 128 rows where that
+    grid fills the 132 SMs twice over, else 32."""
+    from repro_torch.kernels.flash_attention import f32_tile
+    sms = 132                                          # an H100 SXM
+    assert f32_tile(2, 32, 8, 128, sms) == (32, 4)     # the f32 check's call
+    assert f32_tile(4, 32, 8, 4096, sms) == (128, 4)   # the prefill shape
+    assert f32_tile(64, 1, 1, 2048, sms) == (128, 1)   # (BH, S, d) form
+    assert f32_tile(2, 1, 1, 128, sms) == (32, 1)
+    assert f32_tile(2, 1, 1, 128, 1) == (128, 1)       # a one-SM card
+    assert [f32_tile(1, G, 1, 64, sms)[1]
+            for G in (1, 2, 3, 4, 6, 8, 12, 16)] == [1, 2, 1, 4, 2, 8, 4, 8]
+    for B, H, K, S in [(1, 8, 8, 1), (3, 6, 3, 64), (8, 16, 2, 257),
+                       (90, 2, 1, 140), (1, 32, 8, 100000)]:
+        rows, heads = f32_tile(B, H, K, S, sms)
+        assert (H // K) % heads == 0 and rows % heads == 0
+        big = B * K * (H // K // heads) * -(-S // (128 // heads))
+        assert rows == (128 if big >= 2 * sms else 32)

@@ -318,6 +318,49 @@ def test_gqa_kernel_matches_plain_on_card(cuda_device, dtype, K):
     assert bool(((out.float() - want).abs() <= rtol * want.abs() + atol).all())
 
 
+#: (B, S, T, H, K, d, causal) for the f32 kernel: G = H/K in {1, 2, 4, 8},
+#: S from 1 to past the large tile, S < T and S > T; ``f32_tile`` picks the
+#: 32-row tile for the first six and the 128-row tile for the last four
+F32_CASES = [(1, 1, 1, 8, 8, 64, True), (2, 37, 37, 8, 4, 16, True),
+             (1, 130, 70, 8, 1, 32, True), (2, 45, 300, 4, 1, 128, False),
+             (1, 129, 129, 16, 2, 64, False), (3, 64, 200, 6, 3, 32, True),
+             (4, 300, 300, 32, 8, 64, True), (24, 200, 333, 8, 8, 16, True),
+             (8, 257, 129, 16, 2, 32, True), (90, 140, 140, 2, 1, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(F32_CASES)))
+def test_f32_flash_tiles_match_plain_on_card(cuda_device, case):
+    """The f32 kernel at both of its tiles, q sliced out of a fused
+    projection (k and v too where S = T), against the plain version on the
+    expanded heads: |o − plain| <= 2e-5·(1 + |plain|) elementwise."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import f32_tile
+    B, S, T, H, K, d, causal = F32_CASES[case]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert f32_tile(B, H, K, S, sms)[0] == (32 if case < 6 else 128)
+    rng = np.random.default_rng(case)
+    f = lambda *shape: torch.tensor(rng.normal(size=shape),
+                                    dtype=torch.float32, device=cuda_device)
+    qkv = f(B, S, H + 2 * K, d)
+    q = qkv[:, :, :H]
+    k, v = ((qkv[:, :, H:H + K], qkv[:, :, H + K:]) if S == T else
+            (f(B, T, K, d), f(B, T, K, d)))
+    kernels.reset_launch_counts()
+    out = flash_attention_gqa(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_f32"] == 1
+
+    def heads(t):
+        t = t.repeat_interleave(H // t.shape[2], dim=2)
+        return t.permute(0, 2, 1, 3).reshape(B * H, t.shape[1], d)
+
+    want = tref.flash_attention_ref(heads(q), heads(k), heads(v),
+                                    causal=causal)
+    want = want.reshape(B, H, S, d).transpose(1, 2)
+    assert bool(((out - want).abs() <= 2e-5 * (1 + want.abs())).all())
+
+
 # ---------------------------------------------------------------------------
 # the preconditioned Krylov path: the MG smoother on the stencil kernel, the
 # AMG V-cycle, GMRES — each on the card against the CPU port (plain
@@ -605,7 +648,7 @@ def test_cuda_bell_lanes_match_plain_and_single(cuda_device, dtype):
     """Batched values (x batched or shared) and SpMM: each against the
     lane-by-lane plain version, each lane bit-equal to ``bell_spmv`` on
     that lane, one lane equal to the single-vector entry point.  20 and 17
-    lanes cross the kernel's 16-lane chunks."""
+    lanes cross the kernel's 8-lane chunks."""
     from repro_torch.kernels.spmv_bell import (bell_spmm, bell_spmv,
                                                bell_spmv_batched)
     n, m = 300, 250
@@ -637,6 +680,66 @@ def test_cuda_bell_lanes_match_plain_and_single(cuda_device, dtype):
         assert_close(Y, plain, **tl)
     Y1 = bell_spmv_batched(sell, packed[:1], X[:1], n)
     assert _bitwise(Y1[0], bell_spmv(sell, packed[0], X[0], n))
+
+
+def _ragged_pattern(n=997, m=1013, seed=7):
+    """(row, col) of n rows (not a multiple of 32) of very different
+    widths: mostly 1–3 entries, every 37th row 10–39, row 5 300 entries,
+    rows 17 and n − 1 empty."""
+    rng = np.random.default_rng(seed)
+    widths = rng.integers(1, 4, n)
+    widths[::37] = rng.integers(10, 40, len(widths[::37]))
+    widths[5], widths[17], widths[-1] = 300, 0, 0
+    row = np.repeat(np.arange(n), widths).astype(np.int32)
+    col = np.concatenate([rng.choice(m, w, replace=False)
+                          for w in widths]).astype(np.int32)
+    return row, col
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["values", "shared x", "spmm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_lane_kernel_every_chunk_split(cuda_device, dtype, layout):
+    """B = 1 .. 33 lanes: every split into 8-, 4-, 2- and 1-lane chunks and
+    both sides of each chunk edge, on a ragged pattern.  Each
+    lane equals ``bell_spmv`` on that lane bit for bit; all lanes are
+    within the kernel tolerance of the plain version, elementwise against
+    the scale of |values|·|x|.  Every split is ONE launch."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.spmv_bell import (bell_spmm, bell_spmv,
+                                               bell_spmv_batched, lane_chunks)
+    n, m = 997, 1013
+    row, col = _ragged_pattern(n, m)
+    sell = bell_to_device(build_bell(row, col, (n, m)), cuda_device).sell
+    rng = np.random.default_rng(11)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=cuda_device)
+    V = tops.sell_assemble(sell, t(rng.normal(size=(33, len(row)))))
+    X = t(rng.normal(size=(33, m)))
+    tl = tol(np.float32 if dtype == torch.float32 else np.float64)
+    sizes = set()
+    for B in range(1, 34):
+        if layout == "values":
+            vv, xx, fn = V[:B], X[:B], bell_spmv_batched
+        elif layout == "shared x":
+            vv, xx, fn = V[:B], X[0], bell_spmv_batched
+        else:
+            vv, xx, fn = V[0], X[:B], bell_spmm
+        reset_launch_counts()
+        Y = fn(sell, vv, xx, n)
+        assert Y.shape == (B, n)
+        assert sum(launch_counts().values()) == 1, B
+        for b in range(B):
+            single = bell_spmv(sell, vv[b] if vv.dim() == 2 else vv,
+                               xx[b] if xx.dim() == 2 else xx, n)
+            assert _bitwise(Y[b], single), (B, b)
+        plain = tref.sell_matvec_lanes_ref(sell.slice_ptr, sell.cols, vv,
+                                           xx, n)
+        scale = tref.sell_matvec_lanes_ref(sell.slice_ptr, sell.cols,
+                                           vv.abs(), xx.abs(), n)
+        assert bool(((Y - plain).abs()
+                     <= tl["rtol"] * scale + tl["atol"]).all()), B
+        sizes.update(c for c, _ in lane_chunks(B))
+    assert sizes == {1, 2, 4, 8}
 
 
 @pytest.mark.cuda

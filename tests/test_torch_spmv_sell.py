@@ -191,3 +191,21 @@ def test_pallas_solve_builds_no_tiles_on_cpu(monkeypatch, symmetric):
     assert stats_t == stats_r
     for a, b in zip(g_t, g_r):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-9)
+
+
+def test_lane_chunks_split_every_batch_into_kernel_chunks():
+    """The lane kernel's launch plan: chunk sizes it is built for, largest
+    first, covering B exactly (8s, then the binary digits of the rest)."""
+    from repro_torch.kernels.spmv_bell import LANE_CHUNKS, lane_chunks
+    assert lane_chunks(0) == []
+    assert lane_chunks(8) == [(8, 1)]
+    assert lane_chunks(20) == [(8, 2), (4, 1)]
+    assert lane_chunks(33) == [(8, 4), (1, 1)]
+    assert lane_chunks(15) == [(8, 1), (4, 1), (2, 1), (1, 1)]
+    for B in range(1, 100):
+        plan = lane_chunks(B)
+        sizes = [c for c, _ in plan]
+        assert set(sizes) <= set(LANE_CHUNKS)
+        assert sizes == sorted(set(sizes), reverse=True)
+        assert sum(c * k for c, k in plan) == B
+        assert all(k == 1 for c, k in plan if c < 8)
