@@ -175,7 +175,32 @@ What it does, in order:
     (the AMG and ILU lanes with random conductances, so that no lane is a
     multiple of another), per-lane iterations equal to the single
     solves', ms an iteration for the lanes against one;
-16. on-card tests: ``python -m pytest --noconftest -p no:cacheprovider -q
+16. distributed path: ``DSparseTensor`` over a one-rank NCCL process
+    group (every all-reduce and all-gather through NCCL; a failed
+    initialisation fails the run), P shards on the one card, the local
+    product one ``bell_spmv`` launch for the rank's shards, the per-shard
+    dots one lane-batched ``fused_dots2`` launch:
+    16a. ``poisson2d(4000)`` (16M unknowns, paper Table 3's top rung), P =
+    4, Jacobi CG and pipelined CG at paper Table 4's fixed budget of 1,000
+    iterations (tol 0), after a 16-iteration warm-up (NCCL's set-up): ms
+    an iteration, halo bytes an iteration, peak device memory and the
+    bytes held a shard, the residual after the budget (the true one equal
+    to the recurrence's within 1e-6), a traced 16-iteration window of each
+    method (device time, busy share, top kernels), and the first 100
+    iterations against the same run inside ``plain_kernels`` (1e-9);
+    16b. ``poisson2d(1024)``, P = 4, Jacobi CG to tol 1e-10 with
+    ∂Σx²/∂val, x and the gradient against the single-device solve (CG +
+    Jacobi, plain loop) within 1e-8; the wall of the solve + grad and the
+    ``PLAN_STATS`` of a 3-tolerance sweep plus the backward (one analyze);
+    16c. the transposed paths' drift operator (ng 256), BiCGStab with its
+    Aᵀ-partition gradient, against the single-device BiCGStab (1e-6);
+    16d. Jacobi, ``schwarz`` and ``schwarz2`` for P ∈ {2, 4, 8}:
+    iterations to tol 1e-8 at ``poisson2d(64)`` (Schwarz below Jacobi;
+    two-level below one-level at P = 8), the setup time and one apply's ms
+    at ``poisson2d(256)`` (a Schwarz solve there would take ~50 s: ~250
+    iterations of a ~200 ms apply, ILU(0)'s Python step loop);
+    16e. ``eigsh(k=4)`` at ``poisson2d(64)`` against the closed form (1e-8);
+17. on-card tests: ``python -m pytest --noconftest -p no:cacheprovider -q
     tests/test_torch_on_card.py`` (``PYTHONPATH=src``), every hand-written
     kernel against its plain version over the tests' shape sweeps; fails
     on any failure or skip, or on no pass;
@@ -247,6 +272,24 @@ TOL_CG_REF = 1e-12                   # the CG run the direct gradient meets
 TOL_DENSE = 1e-8                     # LU / saddle vs torch.linalg, relative
 MAXITER = 30000
 SEED = 0
+NG_DIST = 4000                       # 16a: paper Table 3's "16M" rung
+DIST_P = 4                           # 16: shards of the one rank
+DIST_ITERS = 1000                    # 16a: paper Table 4's fixed budget
+DIST_PLAIN_ITERS = 100               # 16a: iterations held to the plain run
+TOL_DIST_PLAIN = 1e-9                # their x, relative
+TOL_DIST_DRIFT = 1e-6                # 16a: true vs recursive residual
+DIST_TRACE_ITERS = 16                # 16a: the traced window
+NG_DIST_GRAD = 1024                  # 16b: solve + grad
+TOL_DIST = 1e-10                     # 16b: its tolerance
+DIST_SWEEP = (1e-6, 1e-8, 1e-10)     # 16b: the tolerance sweep
+TOL_DIST_GRAD = 1e-8                 # 16b: x and gradient vs single device
+TOL_DIST_NONSYM = 1e-6               # 16c: the same, non-symmetric
+NG_DIST_SCHWARZ = 256                # 16d: setup and apply timed
+NG_DIST_SCHWARZ_ITERS = 64           # 16d: iterations counted
+DIST_SCHWARZ_P = (2, 4, 8)
+NG_DIST_EIG = 64                     # 16e
+DIST_EIG_K = 4
+DIST_EIG_MAXITER = 2000
 # phases 11a–11c, the preconditioned Krylov path: MG on the stencil path's
 # operator (NG_STENCIL), AMG on the block-ELL path's (NG_BELL) and on an
 # unstructured graph Laplacian of the same order of n, GMRES on the
@@ -4148,6 +4191,407 @@ def batch_phase(dev, seed, out, direct_A):
     return kres, total
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the distributed layer on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+def _dist_group():
+    """A one-rank NCCL process group over a file store in the output
+    directory (no network port).  A failed initialisation raises."""
+    import torch
+    import torch.distributed as dist
+    path = os.path.join(OUT, "dist_store")
+    if os.path.exists(path):
+        os.remove(path)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(path, 1), rank=0,
+                            world_size=1)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "distributed: one-rank NCCL process group")
+    return dist.group.WORLD
+
+
+def _take(acc):
+    """Add the launches counted since the last reset into ``acc``; reset."""
+    launches, _ = _counts()
+    for k, v in launches.items():
+        acc[k] = acc.get(k, 0) + v
+    _counts_reset()
+
+
+def _entry_order(D, row, col, n):
+    """For every global COO entry (row, col), its position in the stacked
+    storage of ``D`` flattened (the single-device gradient's order)."""
+    from repro_torch.core.distributed import global_entries, partition_simple
+    m = D.meta
+    rg, cg, fa = global_entries(D.row, D.col, m,
+                                partition_simple(m.n, m.p))
+    kd = rg * n + cg
+    ks = np.asarray(row, np.int64) * n + np.asarray(col, np.int64)
+    od, os_ = np.argsort(kd), np.argsort(ks)
+    check(np.array_equal(kd[od], ks[os_]), "distributed: the stacked "
+          "pattern holds every global entry once")
+    pos = np.empty(len(ks), np.int64)
+    pos[os_] = fa[od]
+    return pos
+
+
+def _dist_full_width(dev, mesh, acc, out):
+    """(a) poisson2d(4000), P = 4, Jacobi CG and pipelined CG at the paper's
+    fixed 1,000-iteration budget (tol 0)."""
+    import torch
+    from repro_torch.core.distributed import DSparseTensor
+    from repro_torch.data.poisson import poisson2d_arrays
+    ng, p = NG_DIST, DIST_P
+    n = ng * ng
+    t0 = time.perf_counter()
+    v, r, c = poisson2d_arrays(ng)
+    _sync(dev)
+    _peak_reset(dev)
+    base = torch.cuda.memory_allocated()
+    D = DSparseTensor.from_global(v, r, c, (n, n), mesh, symmetric=True)
+    del v, r, c
+    t1 = time.perf_counter()
+    bs = D.stack_vector(torch.ones(n, dtype=torch.float64, device=dev))
+    cfg = dict(tol=0.0, maxiter=DIST_ITERS, precond="jacobi")
+    plan = D.plan(**cfg)
+    plan.setup(D)
+    _sync(dev)
+    t2 = time.perf_counter()
+    held = torch.cuda.memory_allocated() - base
+    m = D.meta
+    say(f"  (a) poisson2d({ng}) (n={n}, nnz={sum(m.shard_nnz)}) P={p}: "
+        f"from_global {t1 - t0:.2f} s, analyze + setup {t2 - t1:.2f} s; "
+        f"n_loc={m.n_loc} h_lo={m.h_lo} h_hi={m.h_hi} "
+        f"nnz_loc={m.nnz_loc}; device bytes held {held / 1e9:.3f} GB "
+        f"({held / p / 1e9:.3f} GB a shard)")
+    methods = (("cg", {}), ("pipelined_cg", dict(pipelined=True)))
+    window = dict(cfg, maxiter=DIST_TRACE_ITERS)
+    t = time.perf_counter()
+    for _, kw in methods:       # the first collective sets NCCL up
+        D.solve_with_info(bs, **window, **kw)
+    _sync(dev)
+    say(f"  (a) warm-up ({DIST_TRACE_ITERS} iterations of each method, "
+        f"NCCL's set-up included): {time.perf_counter() - t:.2f} s")
+    _counts_reset()
+    res = {}
+    for name, kw in methods:
+        _sync(dev)
+        t = time.perf_counter()
+        x, info = D.solve_with_info(bs, **cfg, **kw)
+        _sync(dev)
+        dt = time.perf_counter() - t
+        with torch.no_grad():
+            rr = D.gather_global(bs - D.matvec(x))
+            relres = float(rr.norm() / math.sqrt(n))
+        rec = float(info.resnorm) / math.sqrt(n)
+        drift = abs(relres - rec) / max(relres, rec, 1e-300)
+        res[name] = dict(iterations=int(info.iters), seconds=dt,
+                         ms_per_iteration=dt / DIST_ITERS * 1e3,
+                         true_residual=relres, recursive_residual=rec)
+        say(f"  (a) {name}: {int(info.iters)} iterations in {dt:.3f} s = "
+            f"{dt / DIST_ITERS * 1e3:.4f} ms an iteration; relative "
+            f"residual after the budget {relres:.6e} (the recurrence's "
+            f"{rec:.6e})")
+        # CG minimizes the error's A-norm, not the residual: at κ ≈ 6.5e6
+        # ‖r‖ may exceed ‖b‖ after 1,000 iterations; the recurrence must
+        # not drift from the true residual
+        check(int(info.iters) == DIST_ITERS and math.isfinite(relres)
+              and drift <= TOL_DIST_DRIFT, f"distributed (a) {name}: the "
+              f"full budget ran, true and recursive residuals agree "
+              f"({drift:.2e} <= {TOL_DIST_DRIFT:.0e})")
+    _take(acc)
+    peak = _peak(dev)
+    # where an iteration's time goes: DIST_TRACE_ITERS iterations timed,
+    # then the same window traced
+    out["trace"] = {}
+    for name, kw in methods:
+        _sync(dev)
+        t = time.perf_counter()
+        D.solve_with_info(bs, **window, **kw)
+        _sync(dev)
+        wall_w = (time.perf_counter() - t) * 1e3
+        cnt, dev_ms, top = _kernel_breakdown(
+            lambda: D.solve_with_info(bs, **window, **kw),
+            os.path.join(OUT, f"dist_{name}_trace.json"))
+        _take(acc)
+        say(f"  (a) traced {name} window of {DIST_TRACE_ITERS} iterations: "
+            f"{wall_w:.2f} ms of wall untraced, {dev_ms:.2f} ms of device "
+            f"time in {cnt} device ops (busy {dev_ms / wall_w:.0%}); top: "
+            + "; ".join(f"{nm[:48]} {ms:.2f} ms ×{c}"
+                        for ms, c, nm in top[:8]))
+        out["trace"][name] = dict(iterations=DIST_TRACE_ITERS,
+                                  wall_ms=wall_w, device_ms=dev_ms,
+                                  device_ops=cnt, busy=dev_ms / wall_w,
+                                  top=top[:12])
+    # the first DIST_PLAIN_ITERS iterations on the kernels and on their
+    # plain versions
+    short = dict(cfg, maxiter=DIST_PLAIN_ITERS)
+    xk, _ = D.solve_with_info(bs, **short)
+    _take(acc)
+    with plain_kernels():
+        xp, _ = D.solve_with_info(bs, **short)
+    _sync(dev)
+    perr = _grad_rel(xk, xp)
+    halo = (p - 1) * (m.h_lo + m.h_hi) * 8
+    say(f"  (a) halo bytes an iteration: {halo} (one matvec: {p - 1} "
+        f"in-rank shard boundaries × {m.h_lo + m.h_hi} values; 0 across "
+        f"ranks on one rank); peak device memory {peak:.3f} GB; first "
+        f"{DIST_PLAIN_ITERS} iterations kernels vs plain: max rel diff "
+        f"{perr:.3e}")
+    check(perr <= TOL_DIST_PLAIN, f"distributed (a): {DIST_PLAIN_ITERS} "
+          f"iterations on the kernels match the plain run ({perr:.2e} <= "
+          f"{TOL_DIST_PLAIN:.0e})")
+    out.update(ng=ng, p=p, n=n, budget=DIST_ITERS, solves=res,
+               halo_bytes_per_iteration=halo, peak_gb=peak,
+               held_gb=held / 1e9, held_gb_per_shard=held / p / 1e9,
+               plain_rel_diff=perr, from_global_s=t1 - t0,
+               analyze_setup_s=t2 - t1)
+    del D, bs, plan, x, xk, xp
+
+
+def _dist_solve_grad(dev, mesh, acc, out):
+    """(b) poisson2d(1024), P = 4, Jacobi CG to tol 1e-10 with ∂Σx²/∂val,
+    against the port's single-device solve + gradient; PLAN_STATS of a
+    tolerance sweep."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.core.distributed import DSparseTensor
+    from repro_torch.core.sparse import SparseTensor
+    from repro_torch.data.poisson import poisson2d_arrays
+    ng, p, tol = NG_DIST_GRAD, DIST_P, TOL_DIST
+    n = ng * ng
+    v, r, c = poisson2d_arrays(ng)
+    D = DSparseTensor.from_global(v, r, c, (n, n), mesh, symmetric=True)
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    bs = D.stack_vector(b)
+    _counts_reset()
+    sweep = {}
+    for t in DIST_SWEEP:
+        _, info = D.solve_with_info(bs, tol=t, maxiter=MAXITER)
+        sweep[t] = int(info.iters)
+    lv = D.lval.clone().requires_grad_(True)
+    _sync(dev)
+    t0 = time.perf_counter()
+    x = D.with_values(lv).solve(bs, tol=tol, maxiter=MAXITER)
+    (x * x).sum().backward()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    stats = _counts()[1]
+    _take(acc)
+    say(f"  (b) poisson2d({ng}) P={p}: tolerance sweep iterations "
+        f"{json.dumps(sweep)}; solve + grad at tol {tol:.0e}: {wall:.3f} s")
+    say(f"  (b) PLAN_STATS (sweep + solve + backward) "
+        f"{json.dumps({k: v for k, v in stats.items() if v})}")
+    A = SparseTensor(v, r, c, (n, n), props={"symmetric": True,
+                                             "spd_hint": True}, device=dev)
+    val = A.val.clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    with sla.options(fused_step="off"):
+        xs = sla.solve(A.with_values(val), b, backend="jnp", method="cg",
+                       precond="jacobi", tol=tol, maxiter=MAXITER)
+        (xs * xs).sum().backward()
+    _sync(dev)
+    wall_s = time.perf_counter() - t0
+    xerr = _grad_rel(D.gather_global(x.detach()), xs.detach())
+    g = lv.grad.reshape(-1)[torch.as_tensor(_entry_order(D, r, c, n),
+                                            device=dev)]
+    gerr = _grad_rel(g, val.grad)
+    say(f"  (b) single-device solve + grad {wall_s:.3f} s; x max rel diff "
+        f"{xerr:.3e}, val-gradient max rel diff {gerr:.3e}")
+    check(xerr <= TOL_DIST_GRAD and gerr <= TOL_DIST_GRAD,
+          f"distributed (b): x and ∂Σx²/∂val match the single-device solve "
+          f"({xerr:.2e}, {gerr:.2e} <= {TOL_DIST_GRAD:.0e})")
+    check(stats["analyze"] == 1 and stats["transpose_shared"] == 1
+          and stats["setup_reuse"] >= len(DIST_SWEEP),
+          "distributed (b): one analyze across the sweep and the backward, "
+          "the setup memo reused, the adjoint on the same plan")
+    out.update(ng=ng, p=p, tol=tol, sweep_iterations=sweep,
+               solve_grad_s=wall, single_solve_grad_s=wall_s,
+               x_rel_diff=xerr, grad_rel_diff=gerr, plan_stats=stats)
+
+
+def _dist_nonsymmetric(dev, mesh, acc, out):
+    """(c) the transposed paths' drift operator (ng 256), BiCGStab, with its
+    Aᵀ-partition gradient, against the single-device BiCGStab."""
+    import torch
+    from repro_torch import sla
+    from repro_torch.core.distributed import DSparseTensor
+    from repro_torch.core.sparse import SparseTensor
+    from repro_torch.data.poisson import poisson2d_arrays
+    ng, p, tol = NG_TRANSPOSE, DIST_P, TOL_TRANSPOSE
+    n = ng * ng
+    v, r, c = poisson2d_arrays(ng)
+    v = v.copy()
+    v[c == r - 1] = -1.4
+    v[c == r + 1] = -0.6
+    D = DSparseTensor.from_global(v, r, c, (n, n), mesh, symmetric=False)
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    lv = D.lval.clone().requires_grad_(True)
+    _counts_reset()
+    t0 = time.perf_counter()
+    x = D.with_values(lv).solve(D.stack_vector(b), tol=tol, maxiter=MAXITER)
+    (x * x).sum().backward()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    stats = _counts()[1]
+    _take(acc)
+    props = {"symmetric": False, "spd_hint": False, "sorted_rows": False}
+    A = SparseTensor(v, r, c, (n, n), props=props, device=dev)
+    val = A.val.clone().requires_grad_(True)
+    with sla.options(fused_step="off"):
+        xs = sla.solve(A.with_values(val), b, backend="jnp",
+                       method="bicgstab", tol=tol, maxiter=MAXITER)
+        (xs * xs).sum().backward()
+    _sync(dev)
+    xerr = _grad_rel(D.gather_global(x.detach()), xs.detach())
+    g = lv.grad.reshape(-1)[torch.as_tensor(_entry_order(D, r, c, n),
+                                            device=dev)]
+    gerr = _grad_rel(g, val.grad)
+    say(f"  (c) drift poisson2d({ng}) P={p} BiCGStab: solve + grad "
+        f"{wall:.3f} s; x max rel diff {xerr:.3e}, val-gradient max rel "
+        f"diff {gerr:.3e} against the single-device BiCGStab; PLAN_STATS "
+        f"{json.dumps({k: v for k, v in stats.items() if v})}")
+    check(xerr <= TOL_DIST_NONSYM and gerr <= TOL_DIST_NONSYM,
+          f"distributed (c): x and the Aᵀ-partition gradient match "
+          f"({xerr:.2e}, {gerr:.2e} <= {TOL_DIST_NONSYM:.0e})")
+    check(stats["t_partition"] == 1 and stats["transpose_shared"] == 1,
+          "distributed (c): the Aᵀ partition built once, shared")
+    out.update(ng=ng, p=p, tol=tol, solve_grad_s=wall, x_rel_diff=xerr,
+               grad_rel_diff=gerr, plan_stats=stats)
+
+
+def _dist_schwarz(dev, group, acc, out):
+    """(d) Jacobi, schwarz and schwarz2 for P ∈ {2, 4, 8}: iterations to
+    tol 1e-8 at poisson2d(64), and the setup and one apply at
+    poisson2d(256).  (A Schwarz apply is ILU(0)'s scalar program, one
+    Python step per level: ~200 ms at 256, where CG needs ~250 iterations
+    — ~50 s a solve — so the counts are taken on the smaller grid.)"""
+    import torch
+    from repro_torch.core.distributed import (DSparseTensor, _halo_run,
+                                              _halo_run_t, make_mesh)
+    from repro_torch.data.poisson import poisson2d_arrays
+    res = {}
+    for ng, solve in ((NG_DIST_SCHWARZ_ITERS, True), (NG_DIST_SCHWARZ, False)):
+        n = ng * ng
+        v, r, c = poisson2d_arrays(ng)
+        b = torch.ones(n, dtype=torch.float64, device=dev)
+        for p in DIST_SCHWARZ_P:
+            mesh = make_mesh(p, group=group, device=dev)
+            D = DSparseTensor.from_global(v, r, c, (n, n), mesh,
+                                          symmetric=True)
+            bs = D.stack_vector(b)
+            row = res.setdefault(p, {})
+            for pc in ("jacobi", "schwarz", "schwarz2"):
+                w = row.setdefault(pc, {})
+                _counts_reset()
+                plan = D.plan(precond=pc, tol=TOL, maxiter=MAXITER)
+                if solve:
+                    _, info = D.solve_with_info(bs, precond=pc, tol=TOL,
+                                                maxiter=MAXITER)
+                    _take(acc)
+                    w.update(ng_iterations=ng, iterations=int(info.iters))
+                    check(bool(info.converged), f"distributed (d) "
+                          f"poisson2d({ng}) P={p} {pc} converged")
+                    continue
+                _sync(dev)
+                t = time.perf_counter()
+                _, pstate = plan.setup(D)
+                _sync(dev)
+                setup_s = time.perf_counter() - t
+                prog, op = plan.artifacts["halo"], plan.artifacts["local"]
+                M = plan.artifacts["precond"].local_closure(
+                    pstate, lambda z: _halo_run(prog, z),
+                    lambda z: _halo_run_t(prog, z),
+                    matvec=lambda z: op.apply(D.lval, None,
+                                              _halo_run(prog, z)))
+                apply_ms = wall_ms(lambda: M(bs), 3)
+                _take(acc)
+                w.update(ng_timed=ng, setup_s=setup_s, apply_ms=apply_ms)
+            if not solve:
+                say(f"  (d) P={p}: iterations at poisson2d("
+                    f"{NG_DIST_SCHWARZ_ITERS}) " + ", ".join(
+                        f"{k} {w['iterations']}" for k, w in row.items())
+                    + f"; at poisson2d({ng}) apply ms " + ", ".join(
+                        f"{k} {w['apply_ms']:.3f}" for k, w in row.items())
+                    + ", setup s " + ", ".join(
+                        f"{k} {w['setup_s']:.3f}" for k, w in row.items()))
+    for p, row in res.items():
+        check(row["schwarz"]["iterations"] < row["jacobi"]["iterations"],
+              f"distributed (d) P={p}: schwarz needs fewer iterations than "
+              f"Jacobi")
+    last = res[DIST_SCHWARZ_P[-1]]
+    check(last["schwarz2"]["iterations"] < last["schwarz"]["iterations"],
+          "distributed (d): two-level beats one-level Schwarz at the "
+          "largest P")
+    out.update(ng_iterations=NG_DIST_SCHWARZ_ITERS,
+               ng_timed=NG_DIST_SCHWARZ, rows=res)
+
+
+def _dist_eigen(dev, mesh, acc, out):
+    """(e) ``eigsh(k=4)`` on poisson2d(64) against the closed form."""
+    import torch
+    from repro_torch.core.distributed import DSparseTensor
+    from repro_torch.data.poisson import poisson2d_arrays
+    ng, k = NG_DIST_EIG, DIST_EIG_K
+    n = ng * ng
+    v, r, c = poisson2d_arrays(ng)
+    D = DSparseTensor.from_global(v, r, c, (n, n), mesh, symmetric=True)
+    _counts_reset()
+    t0 = time.perf_counter()
+    w, V = D.eigsh(k=k, tol=EIG_TOL, maxiter=DIST_EIG_MAXITER)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    _take(acc)
+    lam = np.sin(np.arange(1, ng + 1) * np.pi / (2 * (ng + 1))) ** 2 * 4
+    exact = np.sort((lam[:, None] + lam[None, :]).ravel())[:k]
+    werr = float(np.max(np.abs(w.cpu().numpy() - exact) / exact))
+    say(f"  (e) eigsh(k={k}) poisson2d({ng}) P={D.meta.p}: {wall:.3f} s; "
+        f"eigenvalues {np.array2string(w.cpu().numpy(), precision=10)}; "
+        f"max rel diff from the closed form {werr:.3e}")
+    check(V.shape == (D.mesh.p_loc, D.meta.n_loc, k)
+          and bool(torch.isfinite(V).all()), "distributed (e): finite "
+          "eigenvectors of shape (P_loc, n_loc, k)")
+    check(werr <= TOL_EIG, f"distributed (e): eigenvalues match the closed "
+          f"form ({werr:.2e} <= {TOL_EIG:.0e})")
+    out.update(ng=ng, k=k, seconds=wall, eigenvalues=w.tolist(),
+               rel_err=werr)
+
+
+def distributed_path(dev, seed, out):
+    """Phase 16: ``DSparseTensor`` over a one-rank NCCL group — (a) full
+    width, (b) solve + grad, (c) non-symmetric, (d) Schwarz, (e) eigen.
+    Only the distributed runs' launches are counted (the single-device
+    yardsticks and the plain runs are not)."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import make_mesh
+    del seed                       # the problems are deterministic
+    group = _dist_group()
+    acc = {}
+    res = {}
+    try:
+        mesh = make_mesh(DIST_P, group=group, device=dev)
+        for key, fn, arg in (("a_full_width", _dist_full_width, mesh),
+                             ("b_solve_grad", _dist_solve_grad, mesh),
+                             ("c_nonsymmetric", _dist_nonsymmetric, mesh),
+                             ("d_schwarz", _dist_schwarz, group),
+                             ("e_eigen", _dist_eigen, mesh)):
+            t = time.perf_counter()
+            res[key] = {}
+            fn(dev, arg, acc, res[key])
+            res[key]["phase_s"] = time.perf_counter() - t
+            say(f"  ({key}) {res[key]['phase_s']:.2f} s")
+    finally:
+        dist.destroy_process_group()
+    say(f"  launches {json.dumps({k: v for k, v in acc.items() if v})}")
+    for k in ("bell_spmv", "fused_dots2_batched"):
+        check(acc.get(k, 0) > 0, f"distributed path launched {k} "
+              f"({acc.get(k, 0)} times)")
+    res["launches"] = acc
+    out["distributed_path"] = res
+    return acc
+
+
 def on_card_tests(out):
     """``tests/test_torch_on_card.py`` under pytest in a child process on
     this card (``--noconftest``: the repo's conftest imports jax), its
@@ -4299,7 +4743,13 @@ def main():
                            serve=(SERVE_REQUESTS, SERVE_MAX_BATCH),
                            lanes_direct=LANES_DIRECT,
                            lanes_precond=LANES_PRECOND,
-                           ng_ilu_lanes=NG_ILU_LANES))
+                           ng_ilu_lanes=NG_ILU_LANES, ng_dist=NG_DIST,
+                           dist_p=DIST_P, dist_iters=DIST_ITERS,
+                           ng_dist_grad=NG_DIST_GRAD,
+                           ng_dist_schwarz=NG_DIST_SCHWARZ,
+                           ng_dist_schwarz_iters=NG_DIST_SCHWARZ_ITERS,
+                           dist_schwarz_p=DIST_SCHWARZ_P,
+                           ng_dist_eig=NG_DIST_EIG))
 
     phases = []
 
@@ -4369,6 +4819,9 @@ def main():
     del direct_A
     kres.update(bres)
     for k, v in blaunch.items():
+        path_launches[k] = path_launches.get(k, 0) + v
+    for k, v in phase("distributed path", distributed_path, dev, SEED,
+                      out).items():
         path_launches[k] = path_launches.get(k, 0) + v
     for k, v in path_launches.items():
         check(v > 0, f"{k} launched on the paths ({v} times)")

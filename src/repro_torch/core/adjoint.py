@@ -34,8 +34,8 @@ from . import solvers as _solvers
 from .dispatch import SolverConfig
 from .sparse import SparseTensor, sum_to_shape
 
-__all__ = ["sparse_solve", "sparse_solve_with_info", "sparse_slogdet",
-           "nonlinear_solve", "sparse_eigsh"]
+__all__ = ["sparse_solve", "sparse_solve_with_info", "dist_sparse_solve",
+           "sparse_slogdet", "nonlinear_solve", "sparse_eigsh"]
 
 #: right-hand sides per transposed multi-RHS solve in the slogdet backward
 SLOGDET_CHUNK = 256
@@ -90,6 +90,61 @@ def sparse_solve(cfg: SolverConfig, A: SparseTensor, b: torch.Tensor,
 def sparse_solve_with_info(cfg: SolverConfig, A: SparseTensor, b, x0=None):
     """Non-differentiable variant that also returns SolveInfo."""
     return _dispatch.solve_impl(cfg, A, b, x0)
+
+
+# ---------------------------------------------------------------------------
+# distributed linear solve (paper §3.3) — the same plan discipline on a mesh
+# ---------------------------------------------------------------------------
+
+class _DistSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lval, b, D, plan, cfg, x0):
+        x, _ = plan.solve(D.with_values(lval), b, x0, cfg=cfg)
+        ctx.D, ctx.plan, ctx.cfg = D, plan, cfg
+        # the values object itself: the backward's setup memo keys on it
+        ctx.lval, ctx.val_version = lval, lval._version
+        ctx.save_for_backward(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        from . import distributed as _dist
+        (x,) = ctx.saved_tensors
+        D, plan, cfg, lval = ctx.D, ctx.plan, ctx.cfg, ctx.lval
+        if lval._version != ctx.val_version:
+            raise RuntimeError(
+                "the values of a solved DSparseTensor were modified in "
+                "place before the backward pass")
+        tplan = plan.transpose()
+        g = g.contiguous()
+        if tplan is plan:
+            # symmetric: same plan, same values — the setup memo makes the
+            # adjoint preconditioner refresh a reuse
+            lam, _ = tplan.solve(D.with_values(lval), g, None,
+                                 cfg=tplan.adapt(cfg))
+        else:
+            At = _dist.transpose_view(tplan,
+                                      _dist.transpose_values(plan, lval))
+            lam, _ = tplan.solve(At, g, None, cfg=tplan.adapt(cfg))
+        gval = None
+        if ctx.needs_input_grad[0]:
+            gval = _dist.assemble_matrix_grad(plan, lam, x)
+        return gval, lam, None, None, None, None
+
+
+def dist_sparse_solve(cfg: SolverConfig, D, b: torch.Tensor,
+                      x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable ``DSparseTensor.solve`` through the plan engine.
+
+    The forward fetches (or analyzes once) the distributed plan.  The
+    backward solves Aᵀλ = g through ``plan.transpose()``: the SAME plan for
+    symmetric patterns (halo program, preconditioner and the per-values
+    setup reused), a shared-artifact sibling on the cached Aᵀ partition
+    otherwise, whose stacked Aᵀ values come from the forward values through
+    the plan's gather map.  The matrix gradient is the local O(nnz)
+    assembly −λ_i x_j with halo'd x; ∂L/∂b = λ."""
+    plan = _dispatch.get_plan(D, cfg)
+    return _DistSolve.apply(D.lval, b, D, plan, cfg, x0)
 
 
 # ---------------------------------------------------------------------------

@@ -54,7 +54,8 @@ import torch
 
 __all__ = [
     "DirectArtifacts", "symbolic_factor", "to_device", "numeric_factor",
-    "factored_solve", "factor_slogdet",
+    "factored_solve", "factor_slogdet", "SchwarzArtifacts",
+    "schwarz_symbolic", "schwarz_to_device", "schwarz_numeric",
 ]
 
 SN_MAX_W = 32            # supernode width cap (panel column count per bucket)
@@ -1452,3 +1453,87 @@ def factor_slogdet(art: DirectArtifacts, C: torch.Tensor
     det = a * e - C[sn.pair_off[:, 0]] * C[sn.pair_off[:, 1]]
     return (sign * torch.prod(torch.sign(det)),
             logabs + torch.sum(torch.log(det.abs())))
+
+
+# ---------------------------------------------------------------------------
+# shard-local factorization (the distributed plan engine's Schwarz stage)
+# ---------------------------------------------------------------------------
+
+class SchwarzArtifacts(NamedTuple):
+    """Product of :func:`schwarz_symbolic` — ONE union-pattern symbolic
+    factorization shared by every shard, plus the per-shard numeric assembly
+    programs, all values-free.  From :func:`schwarz_symbolic` the arrays are
+    numpy (array-equal to the reference's); :func:`schwarz_to_device` places
+    the rows of one rank's shards on its device."""
+    art: DirectArtifacts     # ILU(0)/IC(0) program on the union pattern
+    nnz_u: int               # union-pattern nonzeros
+    src: object              # (P, m) gather into flat values (+zero slot last)
+    dst: object              # (P, m) scatter into union slots (pads → nnz_u)
+    diag_fix: object         # (P, nnz_u) +1.0 on structurally-absent diagonals
+
+
+def schwarz_symbolic(entries, n_ext: int, n_src: int) -> SchwarzArtifacts:
+    """Analyze shard-local extended matrices for overlapping Schwarz.
+
+    ``entries[q]`` lists shard ``q``'s extended-domain matrix as
+    ``(rows, cols, srcs)`` — COO coordinates in ``[0, n_ext)`` plus the flat
+    index of each entry's value in the global value storage (length
+    ``n_src``; a trailing zero slot is appended at gather time).  The
+    extended matrices of all shards are unioned into ONE sparsity pattern,
+    so a single zero-fill (ILU(0)/IC(0)) step program serves every shard as
+    a lane: per-shard values are scattered into union slots, structurally
+    absent diagonals (phantom halos of edge shards, padded tail rows) are
+    completed with 1.0 identity pivots, and entries another shard has but
+    this one lacks stay numerically zero."""
+    p = len(entries)
+    keys = [r.astype(np.int64) * n_ext + c.astype(np.int64)
+            for r, c, _ in entries]
+    dkeys = np.arange(n_ext, dtype=np.int64) * (n_ext + 1)
+    ukeys = np.unique(np.concatenate(keys + [dkeys]))
+    nnz_u = int(ukeys.size)
+    urow = (ukeys // n_ext).astype(np.int64)
+    ucol = (ukeys % n_ext).astype(np.int64)
+
+    m = max(max((k.size for k in keys), default=1), 1)
+    src = np.full((p, m), n_src, dtype=np.int64)        # pads → zero slot
+    dst = np.full((p, m), nnz_u, dtype=np.int64)        # pads → dump slot
+    diag_fix = np.ones((p, nnz_u), dtype=np.float64)
+    dslot = np.searchsorted(ukeys, dkeys)
+    for q, (k, (_, _, s)) in enumerate(zip(keys, entries)):
+        slot = np.searchsorted(ukeys, k)
+        src[q, :k.size] = np.asarray(s, np.int64)
+        dst[q, :k.size] = slot
+        diag_fix[q] = 0.0
+        have = np.zeros(nnz_u, bool)
+        have[slot] = True
+        diag_fix[q, dslot[~have[dslot]]] = 1.0          # identity completion
+
+    art = symbolic_factor(urow, ucol, n_ext, incomplete=True)
+    return SchwarzArtifacts(art=art, nnz_u=nnz_u, src=src.astype(np.int32),
+                            dst=dst.astype(np.int32), diag_fix=diag_fix)
+
+
+def schwarz_to_device(sch: SchwarzArtifacts, device,
+                      shards: slice) -> SchwarzArtifacts:
+    """The artifacts for the shards ``shards`` (one rank's rows of the
+    stacks) with every array on ``device`` — once, at analyze time."""
+    return sch._replace(
+        art=to_device(sch.art, device),
+        src=_on(sch.src[shards], device), dst=_on(sch.dst[shards], device),
+        diag_fix=torch.as_tensor(sch.diag_fix[shards], device=device))
+
+
+def schwarz_numeric(sch: SchwarzArtifacts,
+                    flat_val: torch.Tensor) -> torch.Tensor:
+    """The numeric half on placed artifacts: assemble each placed shard's
+    extended matrix from the flat global values ``flat_val`` and factor the
+    shards as the lanes of ONE lane-stacked ILU(0)/IC(0) pass — ``(P_loc,
+    nnzF + 2)`` factors (the setup stage of ``precond='schwarz'``)."""
+    with torch.no_grad():
+        flat_val = flat_val.detach()
+        padded = torch.cat([flat_val, flat_val.new_zeros(1)])
+        lanes = sch.src.shape[0]
+        v = flat_val.new_zeros(lanes, sch.nnz_u + 1)
+        v.scatter_add_(1, sch.dst, padded[sch.src])
+        v = v[:, :-1] + sch.diag_fix.to(flat_val.dtype)
+        return numeric_factor(sch.art, v.contiguous())

@@ -659,6 +659,49 @@ class _StencilTransposeBackend(StencilBackend):
 _STENCIL_T = _StencilTransposeBackend()
 
 
+class DistBackend(Backend):
+    """Distributed mesh backend (paper §3.3) — ``DSparseTensor`` as a
+    first-class citizen of the plan engine.
+
+    ``analyze`` runs ONCE per (global pattern, P, partition) and freezes
+    the partition bounds, the halo program (neighbour ranks), the rank's
+    block-diagonal local operator (its sliced-ELL layout on the card), the
+    Aᵀ partition for non-symmetric adjoints (built on first use,
+    ``PLAN_STATS['t_partition']``) and a :class:`~repro_torch.core.precond.
+    DistPreconditionerPlan` (``jacobi``, ``schwarz``, ``schwarz2``).
+    ``setup`` packs the values for the local kernel and refreshes the
+    preconditioner, memoized per values tensor; ``solve`` is the Krylov
+    loop with all-reduced dots.  The machinery lives in
+    :mod:`repro_torch.core.distributed` (imported lazily: single-device
+    use never loads it)."""
+    name = "dist"
+    methods = ("cg", "bicgstab", "pipelined_cg")
+    handles_batch = True        # the (P_loc, n_loc) stack is the layout
+    cache_setup = True
+
+    def applicable(self, A):
+        return getattr(A, "mesh", None) is not None
+
+    def default_method(self, A):
+        return "cg" if A.props.get("symmetric", False) else "bicgstab"
+
+    def analyze(self, cfg, pattern):
+        from . import distributed as _dist
+        return _dist.dist_analyze(cfg, pattern)
+
+    def setup(self, plan, A):
+        from . import distributed as _dist
+        return _dist.dist_setup(plan, A)
+
+    def solve(self, plan, state, A, b, x0, cfg):
+        from . import distributed as _dist
+        return _dist.dist_solve(plan, state, A, b, x0, cfg)
+
+    def transpose_plan(self, plan):
+        from . import distributed as _dist
+        return _dist.dist_transpose_plan(plan)
+
+
 class _FnBackend(Backend):
     """Adapter for the function form of :func:`register_backend`:
     ``solve_fn(cfg, A, b, x0) -> (x, SolveInfo)`` takes batches as they
@@ -679,7 +722,7 @@ class _FnBackend(Backend):
 
 BACKENDS: Dict[str, Backend] = {
     b.name: b for b in (DenseBackend(), DirectBackend(), JnpBackend(),
-                        PallasBackend(), StencilBackend())}
+                        PallasBackend(), StencilBackend(), DistBackend())}
 
 
 def register_backend(name: str, solve_fn: Optional[Callable] = None,
@@ -766,6 +809,8 @@ class SolverPlan:
         self.props = dict(A.props)
         self.bell = A.bell
         self.stencil = A.stencil
+        self.mesh = getattr(A, "mesh", None)        # distributed tensors
+        self.dmeta = getattr(A, "meta", None)
         self._cache = cache if cache is not None else {cfg.plan_key(): self}
         self._tplan: Optional["SolverPlan"] = None
         self._setup_memo: dict = {}
@@ -966,7 +1011,9 @@ class SolverPlan:
 def get_plan(A: SparseTensor, cfg: Optional[SolverConfig] = None,
              **kw) -> SolverPlan:
     """Fetch (or analyze-and-cache) the plan for ``A``'s pattern + ``cfg``.
-    The cache lives on the SparseTensor and is SHARED by ``with_values``."""
+    The cache lives on the SparseTensor and is SHARED by ``with_values``.
+    A tensor with ``plan_key_extra`` (``DSparseTensor``: axis, P, n_loc)
+    extends the key, so one pattern on two meshes analyzes twice."""
     if cfg is None:
         cfg = make_config(A, **kw)
     elif cfg.backend in (None, "auto") or cfg.method in (None, "auto"):
@@ -975,7 +1022,8 @@ def get_plan(A: SparseTensor, cfg: Optional[SolverConfig] = None,
     if cache is None:
         cache = PlanCache()
         A._plans = cache
-    key = cfg.plan_key()
+    extra = getattr(A, "plan_key_extra", None)
+    key = cfg.plan_key() + (tuple(extra()) if extra is not None else ())
     plan = cache.get(key)
     if plan is not None:
         PLAN_STATS["cache_hit"] += 1

@@ -40,10 +40,12 @@ import numpy as np
 import torch
 
 __all__ = ["identity", "jacobi", "chebyshev", "estimate_spectrum",
-           "PreconditionerPlan", "make_preconditioner"]
+           "PreconditionerPlan", "DistPreconditionerPlan",
+           "make_preconditioner"]
 
 PRECONDITIONERS = ("none", "identity", "jacobi", "block_jacobi", "chebyshev",
                    "mg", "amg", "ilu")
+DIST_PRECONDITIONERS = ("none", "identity", "jacobi", "schwarz", "schwarz2")
 
 
 def identity():
@@ -340,6 +342,167 @@ class PreconditionerPlan:
         """:meth:`refresh_state` + :meth:`make_apply` in one call."""
         return self.make_apply(self.refresh_state(A, matvec), matvec,
                                fused=fused)
+
+
+class DistPreconditionerPlan:
+    """Distributed preconditioner on the stacked storage of a
+    ``DSparseTensor``, split like :class:`PreconditionerPlan`: the pattern
+    stage in ``__init__`` (the whole pattern's stacks (P, nnz_loc), on the
+    host; every rank runs it alike and places its own shards' arrays), the
+    values stage :meth:`refresh`, and the apply :meth:`local_closure` on
+    this rank's (P_loc, n_loc) stacks.
+
+    * ``jacobi`` — the per-shard diagonal-entry mask (pads excluded);
+      ``refresh`` is one masked segment sum.
+    * ``schwarz`` — shard-local overlapping Schwarz: each shard's extended
+      matrix ``A[ext, ext]`` (owned rows ∪ halo-overlap rows, Dirichlet
+      truncation — a principal submatrix, so SPD stays SPD) is analyzed
+      ONCE through the direct solver's union-pattern ILU(0)/IC(0) program
+      (:func:`repro_torch.core.direct.schwarz_symbolic`); ``refresh`` is
+      one lane-stacked numeric pass with the rank's shards as lanes (the
+      overlap rows' values come from the neighbour shards, so the values
+      are all-gathered first); the apply is halo → the lanes' triangular
+      sweeps → transposed halo (Σ Rᵀ A_ext⁻¹ R).
+    * ``schwarz2`` — adds the coarse level: the tentative aggregation of
+      the GLOBAL pattern, its Galerkin matrix as ONE segment sum of the
+      values and its direct factors — computed identically on every rank
+      (replicated state, :meth:`state_sharded`).  The apply all-gathers the
+      residual, aggregates, solves on the coarse factors and scatters, in
+      the symmetric deflated two-level form."""
+
+    def __init__(self, name: Optional[str], lrow, lcol, meta, *, bounds,
+                 mesh, coarsest: int = 160):
+        self.name = "none" if name in (None, "none", "identity") else name
+        if self.name not in DIST_PRECONDITIONERS:
+            raise ValueError(
+                f"unknown distributed preconditioner {name!r} "
+                f"(supported: {DIST_PRECONDITIONERS})")
+        self.meta, self.mesh = meta, mesh
+        dev, sl = mesh.device, mesh.shards
+        lr = np.asarray(lrow)
+        lc = np.asarray(lcol)
+        p, nnz_loc = lr.shape
+        valid = np.arange(nnz_loc)[None, :] < \
+            np.asarray(meta.shard_nnz)[:, None]
+        if self.name == "jacobi":
+            q = np.arange(mesh.p_loc)[:, None]
+            dmask = ((lr + meta.h_lo == lc) & valid)[sl]
+            keep = np.flatnonzero(dmask)
+            self._d_idx = torch.as_tensor(keep, device=dev)
+            self._d_row = torch.as_tensor(
+                (q * meta.n_loc + lr[sl]).reshape(-1)[keep], device=dev)
+        if self.name in ("schwarz", "schwarz2"):
+            from . import direct as _direct
+            from .distributed import global_entries
+            h_lo, h_hi, n_loc = meta.h_lo, meta.h_hi, meta.n_loc
+            n_ext = h_lo + n_loc + h_hi
+            row_g, col_g, fa = global_entries(lr, lc, meta, bounds)
+            entries = []
+            for q in range(p):
+                lo = bounds[q] - h_lo
+                hi = bounds[q] + n_loc + h_hi     # uniform n_ext window
+                m = ((row_g >= lo) & (row_g < hi) &
+                     (col_g >= lo) & (col_g < hi))
+                entries.append((row_g[m] - lo, col_g[m] - lo, fa[m]))
+            self.schwarz = _direct.schwarz_symbolic(entries, n_ext,
+                                                    n_src=p * nnz_loc)
+            self._schwarz = _direct.schwarz_to_device(self.schwarz, dev, sl)
+        if self.name == "schwarz2":
+            from . import direct as _direct
+            from .sparse import tentative_coarse_pattern
+            agg, n_c, e2c, crow, ccol = tentative_coarse_pattern(
+                row_g, col_g, meta.n, coarsest=coarsest)
+            self._coarse_art = _direct.to_device(
+                _direct.symbolic_factor(crow, ccol, n_c), dev)
+            self._n_c = n_c
+            self._c_nnz = len(crow)
+            self._c_fa = torch.as_tensor(fa, device=dev)
+            self._c_e2c = torch.as_tensor(e2c, device=dev)
+            # owned-row → coarse-node map, padded tail rows → dump slot n_c
+            own = np.full((p, n_loc), n_c, np.int64)
+            for q in range(p):
+                cnt = int(bounds[q + 1] - bounds[q])
+                own[q, :cnt] = agg[bounds[q]:bounds[q + 1]]
+            self._own2coarse = torch.as_tensor(own, device=dev)
+
+    def state_sharded(self) -> tuple:
+        """Per-leaf layout of :meth:`refresh`'s output: True → this rank's
+        rows of a (P, ·) stack, False → replicated (the two-level coarse
+        factor, computed identically on every rank)."""
+        if self.name == "none":
+            return ()
+        if self.name == "schwarz2":
+            return (True, False)
+        return (True,)
+
+    def refresh(self, lval: torch.Tensor) -> tuple:
+        """The values stage on this rank's stacked values (P_loc,
+        nnz_loc)."""
+        if self.name == "none":
+            return ()
+        if self.name == "jacobi":
+            m = self.mesh
+            d = lval.new_zeros(m.p_loc * self.meta.n_loc)
+            d.index_add_(0, self._d_row, lval.reshape(-1)[self._d_idx])
+            d = d.view(m.p_loc, self.meta.n_loc)
+            return (_inv_diag(d),)
+        from . import direct as _direct
+        from .distributed import _gather_shards
+        flat = _gather_shards(self.mesh, lval).reshape(-1)
+        C = _direct.schwarz_numeric(self._schwarz, flat)
+        if self.name == "schwarz":
+            return (C,)
+        # coarse Galerkin values Tᵀ A T: every tentative-prolongator entry
+        # is 1, so the triple product is ONE segment sum of the flat values
+        c_val = flat.new_zeros(self._c_nnz).index_add_(
+            0, self._c_e2c, flat[self._c_fa])
+        Cc = _direct.numeric_factor(self._coarse_art, c_val)
+        return (C, Cc)
+
+    def local_closure(self, state, halo_fwd: Callable, halo_bwd: Callable,
+                      matvec: Optional[Callable] = None) -> Callable:
+        """The apply on (P_loc, n_loc) stacks.  ``halo_fwd``/``halo_bwd``
+        are H and Hᵀ; ``matvec`` (the halo'd local SpMV) is needed by the
+        two-level mode's deflation products."""
+        if self.name == "none":
+            return identity()
+        if self.name == "jacobi":
+            (inv,) = state
+            return lambda r: inv * r
+        from . import direct as _direct
+        C = state[0]
+        art = self._schwarz.art
+
+        def apply(r):
+            z_ext = _direct.factored_solve(art, C, halo_fwd(r))
+            return halo_bwd(z_ext)         # Σ Rᵀ A_ext⁻¹ R: overlap summed
+
+        if self.name == "schwarz":
+            return apply
+        if matvec is None:
+            raise ValueError("schwarz2 needs the shard-local matvec")
+        from .distributed import _gather_shards
+        Cc = state[1]
+        c_art, own, n_c = self._coarse_art, self._own2coarse, self._n_c
+        own_loc = own[self.mesh.shards]
+
+        def coarse(r):
+            # Q r = T A_c⁻¹ Tᵀ r: gather the global residual, aggregate,
+            # solve on the replicated coarse factors, scatter to own rows
+            r_all = _gather_shards(self.mesh, r)            # (P, n_loc)
+            rc = r.new_zeros(n_c + 1).index_add_(
+                0, own.reshape(-1), r_all.reshape(-1))[:n_c]
+            zc = _direct.factored_solve(c_art, Cc, rc)
+            return torch.cat([zc, zc.new_zeros(1)])[own_loc]
+
+        def apply2(r):
+            # symmetric deflated two-level (BNN/ADEF-2 form):
+            #   M = Q + (I − Q A) M_AS (I − A Q)
+            zc = coarse(r)
+            w = apply(r - matvec(zc))
+            return zc + w - coarse(matvec(w))
+
+        return apply2
 
 
 def make_preconditioner(name: str, A, matvec: Callable) -> Callable:

@@ -38,6 +38,7 @@ __all__ = [
     "has_full_diagonal",
     "build_bell",
     "build_sell",
+    "sell_from_coo",
     "BellLayout",
     "SellLayout",
     "aggregate_pattern",
@@ -409,7 +410,22 @@ def build_sell(meta: BellMeta, block_cols, perm) -> SellLayout:
     t = t // meta.bm
     row = (t // meta.k) * meta.bm + lr
     col = bc.reshape(-1)[t] * meta.bn + lc
-    n_rows = meta.n_pad
+    return sell_from_coo(row, col, meta.n_pad, keep, len(p))
+
+
+def sell_from_coo(row, col, n_rows: int, keep=None,
+                  n_entries: Optional[int] = None) -> SellLayout:
+    """Sliced-ELL layout (numpy) of ``n_rows`` rows holding the COO entries
+    (``row``, ``col``), stored once each, in COO order within a row.  With
+    ``keep`` (the entries' positions in a list of ``n_entries``), ``spos``
+    covers that whole list and the entries left out get −1; the columns may
+    name any position of the vector the layout multiplies (a rectangular
+    matrix)."""
+    row = np.asarray(row, np.int64)
+    col = np.asarray(col, np.int64)
+    if keep is None:
+        keep = np.arange(len(row))
+        n_entries = len(row)
     n_slices = -(-n_rows // SELL_SLICE)
     lens = np.bincount(row, minlength=n_slices * SELL_SLICE)
     width = lens.reshape(n_slices, SELL_SLICE).max(axis=1)
@@ -424,7 +440,7 @@ def build_sell(meta: BellMeta, block_cols, perm) -> SellLayout:
     n_slots = int(slice_ptr[-1])
     cols = np.zeros(n_slots, np.int32)
     cols[slot] = col
-    spos = np.full(len(p), -1, np.int64)
+    spos = np.full(n_entries, -1, np.int64)
     spos[keep] = slot
     return SellLayout(n_rows, n_slots, slice_ptr, cols, spos)
 

@@ -22,8 +22,13 @@ same factors), the dense route, the nonlinear and eigen layer
 (``nonlinear_solve`` with Newton / Picard / Anderson and the
 ``SparseNewton`` plan-engine route, ``eigsh`` by LOBPCG or Lanczos), batched
 solves (stacked values and multiple right-hand sides through one plan) and
-the request-batching ``SolveServer`` / ``serve``.  The distributed
-``DSparseTensor`` is a later slice.
+the request-batching ``SolveServer`` / ``serve``, and the distributed
+``DSparseTensor`` (row-block shards over a ``torch.distributed`` group,
+halo exchange with an adjoint, the ``dist`` backend; bound lazily)::
+
+    mesh = make_mesh(8, group=None, device="cuda")  # repro_torch.core.distributed
+    D = sla.DSparseTensor.from_global(val, row, col, (n, n), mesh)
+    x = D.solve(D.stack_vector(b), precond="schwarz2")
 
 Serving::
 
@@ -47,6 +52,7 @@ from .core.sparse import SparseTensor
 
 __all__ = [
     "SparseTensor",
+    "DSparseTensor",
     "SparseNewton",
     "nonlinear_solve",
     "eigsh",
@@ -67,9 +73,11 @@ __all__ = [
     "reset_plan_stats",
 ]
 
-# lazily bound: the serving driver pulls in the launch package, which
-# single-solve library use should not pay for
+# lazily bound: the distributed layer pulls in torch.distributed and the
+# serving driver the launch package, which single-solve library use should
+# not pay for
 _LAZY = {
+    "DSparseTensor": ("repro_torch.core.distributed", "DSparseTensor"),
     "serve": ("repro_torch.launch.solve_serve", "serve"),
     "SolveServer": ("repro_torch.launch.solve_serve", "SolveServer"),
 }
@@ -105,6 +113,9 @@ def solve_with_info(A, b, *, x0=None, **kw) -> SolveResult:
     """Like :func:`solve`, returning a typed :class:`SolveResult` (``x``,
     ``iterations``, ``residual`` and ``converged``, per right-hand side
     for batches, and ``reason``).  Un-differentiated."""
-    cfg = make_config(A, **kw)
-    x, info = solve_impl(cfg, A, b, x0)
+    if getattr(A, "mesh", None) is not None:      # distributed tensor
+        x, info = A.solve_with_info(b, x0=x0, **kw)
+    else:
+        cfg = make_config(A, **kw)
+        x, info = solve_impl(cfg, A, b, x0)
     return as_solve_result(x, info)

@@ -1,6 +1,7 @@
 """The port's public surface (``repro_torch.sla``) against the reference's
-(``repro.sla``, tests/test_api.py): the same names less the distributed
-``DSparseTensor`` (a later slice), each resolvable and documented;
+(``repro.sla``, tests/test_api.py): the same 20 names, the distributed
+``DSparseTensor`` among them (bound lazily), each resolvable and
+documented;
 ``register_backend`` in both of its forms; ``SparseTensorList`` with one
 adjoint per pattern."""
 import jax
@@ -22,9 +23,10 @@ from _torch_parity import assert_close, np_of, port_of
 
 
 def test_api_surface_is_the_reference_less_dsparse():
-    assert sorted(tsla.__all__) == sorted(
-        n for n in rsla.__all__ if n != "DSparseTensor")
-    assert len(tsla.__all__) == 19
+    # the name is historical: since the distributed slice the surface is
+    # the reference's whole, DSparseTensor included
+    assert sorted(tsla.__all__) == sorted(rsla.__all__)
+    assert len(tsla.__all__) == 20
 
 
 def test_api_surface_resolvable_and_documented():
@@ -34,8 +36,8 @@ def test_api_surface_resolvable_and_documented():
         if callable(obj) and not isinstance(obj, dict):
             assert getattr(obj, "__doc__", None), f"{name} lacks a docstring"
     assert repro_torch.sla is tsla
-    with pytest.raises(AttributeError):
-        tsla.DSparseTensor
+    from repro_torch.core.distributed import DSparseTensor
+    assert tsla.DSparseTensor is DSparseTensor
 
 
 @pytest.fixture

@@ -1096,3 +1096,108 @@ def test_cuda_batched_values_lanes_not_proportional(cuda_device, precond):
     MG and ILU(0) are homogeneous in the values, so scaled lanes cannot
     show a lane applied on another lane's state)."""
     _slice_5b_route(cuda_device, precond, proportional=False)
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the distributed layer's local product, shard dots and halo
+# ---------------------------------------------------------------------------
+
+def _dist_tensor(device, p, nonsym=False, ng=48):
+    from repro_torch.core.distributed import DSparseTensor, make_mesh
+    v, r, c = poisson2d_arrays(ng)
+    if nonsym:
+        v = v.copy()
+        v[c == r - 1] = -1.4
+        v[c == r + 1] = -0.6
+    n = ng * ng
+    return DSparseTensor.from_global(v, r, c, (n, n),
+                                     make_mesh(p, device=device),
+                                     symmetric=not nonsym)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nonsym", [False, True])
+def test_cuda_dist_stack_spmv_matches_coo(cuda_device, nonsym):
+    """The rank's block-diagonal stack SpMV (P = 4 shards, pads left out
+    of the layout) on ``bell_spmv``, forward and transpose, against
+    ``coo_matvec`` on the same stack."""
+    from repro_torch.core.sparse import coo_matvec
+    from repro_torch.kernels import spmv_bell
+    D = _dist_tensor(cuda_device, 4, nonsym)
+    op = D._local_op()
+    assert op.sell is not None and op.sell.n_rows == op.n_rows
+    assert int((op.sell.spos >= 0).sum()) == sum(D.meta.shard_nnz)
+    rng = np.random.default_rng(6)
+    x_ext = torch.tensor(rng.normal(size=(4, op.n_ext)), device=cuda_device)
+    g = torch.tensor(rng.normal(size=(4, op.n_loc)), device=cuda_device)
+    vals = D.lval.reshape(-1)[op.vidx]
+    before = spmv_bell.LAUNCHES["bell_spmv"]
+    y = op.apply(D.lval, op.pack(D.lval), x_ext)
+    assert spmv_bell.LAUNCHES["bell_spmv"] == before + 1
+    y_plain = coo_matvec(vals, op.row, op.col, x_ext.reshape(-1), op.n_rows)
+    assert rel(y.reshape(-1), y_plain) <= 1e-12
+    yt = op.apply_t(D.lval, g)
+    yt_plain = coo_matvec(vals, op.col, op.row, g.reshape(-1), op.n_cols)
+    assert rel(yt.reshape(-1), yt_plain) <= 1e-12
+    with pytest.raises(TypeError):
+        op.apply(D.lval, op.pack(D.lval), x_ext.float())
+
+
+@pytest.mark.cuda
+def test_cuda_dist_shard_dots_match_plain(cuda_device):
+    """The per-shard partials from one lane-batched ``fused_dots2`` launch
+    (shards as lanes) against the plain sums, and lane by lane equal to a
+    one-shard launch bit for bit (a shard's partial does not depend on the
+    shards beside it)."""
+    from repro_torch.core import distributed as tdist
+    rng = np.random.default_rng(7)
+    U = torch.tensor(rng.normal(size=(2, 4, 100_003)), device=cuda_device)
+    v = torch.tensor(rng.normal(size=(4, 100_003)), device=cuda_device)
+    before = tfk.LAUNCHES["fused_dots2_batched"]
+    d1, d2 = tdist._stack_dots2(U, v)
+    assert tfk.LAUNCHES["fused_dots2_batched"] == before + 1
+    assert rel(d1, (U * v).sum(-1)) <= 1e-12
+    assert rel(d2, (U * U).sum(-1)) <= 1e-12
+    for j in range(2):
+        for q in range(4):
+            one = tdist._stack_dots2(U[j:j + 1, q:q + 1].contiguous(),
+                                     v[q:q + 1].contiguous())[0]
+            assert torch.equal(one.reshape(()), d1[j, q])
+
+
+@pytest.mark.cuda
+def test_cuda_dist_halo_adjoint(cuda_device):
+    """⟨Hx, y⟩ = ⟨x, Hᵀy⟩ on CUDA tensors, and H, Hᵀ equal to the CPU's
+    bit for bit (they only move values and add pairs)."""
+    from repro_torch.core import distributed as tdist
+    mesh = tdist.make_mesh(8, device=cuda_device)
+    prog = tdist.halo_program(2, 3, mesh)
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.normal(size=(8, 24)), device=cuda_device)
+    y = torch.tensor(rng.normal(size=(8, 29)), device=cuda_device)
+    hx = tdist._halo_run(prog, x)
+    hty = tdist._halo_run_t(prog, y)
+    lhs = float((hx * y).sum())
+    assert abs(lhs - float((x * hty).sum())) <= 1e-12 * abs(lhs)
+    cpu = tdist.halo_program(2, 3, tdist.make_mesh(8, device="cpu"))
+    assert torch.equal(hx.cpu(), tdist._halo_run(cpu, x.cpu()))
+    assert torch.equal(hty.cpu(), tdist._halo_run_t(cpu, y.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["jacobi", "schwarz2"])
+def test_cuda_dist_solve_and_grad_match_cpu(cuda_device, precond):
+    """A P = 4 solve with its values gradient on the card's kernels
+    against the same solve on the CPU's plain versions."""
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        D = _dist_tensor(dev, 4, ng=32)
+        lv = D.lval.clone().requires_grad_(True)
+        b = D.stack_vector(torch.ones(32 * 32, dtype=torch.float64,
+                                      device=dev))
+        x = D.with_values(lv).solve(b, tol=1e-12, maxiter=4000,
+                                    precond=precond)
+        (x * x).sum().backward()
+        out[dev.type] = (x.detach().cpu(), lv.grad.cpu())
+    assert rel(out["cuda"][0], out["cpu"][0]) <= 1e-10
+    assert rel(out["cuda"][1], out["cpu"][1]) <= 1e-8
