@@ -71,13 +71,16 @@ What it does, in order:
     and CG + AMG inner solves to tol 1e-12, ‖F(u*)‖ ≤ 1e-10, ∂Σu²/∂θ by
     ``backward()``: analyze, coloring and the backward's transpose solve
     once each, one Galerkin product per Newton step; the θ-gradient
-    against a central difference (1e-5) and the same run inside
-    ``plain_kernels`` (1e-8); then the backward-Euler step G(u, θ) =
+    against a central difference (1e-5; no plain run: its kernels are held
+    to their plain versions in phases 2, 11b and 12); then the
+    backward-Euler step G(u, θ) =
     u + 0.05 (A u + θ u³) − u* by Newton, Picard and Anderson (m = 5)
     with the Jacobian in closed form, their θ-gradients against Newton's;
 11e. Newton direct path: the same residual on ``poisson2d(316)`` with
     direct inner solves (one factorization per step on the panel kernels,
-    none in the backward), the same gradient checks;
+    none in the backward), the θ-gradient against the central difference
+    (no plain run: its kernels are held to their plain versions in phases
+    2, 12 and 15e);
 11f. eigen path: the anisotropic Poisson operator (cy 0.6) at ng = 1024,
     ``A.eigsh(k=6, method="lobpcg", precond="amg", tol=1e-9)``, the
     eigenvalues against their closed form (1e-8), residuals ≤ 10·tol, one
@@ -110,9 +113,14 @@ What it does, in order:
     GQA form (B 4, S 4096, H 32, K 8, d 64, q a strided slice) against the
     plain version on expanded heads — in bf16, in f32 at the decode ≡
     forward check's shape (B 2, S 128) and in f32 at the full prefill
-    shape (row 7b's SIMT kernel beside SDPA); their time, the plain version's,
-    SDPA's and the bound (the bf16 tensor-core kernel and the f32 SIMT
-    kernel are two rows of the kernels line);
+    shape (row 7b's SIMT kernel beside SDPA) — and at phase 14b's shapes:
+    recurrentgemma's local layer (B 2, S 4096, H 10, K 1, d 256, window
+    2048; bf16 and f32, rows 7c / 7c′; SDPA with a boolean band mask),
+    whisper's encoder (B 4, S = T 1500, H = K 16, d 64, bidirectional) and
+    cross attention (S 448, T 1500); their time, the plain version's,
+    SDPA's and the bound (operations: 4·d flops per kept pair; the bf16
+    tensor-core kernel and the f32 SIMT kernel are two rows of the kernels
+    line);
 14. LM serving path: llama3.2-1b at full width (16 layers, d 2048, vocab
     128,256; seed-made weights, params f32, activations bf16): ``prefill``
     of 4 prompts × 4096 tokens (the flash kernel once per layer, on the
@@ -123,6 +131,24 @@ What it does, in order:
     S 128; decode runs no kernel): f32 logits within 2e-4 of max |logits|,
     bf16 greedy tokens agreeing on ≥ 95% of the positions (the bf16
     forward on the tensor-core kernel, the f32 one on the SIMT kernel);
+14b. the other families at full width and full depth (seed-made weights,
+    params f32, activations bf16): granite-moe-1b-a400m (24 MoE layers,
+    32 experts top-8; prefill 4 × 4096), recurrentgemma-2b (26 layers,
+    RG-LRU + local attention at head dim 256, window 2048; 2 × 4096),
+    mamba2-780m (48 SSD layers, chunk 256; 2 × 4096) and whisper-medium
+    (24 + 24 layers, 1500 encoder frames; 4 × 448): ``serve.prefill``
+    (wall, device time and busy share, the flash kernel's share of it,
+    peak memory; the flash kernel once per attention sub-layer),
+    ``greedy_decode`` at batch 4, prompt 32, 8 generated (ms a step; busy
+    share: two traced steps' device time over two steps' wall), and an f32 decode ≡ forward check at B 2 ×
+    S 128 (≤ 2e-4 of max |logits|); granite's check counts the
+    token-layers whose routing differs between the two runs (at most
+    0.1%) and holds the tolerance over the positions whose routes agree in
+    every layer; recurrentgemma's ring is also held past its window, cut
+    to 64, at B 1 × S 160 (printed as a ``reduced`` note); mamba2's
+    weights also run in f64 (the same numbers): decode ≡ forward there
+    (≤ 1e-9), and the f32 hidden states and logits against the f64
+    forward's, layer by layer;
 15. batched solves and the solve server (f64, numpy seed 0):
     15a. the lane-batched kernels against their plain versions (written
     lane by lane) and, lane by lane, against the single-vector kernels
@@ -312,7 +338,6 @@ NL_MAXITER = 50                      # Newton steps
 NL_INNER = dict(tol=1e-12, maxiter=600)   # inner CG + AMG
 NL_FD_EPS = 1e-4                     # central difference in θ
 TOL_FD = 1e-5                        # θ-gradient vs the central difference
-TOL_NL_PLAIN = 1e-8                  # θ-gradient vs the plain run
 NL_DT = 0.05                         # backward-Euler step: u − G contracts
 NL_FP_MAXITER = 500                  # Picard / Anderson iterations
 ANDERSON_M = 5
@@ -330,14 +355,27 @@ FLASH_SHAPES = (("prefill layer", 128, 4096, 4096, 64, "bfloat16", True),
                 ("f32 bidir", 64, 2048, 2048, 64, "float32", False),
                 ("ragged bf16", 24, 1000, 1000, 128, "bfloat16", True),
                 ("uneven f32", 2, 128, 256, 64, "float32", False))
-# the model's GQA form at the shapes the main path gives it: (label, B, S, H,
-# K, d, dtype) — the bf16 prefill layer and the f32 decode ≡ forward check's
-# forward (the only f32 launches of the path; row 7b is read here)
-FLASH_GQA = (("prefill GQA", 4, 4096, 32, 8, 64, "bfloat16"),
-             ("f32 check GQA", 2, 128, 32, 8, 64, "float32"),
+# the model's GQA form at the shapes the main paths give it: (label, B, S,
+# T, H, K, d, dtype, causal, window) — the bf16 prefill layer and the f32
+# decode ≡ forward check's forward (the only f32 launches of the path; row
+# 7b is read here), then phase 14b's new shapes: recurrentgemma's local
+# layer (head dim 256, one KV head, window 2048; rows 7c and 7c′), whisper's
+# encoder (bidirectional, S = T = 1500) and its cross attention (448
+# queries over 1500 frames)
+FLASH_GQA = (("prefill GQA", 4, 4096, 4096, 32, 8, 64, "bfloat16", True, 0),
+             ("f32 check GQA", 2, 128, 128, 32, 8, 64, "float32", True, 0),
              # row 7b at the prefill's full layer shape (timed, not on the
              # path): the f32 SIMT kernel beside SDPA
-             ("f32 prefill GQA", 4, 4096, 32, 8, 64, "float32"))
+             ("f32 prefill GQA", 4, 4096, 4096, 32, 8, 64, "float32", True,
+              0),
+             ("local d256 w2048", 2, 4096, 4096, 10, 1, 256, "bfloat16",
+              True, 2048),
+             ("local d256 w2048 f32", 2, 4096, 4096, 10, 1, 256, "float32",
+              True, 2048),
+             ("whisper encoder", 4, 1500, 1500, 16, 16, 64, "bfloat16",
+              False, 0),
+             ("whisper cross", 4, 448, 1500, 16, 16, 64, "bfloat16", False,
+              0))
 # elementwise |o − plain| <= rtol·|plain| + atol, the plain version run in
 # f32 (p in f32) on the same inputs.  f32: the reference test's
 # 2e-5·(1 + |plain|); bf16: the output's rounding is 2^-9 relative, held at
@@ -350,7 +388,22 @@ LM_PREFILL = (4, 4096)               # prefill: B prompts × S tokens
 LM_SERVE = (4, 32, 32)               # serving: batch, prompt, generated
 LM_CHECK = (2, 128)                  # decode ≡ forward: B × S
 TOL_LM_F32 = 2e-4                    # f32 max |Δlogits| / max |logits|
+TOL_LM_F64 = 1e-9                    # the same in f64 (mamba2's witness)
 LM_AGREE = 0.95                      # bf16: greedy tokens that must agree
+# phase 14b: the other families at full width and full depth (seed-made
+# weights, params f32, activations bf16): (arch, prefill B × S)
+LM_FAMILIES = (("granite-moe-1b-a400m", (4, 4096)),
+               ("recurrentgemma-2b", (2, 4096)),
+               ("mamba2-780m", (2, 4096)),
+               ("whisper-medium", (4, 448)))
+LM_FAMILY_SERVE = (4, 32, 8)         # greedy_decode: batch, prompt, generated
+LM_LOCAL_CHECK = (1, 160, 64)        # recurrentgemma past its window: B, S,
+                                     # the window it is cut to
+MOE_FLIPS = 1e-3                     # granite: routing flips allowed between
+                                     # forward and decode, of token-layers
+MOE_CHECK_CF = 8.0                   # granite's decode ≡ forward: capacity
+                                     # factor with no copy dropped (C ≥ S at
+                                     # ≥ E/k = 4; smoke_variant's 8.0)
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 
 KERNEL_SOURCES = {
@@ -1541,9 +1594,10 @@ def panel_kernel_phase(dev, art, val, ng, seed, out):
 
 def _kernel_breakdown(fn, trace):
     """Device work of one call of ``fn`` from ``torch.profiler`` (its trace
-    written to ``trace``): (count, summed device ms, [(ms, count, name)] by
-    name, largest first) over the device-side events (kernels, copies).
-    Their durations only; launch gaps between them are not in the sum."""
+    written to ``trace`` unless None): (count, summed device ms, [(ms,
+    count, name)] by name, largest first) over the device-side events
+    (kernels, copies).  Their durations only; launch gaps between them are
+    not in the sum."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1552,7 +1606,8 @@ def _kernel_breakdown(fn, trace):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    prof.export_chrome_trace(trace)
+    if trace is not None:
+        prof.export_chrome_trace(trace)
     top = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA), reverse=True)
@@ -2475,10 +2530,12 @@ def _theta(dev, value=NL_THETA):
 
 def _newton_case(dev, label, A, F, jac, cfg, refresh):
     """One SparseNewton solve of F(u, θ) = 0 (colored assembly) with its
-    θ-gradient: counters, launches, times; the gradient against the same
-    run inside ``plain_kernels`` and against a central difference on the
-    same cached plan (the difference's solves assemble in closed form,
-    so they color nothing)."""
+    θ-gradient: counters, launches, times; the gradient against a central
+    difference on the same cached plan (the difference's solves assemble
+    in closed form, so they color nothing).  No run inside
+    ``plain_kernels``: the path's kernels are held to their plain versions
+    in phases 2, 11b and 12 (the run on their plain versions took 46 s
+    with AMG inner solves and ~100 s with direct ones on an H100)."""
     import torch
     from repro_torch import sla
     from repro_torch.core import dispatch as tdisp
@@ -2528,19 +2585,7 @@ def _newton_case(dev, label, A, F, jac, cfg, refresh):
     _sync(dev)
     fd_s = time.perf_counter() - t3
     _, stats_fd = _counts()
-    th2 = _theta(dev)
-    _counts_reset()
-    tp = time.perf_counter()
-    with plain_kernels():
-        u2 = solve(th2)
-        (u2 * u2).sum().backward()
-    _sync(dev)
-    plain_s = time.perf_counter() - tp
-    plain_launches = sum(_counts()[0].values())
-    g2 = float(th2.grad)
-    u_diff = float((u.detach() - u2.detach()).abs().max())
     fd_err = abs(g - fd) / abs(fd)
-    plain_err = abs(g - g2) / abs(g2)
     per_step = {k: launches[k] / max(steps, 1) for k in PANEL_KERNELS
                 + ("bell_spmv",)}
     per_step["fused"] = sum(launches[k] for k in FUSED) / max(steps, 1)
@@ -2553,9 +2598,7 @@ def _newton_case(dev, label, A, F, jac, cfg, refresh):
         f"(min {min(step_s):.4f}, max {max(step_s):.4f}); backward "
         f"{t2 - t1:.3f} s; peak {peak:.3f} GB")
     say(f"  θ-gradient {g!r}: central difference {fd!r} (ε {eps:g}, "
-        f"{fd_s:.2f} s) rel diff {fd_err:.3e}; plain run {g2!r} "
-        f"({plain_s:.2f} s) rel diff {plain_err:.3e}, its root u* max abs "
-        f"diff {u_diff:.3e}")
+        f"{fd_s:.2f} s) rel diff {fd_err:.3e}")
     say(f"  launches {json.dumps({k: v for k, v in launches.items() if v})};"
         f" per step {json.dumps({k: round(v, 2) for k, v in per_step.items()})}")
     say(f"  PLAN_STATS {json.dumps({k: v for k, v in stats.items() if v})}")
@@ -2567,20 +2610,14 @@ def _newton_case(dev, label, A, F, jac, cfg, refresh):
           f"{refresh} == jac_assemble == {steps} (none in the backward)")
     check(stats_fd["analyze"] == 1, f"Newton {label}: the central "
           f"difference's solves ran on the same cached plan")
-    check(plain_launches == 0, f"Newton {label}: the plain run launched no "
-          f"kernel")
     check(math.isfinite(g) and fd_err <= TOL_FD,
           f"Newton {label}: θ-gradient vs central difference {fd_err:.2e} "
           f"<= {TOL_FD:g}")
-    check(plain_err <= TOL_NL_PLAIN, f"Newton {label}: θ-gradient vs the "
-          f"plain run {plain_err:.2e} <= {TOL_NL_PLAIN:g}")
     res = dict(n=n, steps=steps, colors=colors, coloring_s=col.seconds,
                analyze_s=ana.seconds, assembly_ms=[1e3 * a for a in asm.each],
                forward_s=t1 - t0, step_s=step_s,
                backward_s=t2 - t1, residual=rn, grad=g, fd=fd,
-               fd_rel_diff=fd_err, fd_s=fd_s, plain_grad=g2,
-               plain_rel_diff=plain_err, plain_u_diff=u_diff,
-               plain_run_s=plain_s, peak_gb=peak,
+               fd_rel_diff=fd_err, fd_s=fd_s, peak_gb=peak,
                launches=launches, per_step=per_step, plan_stats=stats)
     return u.detach(), res, launches
 
@@ -2668,7 +2705,9 @@ def nonlinear_path(dev, ng, seed, out):
 
 def newton_direct_path(dev, ng, seed, out):
     """Phase 11e: SparseNewton with direct inner solves (supernodal LDLᵀ
-    on the panel kernels) on ``poisson2d(ng)``."""
+    on the panel kernels) on ``poisson2d(ng)``; as in phase 11d, its
+    θ-gradient is held to the central difference (see
+    :func:`_newton_case`)."""
     from repro_torch.core.dispatch import SolverConfig
 
     A, f, F, jac = _nl_problem(dev, ng, seed)
@@ -2815,7 +2854,16 @@ def _attn_work(BH, S, T, d, causal, elem):
     return elem * BH * (2 * S * d + 2 * T * d), 4 * BH * d * pairs
 
 
-def _flash_plain(q, k, v, causal, round_p=False):
+def _attn_pairs(S, T, causal, window=0):
+    """(query, key) pairs the mask keeps: key j ≤ i causal, and
+    i − window < j with a window."""
+    i = np.arange(S)
+    hi = np.minimum(i + 1, T) if causal else np.full(S, T)
+    lo = np.maximum(i - window + 1, 0) if window else 0
+    return int((hi - lo).sum())
+
+
+def _flash_plain(q, k, v, causal, round_p=False, window=0):
     """The plain version in f32 on the same inputs, over chunks of bh that
     keep the (chunk, S, T) score block near 1 GB; ``round_p`` rounds the
     probabilities to bf16 before p·v, as the bf16 kernel does."""
@@ -2825,22 +2873,23 @@ def _flash_plain(q, k, v, causal, round_p=False):
     step = max(1, (1 << 28) // (S * T))
     return torch.cat([ref.flash_attention_ref(
         q[b:b + step].float(), k[b:b + step].float(), v[b:b + step].float(),
-        causal=causal, round_p=round_p) for b in range(0, q.shape[0], step)])
+        causal=causal, round_p=round_p, window=window)
+        for b in range(0, q.shape[0], step)])
 
 
-def _flash_err(o, q, k, v, causal, dname):
+def _flash_err(o, q, k, v, causal, dname, window=0):
     """(err, max |o − plain|, distance from the p-rounded plain version):
     the rule of TOL_FLASH, err <= limit ⟺ |o − plain| <= limit·|plain| +
     atol everywhere, plain in f32 with p in f32."""
     limit, atol = TOL_FLASH[dname]
-    want = _flash_plain(q, k, v, causal)
+    want = _flash_plain(q, k, v, causal, window=window)
     diff = (o.float() - want).abs()
     err = float((diff / (atol / limit + want.abs())).max())
     dist = None
     if dname == "bfloat16":
         # the plain version that rounds p to bf16 once, as the reference
         # model's jnp attention does
-        rp = _flash_plain(q, k, v, causal, round_p=True)
+        rp = _flash_plain(q, k, v, causal, round_p=True, window=window)
         drp = (o.float() - rp).abs()
         dist = dict(max_abs=float(drp.max()), err_rule=float(
             (drp / (atol / limit + rp.abs())).max()))
@@ -2898,55 +2947,72 @@ def flash_phase(dev, seed, out):
         del q, k, v, o, q4, k4, v4
         torch.cuda.empty_cache()
 
-    # the model's form: q (B, S, H, d) sliced from one projection output,
-    # k, v (B, T, K, d), read in place with KV head h // (H/K); timed with
-    # its plain version on the expanded heads and SDPA's GQA form
+    # the model's form: q (B, S, H, d) sliced from one projection output
+    # (k and v too where S = T), k, v (B, T, K, d), read in place with KV
+    # head h // (H/K); timed with its plain version on the expanded heads
+    # and SDPA's GQA form (the window as an explicit boolean band mask)
     gqa = {}
-    for label, B, S, H, K, d, dname in FLASH_GQA:
+    for label, B, S, T, H, K, d, dname, causal, window in FLASH_GQA:
         dt = getattr(torch, dname)
-        qkv = torch.randn((B, S, H + 2 * K, d), generator=gen,
-                          device=dev).to(dt)
-        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
-        o = flash_attention_gqa(q, k, v, causal=True)
+        if S == T:
+            qkv = torch.randn((B, S, H + 2 * K, d), generator=gen,
+                              device=dev).to(dt)
+            q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+        else:
+            qkv = torch.randn((B, S, H, d), generator=gen, device=dev).to(dt)
+            kv = torch.randn((B, T, 2 * K, d), generator=gen,
+                             device=dev).to(dt)
+            q, k, v = qkv, kv[:, :, :K], kv[:, :, K:]
+        o = flash_attention_gqa(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
 
         def heads(t):
             t = t.repeat_interleave(H // t.shape[2], dim=2)
-            return t.permute(0, 2, 1, 3).reshape(B * H, S, d)
+            return t.permute(0, 2, 1, 3).reshape(B * H, t.shape[1], d)
 
         qh, kh, vh = heads(q), heads(k), heads(v)
         err, max_abs, dist = _flash_err(
-            o.permute(0, 2, 1, 3).reshape(B * H, S, d), qh, kh, vh, True,
-            dname)
-        call = lambda: flash_attention_gqa(q, k, v, causal=True)
+            o.permute(0, 2, 1, 3).reshape(B * H, S, d), qh, kh, vh, causal,
+            dname, window)
+        call = lambda: flash_attention_gqa(q, k, v, causal=causal,
+                                           window=window)
         ms = cuda_ms(call, 10, warmup=2, spin_ms=3.0)
         wall = wall_ms(call, 3)
-        plain = _sum_ms(lambda: _flash_plain(qh, kh, vh, True), reps=2)
+        plain = _sum_ms(lambda: _flash_plain(qh, kh, vh, causal,
+                                             window=window), reps=2)
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        band = None
+        if window:
+            i = torch.arange(S, device=dev)[:, None]
+            j = torch.arange(T, device=dev)[None, :]
+            band = (j <= i) & (j > i - window)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, enable_gqa=True), 10, warmup=2,
-            spin_ms=3.0)
-        pairs = S * (S + 1) // 2                 # causal, S == T
-        nbytes = q.element_size() * 2 * B * S * d * (H + K)
+            qs, ks, vs, attn_mask=band, is_causal=causal and not window,
+            enable_gqa=True), 10, warmup=2, spin_ms=3.0)
+        pairs = _attn_pairs(S, T, causal, window)
+        nbytes = q.element_size() * 2 * B * d * (S * H + T * K)
         flops = 4 * B * H * d * pairs
         bms, bby = bound_ms(nbytes, flops, dname)
         limit = TOL_FLASH[dname][0]
-        say(f"  flash_attention_gqa {label} (B {B}, S {S}, H {H}, K {K}, d "
-            f"{d}) {dname} causal, strided q: {ms:.4f} ms (host wall "
+        mask = (f"window {window}" if window else
+                "causal" if causal else "bidir")
+        say(f"  flash_attention_gqa {label} (B {B}, S {S}, T {T}, H {H}, K "
+            f"{K}, d {d}) {dname} {mask}, strided q: {ms:.4f} ms (host wall "
             f"{wall:.4f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms by "
-            f"{bby}, SDPA {lib:.4f} ms); err {err:.2e}, max |o − plain| "
-            f"{max_abs:.2e}")
+            f"{bby}, {bms / ms:.0%} of it; SDPA {lib:.4f} ms); err "
+            f"{err:.2e}, max |o − plain| {max_abs:.2e}")
         check(err <= limit, f"flash_attention_gqa {label} {dname} matches "
               f"its plain version on the expanded heads ({err:.2e} <= "
               f"{limit:.0e})")
-        r = dict(case=label, shape=f"B{B} S{S} H{H} K{K} d{d}", dtype=dname,
-                 causal=True, ms=ms, wall_ms=wall, plain_ms=plain,
-                 library_ms=lib, bytes=nbytes, flops=flops, bound_ms=bms,
-                 bound_by=bby, tflops=flops / ms / 1e9, err=err,
-                 max_abs_err=max_abs, limit=limit, round_p_distance=dist)
+        r = dict(case=label, shape=f"B{B} S{S} T{T} H{H} K{K} d{d}",
+                 dtype=dname, causal=causal, window=window, ms=ms,
+                 wall_ms=wall, plain_ms=plain, library_ms=lib, bytes=nbytes,
+                 flops=flops, bound_ms=bms, bound_by=bby,
+                 tflops=flops / ms / 1e9, err=err, max_abs_err=max_abs,
+                 limit=limit, round_p_distance=dist)
         res.append(r)
         gqa[label] = r
-        del qkv, q, k, v, o, qh, kh, vh
+        del qkv, q, k, v, o, qh, kh, vh, band
         torch.cuda.empty_cache()
     out["flash_phase"] = res
 
@@ -3129,6 +3195,321 @@ def lm_path(dev, seed, out):
     total = dict(launches)
     for k2, v2 in check_launches.items():
         total[k2] = total.get(k2, 0) + v2
+    return total
+
+
+def _flash_launches(cfg):
+    """flash-wrapper launches of one forward: one per attention sub-layer
+    (self, encoder and cross)."""
+    n = sum(k != "rec" and k != "ssd" for k in cfg.pattern_layers)
+    return n + (cfg.n_enc_layers + cfg.n_layers if cfg.enc_dec else 0)
+
+
+def _random_frames(cfg, B, gen, dev, dtype):
+    """Encoder frames (B, enc_frames, d) from the seed, or None."""
+    import torch
+    if not cfg.enc_dec:
+        return None
+    return torch.randn((B, cfg.enc_frames, cfg.d_model), generator=gen,
+                       device=dev).to(dtype)
+
+
+class _Routes:
+    """Within the block, every MoE routing (the top-k expert ids, sorted)
+    in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.orig, self.ids = moe, moe.route, []
+
+        def route(p, x, cfg):
+            r = self.orig(p, x, cfg)
+            self.ids.append(r[2].sort(dim=-1).values)
+            return r
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.orig
+
+
+def _decode_vs_forward(model, toks, ef):
+    """(forward logits, the same positions' logits decoded token by token)."""
+    import torch
+    B, S = toks.shape
+    fwd, _ = model(toks, enc_frames=ef)
+    state = model.init_decode_state(B, S, enc_frames=ef)
+    outs = []
+    for t in range(S):
+        lg, state = model.decode_step(state, toks[:, t:t + 1], t)
+        outs.append(lg[:, 0])
+    return fwd, torch.stack(outs, 1)
+
+
+def _f64_witness(m32, c32, seed, toks, fwd32, dec32):
+    """SSD families: the same seed-made weights in f64 (the f32 draws cast,
+    so equal), decode ≡ forward there, and the f32 forward's hidden states
+    layer by layer and its logits, and the f32 decode's, against the f64
+    forward's."""
+    import dataclasses
+    import torch
+    from repro_torch.models.transformer import Transformer
+
+    def hidden(model, run):
+        hs = []
+        hooks = [l.register_forward_hook(
+            lambda _m, _i, o: hs.append(o[0].double()))
+            for l in model.layers]
+        try:
+            r = run()
+        finally:
+            for h in hooks:
+                h.remove()
+        return hs, r
+
+    c64 = dataclasses.replace(c32, dtype="float64", param_dtype="float64")
+    m64 = Transformer(c64, seed=seed, device=fwd32.device)
+    h64, (fwd64, dec64) = hidden(m64, lambda: _decode_vs_forward(
+        m64, toks, None))
+    h32, _ = hidden(m32, lambda: m32(toks))
+    del m64
+    sc = float(fwd64.abs().max())
+    rel = lambda x: float((x.double() - fwd64).abs().max()) / sc
+    layers = [float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(h32, h64)]
+    r = dict(f64_decode_vs_forward=rel(dec64), f32_forward_vs_f64=rel(fwd32),
+             f32_decode_vs_f64=rel(dec32), f32_hidden_vs_f64=layers)
+    L = len(layers)
+    say(f"  {c32.name} f64 witness (B={toks.shape[0]}, S={toks.shape[1]}): "
+        f"f64 decode ≡ forward {r['f64_decode_vs_forward']:.2e}; against "
+        f"the f64 forward the f32 forward's logits are "
+        f"{r['f32_forward_vs_f64']:.2e} and the f32 decode's "
+        f"{r['f32_decode_vs_f64']:.2e} of max |logits|; the f32 hidden "
+        f"state after layer " + ", ".join(
+            f"{i + 1}: {layers[i]:.2e}"
+            for i in sorted({max(0, k * L // 4 - 1) for k in range(5)})))
+    check(r["f64_decode_vs_forward"] <= TOL_LM_F64,
+          f"{c32.name} decode ≡ forward in f64 "
+          f"({r['f64_decode_vs_forward']:.2e} <= {TOL_LM_F64:.0e})")
+    return r
+
+
+def lm_family(dev, seed, arch, prefill_shape):
+    """One family of phase 14b: prefill (wall, device time and busy share,
+    the flash kernel's share, peak memory), greedy serving, and the f32
+    decode ≡ forward check.  Returns (results, launches)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import adtype
+    from repro_torch.models.transformer import Transformer
+
+    cfg = get_config(arch)
+    B, S = prefill_shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    _peak_reset(dev)
+    t0 = time.perf_counter()
+    model = Transformer(cfg, seed=seed, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    ef = _random_frames(cfg, B, gen, dev, adtype(cfg))
+    call = lambda: serve.prefill(model, toks, enc_frames=ef)
+    call()                                        # warm-up
+    _sync(dev)
+    _counts_reset()
+    t0 = time.perf_counter()
+    logits = call()
+    _sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()[0]
+    peak = _peak(dev)
+    walls = [wall_ms(call, 1) for _ in range(2)]
+    cnt, dev_ms, top = _kernel_breakdown(
+        call, os.path.join(OUT, f"lm_{arch}_prefill_trace.json.gz"))
+    cls = _lm_breakdown(top)
+    flash_share = cls["flash kernel"] / dev_ms
+    busy = dev_ms / min(walls)
+    want = _flash_launches(cfg)
+    say(f"  {arch} prefill B={B} S={S}"
+        + (f" ({cfg.enc_frames} encoder frames)" if cfg.enc_dec else "")
+        + f": {prefill_ms:.1f} ms wall (repeats "
+        f"{', '.join('%.1f' % w for w in walls)} ms), "
+        f"{B * S / min(walls) * 1e3:.0f} tokens/s; device {dev_ms:.1f} ms in "
+        f"{cnt} ops (busy {busy:.0%}); flash kernel {cls['flash kernel']:.1f}"
+        f" ms = {flash_share:.1%} of device time; peak {peak:.2f} GB "
+        f"(weights {cfg.param_count() * 4 / 1e9:.2f} GB f32); init "
+        f"{init_s:.1f} s")
+    say("    " + "; ".join(f"{k} {v:.1f} ms" for k, v in cls.items()))
+    for ms, c, name in top[:5]:
+        say(f"    {ms:9.2f} ms ×{c:<5d} {name[:90]}")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill logits {tuple(logits.shape)} finite")
+    check(launches["flash_attention"] == want,
+          f"{arch} prefill launched flash_attention once per attention "
+          f"sub-layer ({launches['flash_attention']} == {want})")
+    del logits
+    drops = None
+    if cfg.n_experts:
+        # copies past an expert's capacity, dropped by the prefill
+        from repro_torch.models.moe import moe_capacity
+        with _Routes() as routes:
+            call()
+        C, E = moe_capacity(cfg, S), cfg.n_experts
+        drops = sum(int((torch.stack([torch.bincount(r, minlength=E)
+                                      for r in ids.reshape(B, -1)]) - C)
+                        .clamp(min=0).sum()) for ids in routes.ids)
+        copies = len(routes.ids) * B * S * cfg.top_k
+        say(f"  {arch} prefill: {drops} of {copies} expert copies dropped "
+            f"past capacity C = {C} (capacity factor "
+            f"{cfg.capacity_factor})")
+
+    # serving: greedy decoding with the CLI's zero encoder frames
+    Bs, P, G = LM_FAMILY_SERVE
+    prompts = torch.randint(0, cfg.vocab, (Bs, P), generator=gen, device=dev)
+    efs = serve.zero_frames(model, Bs)
+    serve.greedy_decode(model, prompts[:, :2], 1, enc_frames=efs)  # warm-up
+    seq, dec_s = serve.greedy_decode(model, prompts, G, enc_frames=efs)
+    step_ms = dec_s * 1e3 / (P + G - 1)
+    check(tuple(seq.shape) == (Bs, P + G) and int(seq.min()) >= 0
+          and int(seq.max()) < cfg.vocab
+          and torch.equal(seq[:, :P], prompts.to(torch.int32)),
+          f"{arch} greedy_decode: {tuple(seq.shape)} tokens in the vocab, "
+          f"the prompts teacher-forced")
+    # device time of two traced steps against two steps of that wall
+    state = model.init_decode_state(Bs, P + G, enc_frames=efs)
+    step = serve.make_serve_step(model)
+    tok = prompts[:, :1].to(torch.int32)
+
+    def two_steps():
+        t_ = tok
+        for t in range(2):
+            t_, _ = step(state, t_, t)
+
+    cnt2, dev2, _ = _kernel_breakdown(two_steps, None)
+    dec_busy = dev2 / (2 * step_ms)
+    say(f"  {arch} serving B={Bs} prompt {P} + gen {G}: {step_ms:.2f} ms per "
+        f"decode step; device {dev2 / 2:.2f} ms a step (busy {dec_busy:.0%}, "
+        f"{cnt2 // 2} device ops a step)")
+    del model, state
+    torch.cuda.empty_cache()
+
+    # f32 decode ≡ forward at full width (the forward on the f32 kernel);
+    # MoE without capacity drops, which one-token decode never has
+    Bc, Sc = LM_CHECK
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    if cfg.n_experts:
+        c32 = dataclasses.replace(c32, capacity_factor=MOE_CHECK_CF)
+        say(f"  reduced: {arch}'s decode ≡ forward runs with capacity factor "
+            f"{cfg.capacity_factor} → {MOE_CHECK_CF} (no copy dropped, as "
+            f"smoke_variant's; at {cfg.capacity_factor} the forward drops "
+            f"copies that one-token decode keeps)")
+    m32 = Transformer(c32, seed=seed, device=dev)
+    ctoks = torch.randint(0, cfg.vocab, (Bc, Sc), generator=gen, device=dev)
+    cef = _random_frames(cfg, Bc, gen, dev, torch.float32)
+    _counts_reset()
+    if cfg.n_experts:
+        with _Routes() as routes:
+            fwd, dec = _decode_vs_forward(m32, ctoks, cef)
+        L = cfg.n_layers
+        f_ids = torch.stack(routes.ids[:L])                 # (L, B, S, k)
+        d_ids = torch.stack(routes.ids[L:]).reshape(
+            Sc, L, Bc, cfg.top_k).permute(1, 2, 0, 3)
+        flip = (f_ids != d_ids).any(-1)                     # (L, B, S)
+        flips = int(flip.sum())
+        agree = ~flip.any(0)                                # (B, S)
+        f_rel = float((fwd - dec).abs()[agree].max()) / float(
+            fwd.abs().max())
+        say(f"  {arch} routing: {flips} of {flip.numel()} token-layers route "
+            f"differently in decode than in the forward; "
+            f"{int(agree.sum())} of {agree.numel()} positions agree in every "
+            f"layer")
+        check(flips <= MOE_FLIPS * flip.numel(),
+              f"{arch}: routing flips {flips} <= {MOE_FLIPS:.1%} of "
+              f"token-layers")
+    else:
+        fwd, dec = _decode_vs_forward(m32, ctoks, cef)
+        flips = None
+        f_rel = float((fwd - dec).abs().max()) / float(fwd.abs().max())
+    _sync(dev)
+    check_launches = _counts()[0]
+    say(f"  {arch} decode ≡ forward (f32, B={Bc}, S={Sc}): max |Δlogits| = "
+        f"{f_rel:.2e} of max |logits|"
+        + ("" if flips is None else " over the positions whose routes agree"))
+    check(f_rel <= TOL_LM_F32, f"{arch} decode ≡ forward in f32 "
+          f"({f_rel:.2e} <= {TOL_LM_F32:.0e} of max |logits|)")
+    witness = (_f64_witness(m32, c32, seed, ctoks, fwd, dec)
+               if "ssd" in cfg.layer_pattern else None)
+    check(check_launches["flash_attention_f32"] >= want,
+          f"{arch}: the f32 forward launched flash_attention_f32 "
+          f"{check_launches['flash_attention_f32']} times (>= {want})")
+    del m32, fwd, dec
+    torch.cuda.empty_cache()
+    res = dict(arch=arch, prefill=dict(
+        B=B, S=S, wall_ms=prefill_ms, repeats_ms=walls,
+        tokens_per_s=B * S / min(walls) * 1e3, device_ms=dev_ms,
+        device_ops=cnt, busy=busy, flash_ms=cls["flash kernel"],
+        flash_share=flash_share, breakdown=cls, top=top[:20], peak_gb=peak,
+        launches=launches), serve=dict(
+        batch=Bs, prompt_len=P, gen_len=G, ms_per_step=step_ms,
+        device_ms_per_step=dev2 / 2, ops_per_step=cnt2 // 2,
+        busy=dec_busy), check=dict(B=Bc, S=Sc, f32_rel=f_rel,
+                                       routing_flips=flips,
+                                       f64_witness=witness),
+        moe_dropped_copies=drops,
+        model_init_s=init_s)
+    total = dict(launches)
+    for k, v in check_launches.items():
+        total[k] = total.get(k, 0) + v
+
+    if cfg.layer_pattern.count("attn_local"):
+        # the ring past its window: the window cut so that S wraps it
+        Bw, Sw, w = LM_LOCAL_CHECK
+        cw = dataclasses.replace(c32, window=w)
+        mw = Transformer(cw, seed=seed, device=dev)
+        wt = torch.randint(0, cfg.vocab, (Bw, Sw), generator=gen, device=dev)
+        _counts_reset()
+        fwd, dec = _decode_vs_forward(mw, wt, None)
+        _sync(dev)
+        w_rel = float((fwd - dec).abs().max()) / float(fwd.abs().max())
+        wl = _counts()[0]
+        say(f"  {arch} decode ≡ forward past the window (f32, window {w}, "
+            f"B={Bw}, S={Sw}): max |Δlogits| = {w_rel:.2e} of max |logits|")
+        check(w_rel <= TOL_LM_F32, f"{arch} local ring past its window "
+              f"({w_rel:.2e} <= {TOL_LM_F32:.0e})")
+        res["check"]["window_check"] = dict(B=Bw, S=Sw, window=w,
+                                            f32_rel=w_rel)
+        for k, v in wl.items():
+            total[k] = total.get(k, 0) + v
+        del mw, fwd, dec
+        torch.cuda.empty_cache()
+    return res, total
+
+
+def lm_families(dev, seed, out):
+    """Phase 14b: granite-moe (MoE), recurrentgemma (RG-LRU + local
+    attention), mamba2 (SSD) and whisper (encoder-decoder) at full width
+    and full depth."""
+    from repro_torch.configs import get_config
+    Bw, Sw, w = LM_LOCAL_CHECK
+    full = get_config("recurrentgemma-2b").window
+    say(f"  reduced: recurrentgemma-2b's decode ≡ forward past its window "
+        f"runs with window {full} → {w} at B {Bw} × S {Sw} (at S "
+        f"{LM_CHECK[1]} the {full}-slot ring never wraps)")
+    res, total = {}, {}
+    for arch, shape in LM_FAMILIES:
+        t = time.perf_counter()
+        r, launches = lm_family(dev, seed, arch, shape)
+        r["seconds"] = time.perf_counter() - t
+        say(f"  ({arch}) {r['seconds']:.1f} s")
+        res[arch] = r
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    out["lm_families"] = res
     return total
 
 
@@ -4675,8 +5056,8 @@ def ptxas_report(log, sources):
     out = []
     for e in entries:
         dyn = ""
-        m = re.match(r"(tc_kernel|simt_kernel)<(\d+)(?:, (\d+), (\d+))?>",
-                     e["name"])
+        m = re.match(r"(tc_kernel|simt_kernel)<(\d+)(?:, (\d+), (\d+))?"
+                     r"(?:, (?:true|false))?>", e["name"])
         if m:
             # the f32 kernel's tile: thread rows x query rows a thread
             nbytes = _build.lib().flash_attention_smem(
@@ -4735,7 +5116,9 @@ def main():
                            flash_shapes=FLASH_SHAPES, flash_gqa=FLASH_GQA,
                            lm_arch=LM_ARCH,
                            lm_prefill=LM_PREFILL, lm_serve=LM_SERVE,
-                           lm_check=LM_CHECK, batch_b=BATCH_B,
+                           lm_check=LM_CHECK, lm_families=LM_FAMILIES,
+                           lm_family_serve=LM_FAMILY_SERVE,
+                           lm_local_check=LM_LOCAL_CHECK, batch_b=BATCH_B,
                            spmm_k=SPMM_K, stencil_b=STENCIL_B,
                            step_lanes=(STEP_B, STEP_N),
                            ng_batch_stencil=NG_BATCH_STENCIL,
@@ -4807,6 +5190,9 @@ def main():
     del direct
     kres.update(phase("flash kernel", flash_phase, dev, SEED, out))
     for k, v in phase("LM serving path", lm_path, dev, SEED, out).items():
+        path_launches[k] = path_launches.get(k, 0) + v
+    for k, v in phase("LM families (14b)", lm_families, dev, SEED,
+                      out).items():
         path_launches[k] = path_launches.get(k, 0) + v
     bres, blaunch = phase("batched solves and the solve server", batch_phase,
                           dev, SEED, out, direct_A)

@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` → ModelConfig.
 
 All ten configurations of the reference are here as plain data; the port's
-model builds the dense-attention ones (``layer_pattern == ("attn",)``, no
-encoder) and raises ``NotImplementedError`` for the others."""
+model builds every one of them."""
 from .base import ModelConfig, ShapeConfig, SHAPES, smoke_variant
 from . import (recurrentgemma_2b, llama3_2_1b, qwen2_1_5b, qwen3_8b,
                qwen1_5_110b, granite_moe_1b_a400m, dbrx_132b, whisper_medium,

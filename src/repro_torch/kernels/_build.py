@@ -66,10 +66,11 @@ _SIGNATURES = {
                         _P],
     "sn_sweep": [_I, _I, _I, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P,
                  _P, _I, _I, _I, _I, _P],
+    # ... B, H, K, S, T, d, causal, window (, rows, heads), stream
     "flash_attention_f32": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _P],
+                            _I, _I, _I, _I, _P],
     "flash_attention_bf16": [_P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I,
-                             _I, _P],
+                             _I, _I, _P],
     "flash_attention_smem": [_I, _I, _I],
 }
 

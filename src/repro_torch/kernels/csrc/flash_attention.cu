@@ -6,7 +6,12 @@
 // an optional causal mask "key j <= query i" in absolute indices (top-left
 // aligned when T != S), masked scores set to -1e30, f32 running max /
 // denominator / accumulator, the output divided by max(l, 1e-30) and
-// written in q's dtype.  Any S and T >= 1; d in {16, 32, 64, 128}.
+// written in q's dtype.  Any S and T >= 1; d in {16, 32, 64, 128, 256}.
+// A sliding window (the reference model's local attention,
+// repro/models/attention.py:118-123) keeps only keys i - window < j <= i:
+// each block's KV walk starts at the tile of the first key its first query
+// keeps (kv_tiles, the one function both kernels and the bf16 producer call),
+// so compute and loads are O(S * window), and window 0 walks from tile 0.
 //
 // Layout (both kernels): q is (B, S, H, d) and k, v are (B, T, K, d), read
 // in place through their strides (the head dim contiguous); query head h
@@ -50,6 +55,8 @@
 // chip_smoke.py lost 3 greedy tokens of 256 on an H100 (94.5%, under its
 // 95% floor).  The split costs 1.5x the tensor-core work of one pass.
 // Head dims below 64 are zero-padded to one 128-byte row in shared memory.
+// Head dim 256 takes 32-key K / V tiles (O alone is 128 f32 registers a
+// consumer thread; 32 keys halve S and P) and runs P V as two n128 halves.
 // The decode == forward check moves by a few greedy tokens with the last
 // bits of the output, so tiles and rounding steps are kept as the check
 // was first passed with.  Not done yet: a consumer's next Q K^T in flight
@@ -83,7 +90,8 @@
 // causal loop ending at the block's last query.  The large tile runs one
 // block (8 warps, up to 254 registers a thread at d 128) an SM: blocks of
 // 8 thread rows, two an SM, were no faster on an H100
-// (tests/_torch_flash_f32_bench.py).
+// (tests/_torch_flash_f32_bench.py).  Head dim 256 runs the 32-row tile
+// only, with 32-key tiles (136 KB of shared memory).
 #include "common.cuh"
 
 #include <cuda.h>
@@ -106,7 +114,24 @@ struct Attn {
   int S, T;
   float scale;       // 1 / sqrt(d)
   int causal;
+  int window;        // > 0: keys i - window < j <= i only (causal)
 };
+
+// The KV tiles [t0, nt) of `bk` keys a block walks for its queries
+// q0 .. qend - 1, one function for every loop over them (the bf16 kernel's
+// producer and consumers must agree on the count, or its barriers stall).
+// Causal: the walk ends at the block's last query.  WIN (a window > 0): the
+// walk starts at the tile of the first key the block's first query keeps,
+// so tiles wholly outside the band are never loaded.  Both kernels take WIN
+// as a template argument that the launch picks from the window, so window 0
+// runs the instantiation without any window code: the kernels as they were.
+template <bool WIN>
+__device__ __forceinline__ void kv_tiles(const Attn& a, int q0, int qend, int bk, int& t0,
+                                         int& nt) {
+  const int kend = a.causal ? min(a.T, qend) : a.T;
+  nt = (kend + bk - 1) / bk;
+  t0 = WIN ? max(0, q0 - a.window + 1) / bk : 0;
+}
 
 // ---------------------------------------------------------------------------
 // f32: SIMT kernel
@@ -115,14 +140,15 @@ struct Attn {
 namespace simt {
 
 constexpr int kTX = 16;              // thread columns (one half-warp)
-constexpr int kBK = 64;              // keys per K / V tile
-constexpr int kTN = kBK / kTX;       // key columns per thread: 4
 
 // Shared memory (floats): Q tile, two K buffers, one V buffer, P tile.  Row
 // strides of 16 bytes past a multiple of 128 keep the float4 reads of a
-// quarter-warp on distinct banks.
+// quarter-warp on distinct banks.  Keys per K / V tile: 64, or 32 at head
+// dim 256 (three 64-key tiles of 256 dims would take 200 KB).
 template <int D, int TY, int TM>
 struct Cfg {
+  static constexpr int kBK = D > 128 ? 32 : 64;   // keys per K / V tile
+  static constexpr int kTN = kBK / kTX;           // key columns per thread
   static constexpr int kThreads = TY * kTX;       // TY thread rows
   static constexpr int kRows = TY * TM;           // query rows a block
   static constexpr int kStride = D + 4;           // Q, K, V rows
@@ -181,12 +207,13 @@ __device__ __forceinline__ float comp(const float4& f, int u) {
   return u == 0 ? f.x : u == 1 ? f.y : u == 2 ? f.z : f.w;
 }
 
-template <int D, int TY, int TM>
+template <int D, int TY, int TM, bool WIN>
 __global__ void __launch_bounds__(TY * kTX, 256 / (TY * kTX) * (TM >= 8 ? 1 : 2))
 simt_kernel(const Attn a, int heads, int bq) {
   using C = Cfg<D, TY, TM>;
   constexpr int kC4 = D / 4;         // 16-byte chunks a row
   constexpr int DT = C::kDT;
+  constexpr int kBK = C::kBK, kTN = C::kTN;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;
   float* k_s = q_s + C::kQ;          // K buffers t % 2
@@ -223,13 +250,14 @@ simt_kernel(const Attn a, int heads, int bq) {
     }
   };
   // causal: keys j <= i <= the block's last query; later tiles lie above
-  // the diagonal
-  const int kend = a.causal ? min(T, min(S, q0 + bq)) : T;
-  const int nt = (kend + kBK - 1) / kBK;
-  load_tile(k_s, k, a.sks, 0);
-  cp_commit();                       // group: Q and K(0)
-  load_tile(v_s, v, a.svs, 0);
-  cp_commit();                       // group: V(0)
+  // the diagonal; a window: earlier tiles lie below the band
+  int t0, nt;
+  kv_tiles<WIN>(a, q0, min(S, q0 + bq), kBK, t0, nt);
+  constexpr bool win = WIN;
+  load_tile(k_s + (t0 & 1) * C::kKV, k, a.sks, t0 * kBK);
+  cp_commit();                       // group: Q and K(t0)
+  load_tile(v_s, v, a.svs, t0 * kBK);
+  cp_commit();                       // group: V(t0)
 
   int qpos[TM];
   float m[TM], l[TM], acc[TM][DT];
@@ -243,7 +271,7 @@ simt_kernel(const Attn a, int heads, int bq) {
   }
   const float sl2 = a.scale * 1.4426950408889634f;   // scale * log2(e)
 
-  for (int t = 0; t < nt; ++t) {
+  for (int t = t0; t < nt; ++t) {
     const int k0 = t * kBK;
     const float* kb = k_s + (t & 1) * C::kKV;
     cp_wait_one();                   // K(t) landed (V(t) may be in flight)
@@ -279,15 +307,18 @@ simt_kernel(const Attn a, int heads, int bq) {
     cp_commit();
 
     // scale (log2 units), mask (only a tile that reaches past T or, causal,
-    // past the block's first query), online softmax; P to shared memory
-    const bool edge = k0 + kBK > T || (a.causal && k0 + kBK - 1 > q0);
+    // past the block's first query, or below the band of its last query),
+    // online softmax; P to shared memory
+    const bool edge = k0 + kBK > T || (a.causal && k0 + kBK - 1 > q0) ||
+                      (win && k0 <= q0 + bq - 1 - a.window);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       float mx = kNegInf;
 #pragma unroll
       for (int u = 0; u < kTN; ++u) {
         const int kj = k0 + tx + kTX * u;
-        const bool keep = !edge || (kj < T && (!a.causal || kj <= qpos[i]));
+        const bool keep = !edge || (kj < T && (!a.causal || kj <= qpos[i]) &&
+                                    (!win || kj > qpos[i] - a.window));
         s[i][u] = keep ? s[i][u] * sl2 : kNegInf;
         mx = fmaxf(mx, s[i][u]);
       }
@@ -351,13 +382,13 @@ simt_kernel(const Attn a, int heads, int bq) {
   }
 }
 
-template <int D, int TY, int TM>
+template <int D, int TY, int TM, bool WIN>
 int launch_tile(const Attn& a, int hx, int heads, void* stream) {
   using C = Cfg<D, TY, TM>;
   // above 48 KB a block's shared memory is granted only on request
   static bool granted = false;
   if (!granted) {
-    cudaError_t e = cudaFuncSetAttribute(simt_kernel<D, TY, TM>,
+    cudaError_t e = cudaFuncSetAttribute(simt_kernel<D, TY, TM, WIN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::kBytes);
     if (e != cudaSuccess) return (int)e;
@@ -367,7 +398,8 @@ int launch_tile(const Attn& a, int hx, int heads, void* stream) {
   const int tiles = (a.S + bq - 1) / bq;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid(hx, tiles);
-  simt_kernel<D, TY, TM><<<grid, C::kThreads, C::kBytes, (cudaStream_t)stream>>>(a, heads, bq);
+  simt_kernel<D, TY, TM, WIN><<<grid, C::kThreads, C::kBytes, (cudaStream_t)stream>>>(a, heads,
+                                                                                     bq);
   return (int)cudaGetLastError();
 }
 
@@ -379,17 +411,23 @@ int launch(const Attn& a, int B, int K, int rows, int heads, void* stream) {
     return (int)cudaErrorInvalidValue;
   const long long hx = (long long)B * K * (a.G / heads);
   if (hx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (rows == kLargeTY * kLargeTM)
-    return launch_tile<D, kLargeTY, kLargeTM>(a, (int)hx, heads, stream);
+  const bool win = a.window > 0;
+  // head dim 256: the small tile only (a 128-row Q tile takes 133 KB)
+  if constexpr (D <= 128)
+    if (rows == kLargeTY * kLargeTM)
+      return win ? launch_tile<D, kLargeTY, kLargeTM, true>(a, (int)hx, heads, stream)
+                 : launch_tile<D, kLargeTY, kLargeTM, false>(a, (int)hx, heads, stream);
   if (rows == kSmallTY * kSmallTM)
-    return launch_tile<D, kSmallTY, kSmallTM>(a, (int)hx, heads, stream);
+    return win ? launch_tile<D, kSmallTY, kSmallTM, true>(a, (int)hx, heads, stream)
+               : launch_tile<D, kSmallTY, kSmallTM, false>(a, (int)hx, heads, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 template <int D>
 int smem_bytes(int rows) {
-  return rows == kLargeTY * kLargeTM ? (int)Cfg<D, kLargeTY, kLargeTM>::kBytes
-                                     : (int)Cfg<D, kSmallTY, kSmallTM>::kBytes;
+  if constexpr (D <= 128)
+    if (rows == kLargeTY * kLargeTM) return (int)Cfg<D, kLargeTY, kLargeTM>::kBytes;
+  return (int)Cfg<D, kSmallTY, kSmallTM>::kBytes;
 }
 
 }  // namespace simt
@@ -401,13 +439,15 @@ int smem_bytes(int rows) {
 namespace tc {
 
 constexpr int kBQ = 128;             // queries per block: two consumer warpgroups
-constexpr int kBK = 64;              // keys per K / V tile
 constexpr int kStages = 3;           // K / V ring
 constexpr int kThreads = 384;        // producer warpgroup + two consumers
 
 template <int D>
 struct Cfg {
   static constexpr int DP = D < 64 ? 64 : D;        // head dim in shared memory
+  // keys per K / V tile: 64, or 32 at head dim 256, where O alone takes 128
+  // f32 registers a consumer thread and S and P half as many as at 64 keys
+  static constexpr int kBK = D > 128 ? 32 : 64;
   static constexpr int kQBytes = kBQ * DP * 2;
   static constexpr int kTileBytes = kBK * DP * 2;    // one K or V tile
   // + 1024 for the alignment of the swizzled tiles, + the mbarriers
@@ -505,6 +545,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
 }
 
 
+// d (64 x 32, f32) (+)= A (64 x 16, shared, K-major) * B (16 x 32, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint64_t db) {
@@ -527,29 +578,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(kThreads, 1)
 tc_kernel(const Attn a, const __grid_constant__ CUtensorMap tmq,
           const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv) {
   using C = Cfg<D>;
   constexpr int DP = C::DP;
+  constexpr int kBK = C::kBK;
   constexpr int NS = kBK / 2;        // score registers per thread
   constexpr int NO = DP / 2;         // output registers per thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base;
-  auto k_s = [&](int t) { return base + C::kQBytes + (t % kStages) * 2 * C::kTileBytes; };
-  auto v_s = [&](int t) { return k_s(t) + C::kTileBytes; };
+  // ring slots and barriers by the walk's step i (tile t0 + i)
+  auto k_s = [&](int i) { return base + C::kQBytes + (i % kStages) * 2 * C::kTileBytes; };
+  auto v_s = [&](int i) { return k_s(i) + C::kTileBytes; };
   const uint32_t bars = base + C::kQBytes + 2 * kStages * C::kTileBytes;
-  auto full = [&](int t) { return bars + 8 * (t % kStages); };
-  auto empty = [&](int t) { return bars + 8 * (kStages + t % kStages); };
+  auto full = [&](int i) { return bars + 8 * (i % kStages); };
+  auto empty = [&](int i) { return bars + 8 * (kStages + i % kStages); };
   const uint32_t qbar = bars + 8 * 2 * kStages;
 
   const int S = a.S, T = a.T;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / a.G;
   const int q0 = (gridDim.y - 1 - (int)blockIdx.y) * kBQ;   // heaviest first
-  const int kend = a.causal ? min(T, q0 + kBQ) : T;
-  const int nt = (kend + kBK - 1) / kBK;
+  int t0, nt;                        // the producer's and the consumers' walk
+  kv_tiles<WIN>(a, q0, q0 + kBQ, kBK, t0, nt);
+  const int steps = nt - t0;
+  constexpr bool win = WIN;
   const int tid = threadIdx.x, wg = tid >> 7;
 
   if (tid == 0) {
@@ -571,13 +626,14 @@ tc_kernel(const Attn a, const __grid_constant__ CUtensorMap tmq,
       mbar_expect(qbar, C::kQBytes);
 #pragma unroll
       for (int j = 0; j < DP / 64; ++j) tma_load(q_s + j * (kBQ * 128), &tmq, 64 * j, h, q0, b, qbar);
-      for (int t = 0; t < nt; ++t) {
-        if (t >= kStages) mbar_wait(empty(t), (t / kStages - 1) & 1);
-        mbar_expect(full(t), 2 * C::kTileBytes);
+      for (int i = 0; i < steps; ++i) {
+        const int k0 = (t0 + i) * kBK;
+        if (i >= kStages) mbar_wait(empty(i), (i / kStages - 1) & 1);
+        mbar_expect(full(i), 2 * C::kTileBytes);
 #pragma unroll
         for (int j = 0; j < DP / 64; ++j) {
-          tma_load(k_s(t) + j * (kBK * 128), &tmk, 64 * j, kvh, t * kBK, b, full(t));
-          tma_load(v_s(t) + j * (kBK * 128), &tmv, 64 * j, kvh, t * kBK, b, full(t));
+          tma_load(k_s(i) + j * (kBK * 128), &tmk, 64 * j, kvh, k0, b, full(i));
+          tma_load(v_s(i) + j * (kBK * 128), &tmv, 64 * j, kvh, k0, b, full(i));
         }
       }
     }
@@ -602,8 +658,8 @@ tc_kernel(const Attn a, const __grid_constant__ CUtensorMap tmq,
   if (cw == 1) bar_arrive(1);        // consumer 0 issues first
   mbar_wait(qbar, 0);
 
-  for (int t = 0; t < nt; ++t) {
-    const int k0 = t * kBK;
+  for (int t = 0; t < steps; ++t) {
+    const int k0 = (t0 + t) * kBK;
     mbar_wait(full(t), (t / kStages) & 1);
     // S = Q K^T over the head dim, 16 at a time (K-major; 32 B along the
     // swizzled row per step, the next 64-column sub-tile every 4 steps),
@@ -623,14 +679,15 @@ tc_kernel(const Attn a, const __grid_constant__ CUtensorMap tmq,
     fence_regs(s);
 
     // scale (log2 units), mask, online softmax
-    const bool edge = k0 + kBK > T || (a.causal && k0 + kBK - 1 > q0);
+    const bool edge = k0 + kBK > T || (a.causal && k0 + kBK - 1 > q0) ||
+                      (win && k0 <= q0 + kBQ - 1 - a.window);
     if (edge) {
       const int qa = q0 + rA, qb = qa + 8;
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
         const int kj = k0 + 8 * (i >> 2) + cq + (i & 1);
         const int qi = (i & 2) ? qb : qa;
-        const bool keep = kj < T && (!a.causal || kj <= qi);
+        const bool keep = kj < T && (!a.causal || kj <= qi) && (!win || kj > qi - a.window);
         s[i] = keep ? s[i] * sl2 : kNegInf;
       }
     } else {
@@ -678,13 +735,24 @@ tc_kernel(const Attn a, const __grid_constant__ CUtensorMap tmq,
     }
 
     // O += P_hi V + P_lo V over the tile's keys, 16 at a time (V MN-major:
-    // LBO the next 64 head dims, SBO the next 8 keys)
+    // LBO the next 64 head dims, SBO the next 8 keys); head dim 256 as two
+    // 128-column halves of O, the second from V's third 64-dim sub-tile
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint64_t dv = desc(v_s(t) + kk * (16 * 128), DP > 64 ? kBK * 128 : 1024, 1024);
-      wgmma_rs(o, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], dv);
-      wgmma_rs(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], dv);
+      if constexpr (NO == 128) {
+        float(&o0)[64] = *reinterpret_cast<float(*)[64]>(o);
+        float(&o1)[64] = *reinterpret_cast<float(*)[64]>(o + 64);
+        const uint64_t dv1 = desc(v_s(t) + 2 * (kBK * 128) + kk * (16 * 128), kBK * 128, 1024);
+        wgmma_rs(o0, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], dv);
+        wgmma_rs(o0, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], dv);
+        wgmma_rs(o1, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], dv1);
+        wgmma_rs(o1, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], dv1);
+      } else {
+        wgmma_rs(o, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], dv);
+        wgmma_rs(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], dv);
+      }
     }
     wgmma_commit();
     wgmma_wait();
@@ -747,48 +815,57 @@ int make_map(CUtensorMap* m, const void* ptr, int d, int heads, int n, int B, lo
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
-int launch(const Attn& a, int B, int K, int BH, void* stream) {
+template <int D, bool WIN>
+int launch_win(const Attn& a, int B, int K, int BH, void* stream) {
   // above 48 KB a block's shared memory is granted only on request
   static bool granted = false;
   if (!granted) {
-    cudaError_t e = cudaFuncSetAttribute(tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(tc_kernel<D, WIN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Cfg<D>::kSmem);
     if (e != cudaSuccess) return (int)e;
     granted = true;
   }
   CUtensorMap mq, mk, mv;
   int rc = make_map(&mq, a.q, D, a.H, a.S, B, a.sqs, a.sqh, a.sqb, kBQ);
-  if (!rc) rc = make_map(&mk, a.k, D, K, a.T, B, a.sks, a.skh, a.skb, kBK);
-  if (!rc) rc = make_map(&mv, a.v, D, K, a.T, B, a.svs, a.svh, a.svb, kBK);
+  if (!rc) rc = make_map(&mk, a.k, D, K, a.T, B, a.sks, a.skh, a.skb, Cfg<D>::kBK);
+  if (!rc) rc = make_map(&mv, a.v, D, K, a.T, B, a.svs, a.svh, a.svb, Cfg<D>::kBK);
   if (rc) return rc;
   dim3 grid(BH, (a.S + kBQ - 1) / kBQ);
-  tc_kernel<D><<<grid, kThreads, Cfg<D>::kSmem, (cudaStream_t)stream>>>(a, mq, mk, mv);
+  tc_kernel<D, WIN><<<grid, kThreads, Cfg<D>::kSmem, (cudaStream_t)stream>>>(a, mq, mk, mv);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const Attn& a, int B, int K, int BH, void* stream) {
+  return a.window > 0 ? launch_win<D, true>(a, B, K, BH, stream)
+                      : launch_win<D, false>(a, B, K, BH, stream);
 }
 
 }  // namespace tc
 
 // q, k, v, o and the 9 strides as an Attn; false on shapes the kernels
 // do not take
+// window > 0 needs causal and T >= S (every query then keeps its own key)
 bool make_attn(Attn* a, const void* q, const void* k, const void* v, void* o,
                const long long* strides, int B, int H, int K, int S, int T, int d,
-               int causal) {
-  if (T <= 0 || H <= 0 || K <= 0 || H % K != 0 || (long long)B * H > 0x7fffffffLL)
+               int causal, int window) {
+  if (T <= 0 || H <= 0 || K <= 0 || H % K != 0 || (long long)B * H > 0x7fffffffLL ||
+      window < 0 || (window > 0 && (!causal || T < S)))
     return false;
   *a = Attn{q, k, v, o,
             strides[0], strides[1], strides[2], strides[3], strides[4],
             strides[5], strides[6], strides[7], strides[8],
-            H, H / K, S, T, (float)(1.0 / sqrt((double)d)), causal};
+            H, H / K, S, T, (float)(1.0 / sqrt((double)d)), causal, window};
   return true;
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 const long long* strides, int B, int H, int K, int S, int T, int d,
-                int causal, void* stream) {
+                int causal, int window, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   Attn a;
-  if (!make_attn(&a, q, k, v, o, strides, B, H, K, S, T, d, causal) ||
+  if (!make_attn(&a, q, k, v, o, strides, B, H, K, S, T, d, causal, window) ||
       (S + tc::kBQ - 1) / tc::kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   const int BH = B * H;
@@ -797,22 +874,24 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     case 32: return tc::launch<32>(a, B, K, BH, stream);
     case 64: return tc::launch<64>(a, B, K, BH, stream);
     case 128: return tc::launch<128>(a, B, K, BH, stream);
+    case 256: return tc::launch<256>(a, B, K, BH, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                const long long* strides, int B, int H, int K, int S, int T, int d,
-               int causal, int rows, int heads, void* stream) {
+               int causal, int window, int rows, int heads, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   Attn a;
-  if (!make_attn(&a, q, k, v, o, strides, B, H, K, S, T, d, causal))
+  if (!make_attn(&a, q, k, v, o, strides, B, H, K, S, T, d, causal, window))
     return (int)cudaErrorInvalidValue;
   switch (d) {
     case 16: return simt::launch<16>(a, B, K, rows, heads, stream);
     case 32: return simt::launch<32>(a, B, K, rows, heads, stream);
     case 64: return simt::launch<64>(a, B, K, rows, heads, stream);
     case 128: return simt::launch<128>(a, B, K, rows, heads, stream);
+    case 256: return simt::launch<256>(a, B, K, rows, heads, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -821,21 +900,22 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // q (B, S, H, d), k and v (B, T, K, d) with `strides` = the batch, row and
 // head strides of q, k, v in elements (9 values); o (B, S, H, d) contiguous.
-// f32: `rows` (128 or 32) and `heads` (1, 2, 4 or 8) pick the block's tile
-// (flash_attention.f32_tile).
+// window > 0: keys i - window < j <= i only (causal, T >= S); 0: none.
+// f32: `rows` (128 or 32; 32 at d 256) and `heads` (1, 2, 4 or 8) pick the
+// block's tile (flash_attention.f32_tile).
 REPRO_EXPORT int flash_attention_f32(const void* q, const void* k, const void* v,
                                      void* o, const long long* strides, int B,
                                      int H, int K, int S, int T, int d, int causal,
-                                     int rows, int heads, void* stream) {
-  return launch_f32(q, k, v, o, strides, B, H, K, S, T, d, causal, rows, heads,
-                    stream);
+                                     int window, int rows, int heads, void* stream) {
+  return launch_f32(q, k, v, o, strides, B, H, K, S, T, d, causal, window, rows,
+                    heads, stream);
 }
 
 REPRO_EXPORT int flash_attention_bf16(const void* q, const void* k, const void* v,
                                       void* o, const long long* strides, int B,
                                       int H, int K, int S, int T, int d, int causal,
-                                      void* stream) {
-  return launch_bf16(q, k, v, o, strides, B, H, K, S, T, d, causal, stream);
+                                      int window, void* stream) {
+  return launch_bf16(q, k, v, o, strides, B, H, K, S, T, d, causal, window, stream);
 }
 
 // dynamic shared memory of the kernel for head dim d (tensor_cores: the
@@ -846,6 +926,7 @@ REPRO_EXPORT int flash_attention_smem(int d, int tensor_cores, int rows) {
     case 32: return tensor_cores ? tc::Cfg<32>::kSmem : simt::smem_bytes<32>(rows);
     case 64: return tensor_cores ? tc::Cfg<64>::kSmem : simt::smem_bytes<64>(rows);
     case 128: return tensor_cores ? tc::Cfg<128>::kSmem : simt::smem_bytes<128>(rows);
+    case 256: return tensor_cores ? tc::Cfg<256>::kSmem : simt::smem_bytes<256>(rows);
     default: return -1;
   }
 }

@@ -13,9 +13,13 @@ share its K/V tiles, loaded by ``cp.async`` into separate double-buffered K
 and single V buffers, register tiles fed by 128-bit shared loads, at 128 or
 32 query rows a block as :func:`f32_tile` picks.  On a CPU tensor they run
 the plain version ``ref.flash_attention_ref`` (p in f32; ``round_p=True``
-rounds p to bf16 once, as the reference model's jnp attention does).  Bound:
-operations — 4·B·H·S·T·d flops (about halved by the causal mask at S = T)
-against (q + k + v + o) bytes.
+rounds p to bf16 once, as the reference model's jnp attention does).
+``window`` > 0 is the local-attention band i − window < j ≤ i: both
+kernels start their KV loop at the first tile the block's band reaches, so
+tiles outside it are never loaded.  Bound: operations — 4·d flops per kept
+(query, key) pair, 4·B·H·S·T·d without a mask (about halved by the causal
+mask at S = T, B·H·d·Σᵢ min(i + 1, window) with a window) — against
+(q + k + v + o) bytes.
 """
 from __future__ import annotations
 
@@ -30,21 +34,26 @@ from . import ref as _ref
 #: the bf16 tensor-core kernel and the f32 SIMT kernel
 LAUNCHES = {"flash_attention": 0, "flash_attention_f32": 0}
 #: head dims the kernels are built for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: query rows a bf16 block takes (the grid's query tiles must fit 65535)
 BF16_ROWS = 128
 
 
-def f32_tile(B: int, H: int, K: int, S: int, sms: int) -> tuple:
-    """(rows, heads) of the f32 kernel's block for q (B, S, H, ·) and K KV
+def f32_tile(B: int, H: int, K: int, S: int, sms: int, d: int = 64
+             ) -> tuple:
+    """(rows, heads) of the f32 kernel's block for q (B, S, H, d) and K KV
     heads on a card of ``sms`` streaming multiprocessors: the block takes
     ``heads`` query heads of one KV head (the largest of 8, 4, 2, 1
     dividing H/K, so each K/V tile it loads serves all of them) at
     rows/heads query positions.  128 rows when that grid still fills the
     SMs twice over, else 32 rows, so a small batch covers the card (B 2 ×
-    32 heads at S 128 on 132 SMs: 256 blocks of 32 rows, not 64 of 128)."""
+    32 heads at S 128 on 132 SMs: 256 blocks of 32 rows, not 64 of 128).
+    Head dim 256 takes 32 rows always: a 128-row Q tile alone would fill
+    133 KB of the block's 227 KB of shared memory."""
     G = H // K
     heads = next(c for c in (8, 4, 2, 1) if G % c == 0)
+    if d > 128:
+        return 32, heads
 
     def blocks(rows):
         return B * K * (G // heads) * -(-S // (rows // heads))
@@ -52,7 +61,7 @@ def f32_tile(B: int, H: int, K: int, S: int, sms: int) -> tuple:
     return (128 if blocks(128) >= 2 * sms else 32), heads
 
 
-def _plain(q, k, v, causal: bool) -> torch.Tensor:
+def _plain(q, k, v, causal: bool, window: int = 0) -> torch.Tensor:
     """The plain version on the (B, S, H, d) / (B, T, K, d) layout: the KV
     heads expanded to (B·H, T, d), one ``ref.flash_attention_ref`` call."""
     B, S, H, d = q.shape
@@ -64,7 +73,7 @@ def _plain(q, k, v, causal: bool) -> torch.Tensor:
             B * H, n, d)
 
     o = _ref.flash_attention_ref(heads(q, S), heads(k, T), heads(v, T),
-                                 causal=causal)
+                                 causal=causal, window=window)
     return o.reshape(B, H, S, d).transpose(1, 2).contiguous()
 
 
@@ -82,14 +91,17 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True, window: int = 0
+                        ) -> torch.Tensor:
     """softmax(q·kᵀ/√d)·v per batch and query head, f32 inside, out in q's
     dtype, (B, S, H, d) contiguous.
 
     ``q``: (B, S, H, d); ``k``, ``v``: (B, T, K, d) with K dividing H —
     query head h reads KV head h // (H/K).  ``causal`` keeps key j ≤ query
-    i (absolute indices, top-left aligned when T ≠ S).  Any S and T ≥ 1;
-    d in :data:`HEAD_DIMS`; float32 or bfloat16 on the card."""
+    i (absolute indices, top-left aligned when T ≠ S); ``window`` > 0
+    (causal, T ≥ S, so that every query keeps a key) keeps only
+    i − window < j ≤ i.  Any S and T ≥ 1; d in :data:`HEAD_DIMS`; float32
+    or bfloat16 on the card."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -98,8 +110,13 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != d or K == 0 or H % K:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} disagree")
+    window = int(window)
+    if window < 0 or (window and (not causal or T < S)):
+        raise ValueError(f"flash_attention: window {window} needs "
+                         f"causal=True and T >= S (got causal={causal}, "
+                         f"S={S}, T={T})")
     if q.device.type == "cpu":
-        return _plain(q, k, v, causal)
+        return _plain(q, k, v, causal, window)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: tensors on {q.device} / "
                          f"{k.device} / {v.device}")
@@ -110,7 +127,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     tag = _build.cuda_dtype_tag(q.dtype, allowed=("f32", "bf16"))
     tile = f32_tile(B, H, K, S, torch.cuda.get_device_properties(
-        q.device).multi_processor_count) if tag == "f32" else ()
+        q.device).multi_processor_count, d) if tag == "f32" else ()
     span = tile[0] // tile[1] if tile else BF16_ROWS    # positions a block
     if T == 0 or -(-S // span) > 65535:
         raise ValueError(f"flash_attention: needs 1 <= T and S <= "
@@ -124,7 +141,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         for i in range(3)))
     fn = getattr(_build.lib(), f"flash_attention_{tag}")
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    strides, B, H, K, S, T, d, int(causal), *tile,
+                    strides, B, H, K, S, T, d, int(causal), window, *tile,
                     _build.stream_ptr(q)), "flash_attention")
     LAUNCHES["flash_attention" if tag == "bf16" else
              "flash_attention_f32"] += 1

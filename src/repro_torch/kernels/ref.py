@@ -482,15 +482,19 @@ ATTN_NEG_INF = -1e30            # the reference's attention mask value
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        round_p: bool = False) -> torch.Tensor:
+                        round_p: bool = False,
+                        window: int = 0) -> torch.Tensor:
     """Attention softmax(q·kᵀ/√d)·v in f32 (f64 for f64 inputs), the
     result in q's dtype.
 
     ``q``: (BH, S, d); ``k``, ``v``: (BH, T, d).  ``causal`` keeps key
-    j ≤ query i in absolute indices (top-left aligned when T ≠ S).  The
-    reference's ``flash_attention_ref``; ``round_p`` rounds the
-    probabilities to bf16 once before p·v, as the reference model's jnp
-    attention does."""
+    j ≤ query i in absolute indices (top-left aligned when T ≠ S);
+    ``window`` > 0 (causal only) keeps key j iff i − window < j ≤ i, the
+    reference model's local-attention mask.  The reference's
+    ``flash_attention_ref``; ``round_p`` rounds the probabilities to bf16
+    once before p·v, as the reference model's jnp attention does."""
+    if window and not causal:
+        raise ValueError("flash_attention: a window needs causal=True")
     d = q.shape[-1]
     acc = torch.promote_types(q.dtype, torch.float32)
     s = torch.einsum("bsd,btd->bst", q.to(acc), k.to(acc)) / (d ** 0.5)
@@ -498,7 +502,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
         S, T = s.shape[-2:]
         i = torch.arange(S, device=q.device)[:, None]
         j = torch.arange(T, device=q.device)[None, :]
-        s = torch.where((j <= i)[None], s, ATTN_NEG_INF)
+        keep = j <= i
+        if window > 0:
+            keep &= j > i - window
+        s = torch.where(keep[None], s, ATTN_NEG_INF)
     p = torch.softmax(s, dim=-1)
     if round_p:
         p = p.to(torch.bfloat16).to(acc)

@@ -1,23 +1,29 @@
-"""Attention: GQA with optional qk-norm / QKV bias / RoPE / M-RoPE, and the
-ring-buffer KV cache of one-token decode.
+"""Attention: GQA with optional qk-norm / QKV bias / RoPE / M-RoPE; full,
+local (sliding-window), bidirectional and cross variants; and the
+ring-buffer KV cache of one-token decode, whose capacity is
+``min(seq, window)`` for local layers.
 
-The port of the reference's ``repro/models/attention.py`` for the dense
-decoder: modes ``causal`` and ``bidir``.  On every device the
+The port of the reference's ``repro/models/attention.py``: modes
+``causal``, ``local``, ``bidir`` and ``cross``.  On every device the
 score/softmax/PV core of :func:`attention` is ONE call of
 ``kernels.flash_attention.flash_attention_gqa`` on q (B, S, H, hd) and
 k, v (B, S, K, hd) as the projections leave them — the kernel reads them in
 place, query head h on KV head h // (H/K), and writes (B, S, H, hd), so no
 head-expanded or transposed copies are made: the hand-written kernel on a
-CUDA tensor, its plain version on a CPU tensor.  The kernel, like the
+CUDA tensor, its plain version on a CPU tensor.  ``local`` passes the
+window to the kernel (keys i − window < j ≤ i; the kernel walks only the
+band's tiles); ``cross`` reads K/V projected from the encoder output with
+K = H heads, no RoPE, unmasked.  The kernel, like the
 reference's flash kernel, keeps the probabilities at f32 precision (in bf16
 as two bf16 halves); the reference model's own formula (dense scores,
 query-chunked above 2·512 queries) and the port's decode round them to
 bf16 once before p·v, so the two agree to f32 rounding in f32 and to one
 bf16 rounding of p in bf16.  Decode attention is plain torch, as in the
-reference (no kernel).  Local (sliding-window) and cross attention are not
-ported yet.
+reference (no kernel).
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,25 +33,20 @@ from ..kernels.flash_attention import flash_attention_gqa
 from .layers import RMSNorm, apply_rope, const_param, dense_init, pdtype
 
 NEG_INF = -1e30
-#: attention modes this package runs
-MODES = ("causal", "bidir")
-
-
-def _unported(mode: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"attention mode {mode!r} is not ported yet: local (sliding-window) "
-        "and cross attention come with a later slice of the LM port "
-        "(ROADMAP, slice 7)")
 
 
 class Attention(nn.Module):
     """Projections ``wq`` (d, H·hd), ``wk``/``wv`` (d, K·hd), ``wo``
     (H·hd, d); ``bq``/``bk``/``bv`` with ``qkv_bias``; ``q_norm``/``k_norm``
-    (RMSNorm over hd) with ``qk_norm``."""
+    (RMSNorm over hd) with ``qk_norm``.  ``cross``: K = H (whisper's cross
+    attention is MHA)."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device,
+                 cross: bool = False):
         super().__init__()
         d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        if cross:
+            K = H
         dt = pdtype(cfg)
         self.wq = dense_init(gen, (d, H * hd), dt, device)
         self.wk = dense_init(gen, (d, K * hd), dt, device)
@@ -70,14 +71,14 @@ def _project_q(p: Attention, x, cfg: ModelConfig):
     return q.reshape(B, S, cfg.n_heads, cfg.hd)
 
 
-def _project_kv(p: Attention, src, cfg: ModelConfig):
+def _project_kv(p: Attention, src, cfg: ModelConfig, cross: bool = False):
     B, T, _ = src.shape
     k = src @ p.wk.to(src.dtype)
     v = src @ p.wv.to(src.dtype)
     if p.bk is not None:
         k = k + p.bk.to(src.dtype)
         v = v + p.bv.to(src.dtype)
-    K = cfg.n_kv_heads
+    K = cfg.n_heads if cross else cfg.n_kv_heads
     return k.reshape(B, T, K, cfg.hd), v.reshape(B, T, K, cfg.hd)
 
 
@@ -109,19 +110,25 @@ def _gqa_out(probs, v, wo, B: int, S: int, cfg: ModelConfig):
 
 
 def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor, mode: str = "causal") -> torch.Tensor:
-    """Prefill attention over ``x`` (B, S, d); ``mode``: causal | bidir."""
-    if mode not in MODES:
-        raise _unported(mode)
+              positions: torch.Tensor, mode: str = "causal",
+              enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Prefill attention over ``x`` (B, S, d); ``mode``: causal | local |
+    bidir | cross (keys and values from ``enc_out`` (B, T, d))."""
+    if mode not in ("causal", "local", "bidir", "cross"):
+        raise ValueError(f"unknown attention mode {mode!r}")
     B, S, _ = x.shape
+    cross = mode == "cross"
     q = _project_q(p, x, cfg)
-    k, v = _project_kv(p, x, cfg)
+    k, v = _project_kv(p, enc_out if cross else x, cfg, cross)
     if p.q_norm is not None:
         q = p.q_norm(q)
         k = p.k_norm(k)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
-    o = flash_attention_gqa(q, k, v, causal=mode == "causal")
+    if not cross:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    o = flash_attention_gqa(
+        q, k, v, causal=mode in ("causal", "local"),
+        window=cfg.window if mode == "local" else 0)
     return o.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo.to(x.dtype)
 
 
@@ -131,10 +138,11 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, mode: str,
                dtype, device) -> dict:
-    """Ring-buffer cache: keys and values (B, capacity, K, hd) and the
-    absolute position held by each slot (−1: empty)."""
-    if mode != "causal":
-        raise _unported(mode)
+    """Ring-buffer cache (``mode`` causal or local): keys and values
+    (B, capacity, K, hd) and the absolute position held by each slot (−1:
+    empty)."""
+    if mode not in ("causal", "local"):
+        raise ValueError(f"attention mode {mode!r} keeps no KV cache")
     K, hd = cfg.n_kv_heads, cfg.hd
     return {
         "k": torch.zeros((batch, capacity, K, hd), dtype=dtype, device=device),
@@ -144,21 +152,35 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, mode: str,
 
 
 def cache_capacity(cfg: ModelConfig, mode: str, seq_len: int) -> int:
-    if mode != "causal":
-        raise _unported(mode)
+    """``min(seq_len, window)`` for local layers, else ``seq_len``."""
+    if mode == "local":
+        return min(seq_len, cfg.window)
     return seq_len
 
 
-def decode_attention(p: Attention, x: torch.Tensor, cache: dict,
-                     cfg: ModelConfig, *, pos, mode: str = "causal"):
+def decode_attention(p: Attention, x: torch.Tensor, cache: Optional[dict],
+                     cfg: ModelConfig, *, pos, mode: str = "causal",
+                     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                     = None):
     """One-token decode.  ``x``: (B, 1, d); ``pos``: the absolute position.
 
     Keys are stored after RoPE in ring slot ``pos % capacity``; validity
-    comes from the per-slot absolute-position table.  The cache is updated
-    in place (the reference returns a new one) and returned."""
-    if mode != "causal":
-        raise _unported(mode)
+    comes from the per-slot absolute-position table, which handles the
+    full and the sliding-window masks alike (``local`` keeps slots with
+    pos − window < position ≤ pos).  The cache is updated in place (the
+    reference returns a new one) and returned.  ``cross`` attends over the
+    encoder's ``cross_kv`` = (k, v) (B, T, H, hd) and leaves ``cache`` as
+    it is."""
     B = x.shape[0]
+    if mode == "cross":
+        q = _project_q(p, x, cfg)
+        if p.q_norm is not None:
+            q = p.q_norm(q)
+        k, v = cross_kv
+        probs = torch.softmax(_gqa_scores(q, k, cfg).float(), dim=-1)
+        return _gqa_out(probs.to(x.dtype), v, p.wo, B, 1, cfg), cache
+    if mode not in ("causal", "local"):
+        raise ValueError(f"attention mode {mode!r} has no one-token decode")
     pos = int(pos)
     q = _project_q(p, x, cfg)
     k_new, v_new = _project_kv(p, x, cfg)
@@ -177,6 +199,8 @@ def decode_attention(p: Attention, x: torch.Tensor, cache: dict,
 
     scores = _gqa_scores(q, ck, cfg).float()               # (B, H, 1, cap)
     valid = (cpos >= 0) & (cpos <= pos)
+    if mode == "local":
+        valid &= cpos > pos - cfg.window
     scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     return _gqa_out(probs, cv, p.wo, B, 1, cfg), cache

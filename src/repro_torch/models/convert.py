@@ -7,6 +7,9 @@ each period on a leading axis under ``params["stack"]["l{i}"]`` and keeps
 the remainder under ``params["rem"]``; the port's layer
 ``p·len(pattern) + i`` is the stack's slice ``p`` of ``l{i}``, and the
 remainder follows.  Tied embeddings have no ``unembed`` on either side.
+An encoder-decoder's ``params["encoder"]["stack"]`` is stacked over its
+``n_enc_layers`` and goes to ``encoder.layers.{n}``, its ``final_norm`` to
+``encoder.final_norm``.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .transformer import Transformer, check_ported
+from .transformer import Transformer
 
 
 def _flat(prefix: str, tree: dict, out: dict) -> None:
@@ -28,7 +31,6 @@ def _flat(prefix: str, tree: dict, out: dict) -> None:
 
 def params_from_jax(cfg: ModelConfig, params_np: dict) -> dict:
     """The port's ``state_dict`` (CPU tensors) for the reference's params."""
-    check_ported(cfg)
     period = len(cfg.layer_pattern)
     n_full = cfg.n_layers // period
     layers = []
@@ -47,6 +49,13 @@ def params_from_jax(cfg: ModelConfig, params_np: dict) -> dict:
     for n, one in enumerate(layers):
         for k, a in one.items():
             flat[f"layers.{n}.{k}"] = a
+    if cfg.enc_dec:
+        enc = {}
+        _flat("", params_np["encoder"]["stack"], enc)
+        for n in range(cfg.n_enc_layers):
+            for k, a in enc.items():
+                flat[f"encoder.layers.{n}.{k}"] = a[n]
+        _flat("encoder.final_norm", params_np["encoder"]["final_norm"], flat)
     return {k: torch.tensor(a) for k, a in flat.items()}
 
 

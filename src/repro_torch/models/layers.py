@@ -27,6 +27,12 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or as it is in f64: the reference's f32 islands (norms,
+    logits, the SSD's decays) stay f64 in an f64 model."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def dense_init(gen: torch.Generator, shape, dtype, device,
                scale: Optional[float] = None) -> nn.Parameter:
     """N(0, 1)·scale, scale 1/√fan_in by default (fan_in = shape[0])."""
@@ -45,7 +51,8 @@ def const_param(shape, value: float, dtype, device) -> nn.Parameter:
 # ---------------------------------------------------------------------------
 
 class RMSNorm(nn.Module):
-    """x / rms(x) · scale over the last axis, in f32, cast back to x's dtype."""
+    """x / rms(x) · scale over the last axis, in f32 (f64 for f64), cast
+    back to x's dtype."""
 
     def __init__(self, d: int, eps: float, dtype, device):
         super().__init__()
@@ -53,10 +60,10 @@ class RMSNorm(nn.Module):
         self.scale = const_param((d,), 1.0, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = at_least_f32(x)
         var = (xf * xf).mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps)
-        return (y * self.scale.float()).to(x.dtype)
+        return (y * self.scale.to(xf.dtype)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -159,13 +166,14 @@ class Embed(nn.Module):
         return self.tok[tokens].to(adtype(self.cfg))
 
     def logits(self, x: torch.Tensor, *, sliced: bool = True) -> torch.Tensor:
-        """Vocabulary logits in f32.  The vocab axis is padded to a multiple
-        of 256 with −1e30 columns (the reference's shardable layout);
-        ``sliced=False`` keeps the padding."""
+        """Vocabulary logits in f32 (f64 for f64).  The vocab axis is padded
+        to a multiple of 256 with −1e30 columns (the reference's shardable
+        layout); ``sliced=False`` keeps the padding."""
         w = self.unembed if self.unembed is not None else self.tok.T
         V = self.cfg.vocab
         Vp = -(-V // 256) * 256
-        logits = x.float() @ w.float()
+        x = at_least_f32(x)
+        logits = x @ w.to(x.dtype)
         if Vp != V and not sliced:
             pad = torch.full(logits.shape[:-1] + (Vp - V,), -1e30,
                              dtype=logits.dtype, device=logits.device)

@@ -1,5 +1,6 @@
 """Variants of the f32 flash-attention kernel (``simt_kernel``,
-``csrc/flash_attention.cu``) timed against each other on the card.
+``csrc/flash_attention.cu``) timed against each other on the card, and
+the bf16 kernel (``tc_kernel``) against an earlier source.
 
     python3 tests/_torch_flash_f32_bench.py [--parent DIR]
 
@@ -21,7 +22,10 @@ with one query head a block: no GQA sharing), ``64-row blocks`` and
 threads, instead of 16), ``mask every tile`` (a build that evaluates the
 mask on every tile, not only on edge tiles) and, with ``--parent DIR`` (a
 directory holding an earlier ``flash_attention.cu`` and ``common.cuh``),
-``parent``.  Needs one NVIDIA GPU; builds the variants with nvcc.
+``parent``.  With ``--parent``, the bf16 kernel too is timed against the
+parent's at ``chip_smoke.py``'s bf16 shapes (the prefill layer (128,
+4096, 4096, 64) causal and the ragged (24, 1000, 1000, 128) causal).
+Needs one NVIDIA GPU; builds the variants with nvcc.
 """
 import argparse
 import ctypes
@@ -45,6 +49,8 @@ SHAPES = (("f32 check GQA (7b)", 2, 128, 128, 32, 8, 64, True),
           ("f32 causal", 64, 2048, 2048, 1, 1, 64, True),
           ("f32 bidir", 64, 2048, 2048, 1, 1, 64, False),
           ("uneven f32", 2, 128, 256, 1, 1, 64, False))
+BF16_SHAPES = (("prefill layer bf16 (7)", 128, 4096, 4096, 1, 1, 64, True),
+               ("ragged bf16", 24, 1000, 1000, 1, 1, 128, True))
 
 
 #: variant builds: (edit of the source, {rule's rows: the build's rows})
@@ -67,11 +73,21 @@ def variant_sources(parent):
     return out
 
 
-def caller(name, lib, sms):
-    fn = lib.flash_attention_f32
+def _entry_ints(text, entry):
+    """The int arguments of ``entry`` in a source's C interface: B, H, K,
+    S, T, d, causal, then ``window`` and (f32) ``rows``, ``heads`` where
+    that source has them."""
+    sig = text[text.index(f"int {entry}("):]
+    sig = sig[:sig.index(")")]
+    return sig.count("int ") - 1         # the return type's int
+
+
+def caller(name, lib, sms, text, bf16=False):
+    entry = "flash_attention_bf16" if bf16 else "flash_attention_f32"
+    fn = getattr(lib, entry)
+    n_int = _entry_ints(text, entry)
     P, I, LP = _build._P, _build._I, _build._LP
-    fn.argtypes = [P, P, P, P, LP] + [I] * (7 if name == "parent" else 9) \
-        + [P]
+    fn.argtypes = [P, P, P, P, LP] + [I] * n_int + [P]
     fn.restype = I
 
     def call(q, k, v, o, causal):
@@ -88,13 +104,59 @@ def caller(name, lib, sms):
             heads = 1
         elif name in EDITS:
             rows = EDITS[name][1].get(rows, rows)
-        tile = () if name == "parent" else (rows, heads)
+        # after causal: the window (0) and the f32 tile, where this source
+        # takes them
+        extra = ((0,)[:n_int - 7] if bf16 else
+                 {7: (), 9: (rows, heads), 10: (0, rows, heads)}[n_int])
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr(), strides, B, H, K, S, T, d, int(causal),
-                        *tile, torch.cuda.current_stream().cuda_stream),
+                        *extra, torch.cuda.current_stream().cuda_stream),
                      name)
         return o
     return call
+
+
+def time_shapes(shapes, calls, dtype, peak, sms, dev, gen):
+    """Median device ms of each caller on each shape, in turns."""
+    for label, B, S, T, H, K, d, causal in shapes:
+        qkv = torch.randn((B, S, H + 2 * K, d), generator=gen, device=dev) \
+            if S == T else None
+        if qkv is not None:
+            qkv = qkv.to(dtype)
+            q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+        else:
+            q = torch.randn((B, S, H, d), generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn((B, T, K, d), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+        o = torch.empty((B, S, H, d), device=dev, dtype=dtype)
+        want = calls["committed"](q, k, v, torch.empty_like(o),
+                                  causal).float()
+        diff = {}
+        for name, c in calls.items():
+            got = c(q, k, v, o, causal).float()
+            diff[name] = float(((got - want).abs()
+                                / (1 + want.abs())).max())
+        pairs = (int(np.minimum(np.arange(S) + 1, T).sum()) if causal
+                 else S * T)
+        flops = 4 * B * H * d * pairs
+        bound = flops / peak * 1e3
+        reps = max(3, min(50, int(2e3 / max(bound, 1e-3) / 100)))
+        t = {name: [] for name in calls}
+        order = list(calls)
+        for reading in range(5):
+            for name in (order if reading % 2 == 0 else order[::-1]):
+                t[name].append(ev_ms(lambda: calls[name](q, k, v, o, causal),
+                                     reps))
+        tile = (f"; tile {f32_tile(B, H, K, S, sms, d)}"
+                if dtype == torch.float32 else "")
+        print(f"{label} (B {B}, S {S}, T {T}, H {H}, K {K}, d {d}, "
+              f"{'causal' if causal else 'bidir'}{tile}; bound "
+              f"{bound:.5f} ms): " + "; ".join(
+                  f"{name} {np.median(v):.4f} ms ({bound / np.median(v):.1%};"
+                  f" Δ {diff[name]:.1e})" for name, v in t.items()),
+              flush=True)
+        del qkv, q, k, v, o, want
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -105,53 +167,24 @@ def main():
         sys.exit("needs an NVIDIA GPU")
     print(card(), flush=True)
     dev = torch.device("cuda")
-    built = build_variants(variant_sources(args.parent))
+    sources = variant_sources(args.parent)
+    built = build_variants(sources)
     for k, (_, log) in built.items():
         print(f"ptxas {k}: " + "; ".join(ptxas(log, "simt_kernel")),
               flush=True)
     libs = {k: v[0] for k, v in built.items()}
+    texts = {k: v[0] for k, v in sources.items()}
     for k in ("large", "small", "one head"):
-        libs[k] = libs["committed"]
+        libs[k], texts[k] = libs["committed"], texts["committed"]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    calls = {k: caller(k, lib, sms) for k, lib in libs.items()}
+    calls = {k: caller(k, lib, sms, texts[k]) for k, lib in libs.items()}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    for label, B, S, T, H, K, d, causal in SHAPES:
-        qkv = torch.randn((B, S, H + 2 * K, d), generator=gen, device=dev) \
-            if S == T else None
-        if qkv is not None:
-            q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
-        else:
-            q = torch.randn((B, S, H, d), generator=gen, device=dev)
-            k, v = (torch.randn((B, T, K, d), generator=gen, device=dev)
-                    for _ in range(2))
-        o = torch.empty((B, S, H, d), device=dev)
-        want = calls["committed"](q, k, v, torch.empty_like(o), causal)
-        diff = {}
-        for name, c in calls.items():
-            got = c(q, k, v, o, causal)
-            diff[name] = float(((got - want).abs()
-                                / (1 + want.abs())).max())
-        pairs = (int(np.minimum(np.arange(S) + 1, T).sum()) if causal
-                 else S * T)
-        flops = 4 * B * H * d * pairs
-        bound = flops / PEAK * 1e3
-        reps = max(3, min(50, int(2e3 / max(bound, 1e-3) / 100)))
-        t = {name: [] for name in calls}
-        order = list(calls)
-        for reading in range(5):
-            for name in (order if reading % 2 == 0 else order[::-1]):
-                t[name].append(ev_ms(lambda: calls[name](q, k, v, o, causal),
-                                     reps))
-        tile = f32_tile(B, H, K, S, sms)
-        print(f"{label} (B {B}, S {S}, T {T}, H {H}, K {K}, d {d}, "
-              f"{'causal' if causal else 'bidir'}; tile {tile}; bound "
-              f"{bound:.5f} ms): " + "; ".join(
-                  f"{name} {np.median(v):.4f} ms ({bound / np.median(v):.1%};"
-                  f" Δ {diff[name]:.1e})" for name, v in t.items()),
-              flush=True)
-        del qkv, q, k, v, o, want
-        torch.cuda.empty_cache()
+    time_shapes(SHAPES, calls, torch.float32, PEAK, sms, dev, gen)
+    if args.parent:
+        bf = {k: caller(k, libs[k], sms, texts[k], bf16=True)
+              for k in ("committed", "parent")}
+        time_shapes(BF16_SHAPES, bf, torch.bfloat16, 989e12, sms, dev, gen)
 
 
 if __name__ == "__main__":

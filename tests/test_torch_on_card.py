@@ -361,6 +361,93 @@ def test_f32_flash_tiles_match_plain_on_card(cuda_device, case):
     assert bool(((out - want).abs() <= 2e-5 * (1 + want.abs())).all())
 
 
+def _expanded(t, H):
+    """(B, n, K, d) → (B·H, n, d) f32, KV head h // (H/K) for query head h."""
+    B, n, K, d = t.shape
+    t = t.float().repeat_interleave(H // K, dim=2)
+    return t.permute(0, 2, 1, 3).reshape(B * H, n, d)
+
+
+def _gqa_plain(q, k, v, causal, window=0):
+    B, S, H, d = q.shape
+    o = tref.flash_attention_ref(_expanded(q, H), _expanded(k, H),
+                                 _expanded(v, H), causal=causal,
+                                 window=window)
+    return o.reshape(B, H, S, d).transpose(1, 2)
+
+
+def _within(out, want, dtype):
+    rtol, atol = BF16_TOL if dtype == torch.bfloat16 else (2e-5, 2e-5)
+    return bool(((out.float() - want).abs() <= rtol * want.abs() + atol).all())
+
+
+#: sliding windows: one key, a ragged band, a tile-sized band and
+#: recurrentgemma's 2048, at S not a multiple of any tile (2600 for 2048, so
+#: that the last blocks' bands start past tile 0)
+WINDOWS = (1, 17, 128, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("window", WINDOWS)
+def test_windowed_flash_matches_plain_on_card(cuda_device, dtype, d, window):
+    """The band i − window < j ≤ i on both kernels (strided GQA views; at
+    d 256 one KV head, as recurrentgemma's local layers) against the plain
+    version on the expanded heads."""
+    from repro_torch import kernels
+    B, H, K = (1, 4, 2) if d == 64 else (1, 2, 1)
+    S = 2600 if window == 2048 else 333
+    rng = np.random.default_rng(window + d)
+    qkv = torch.tensor(rng.normal(size=(B, S, H + 2 * K, d)), dtype=dtype,
+                       device=cuda_device)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+    kernels.reset_launch_counts()
+    out = flash_attention_gqa(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention" if dtype == torch.bfloat16
+                                   else "flash_attention_f32"] == 1
+    assert _within(out, _gqa_plain(q, k, v, True, window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 256])
+def test_window_zero_and_wide_window_are_bit_equal_on_card(cuda_device, dtype,
+                                                           d):
+    """window 0 is the call without the argument, and a window wider than
+    every query's reach (S) takes the windowed branch to the same bits."""
+    B, S, H, K = 2, 400, 4, 2
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.tensor(rng.normal(size=(B, S, n, d)), dtype=dtype,
+                            device=cuda_device) for n in (H, K, K))
+    plain = flash_attention_gqa(q, k, v, causal=True)
+    zero = flash_attention_gqa(q, k, v, causal=True, window=0)
+    wide = flash_attention_gqa(q, k, v, causal=True, window=S)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, zero)
+    assert torch.equal(plain, wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_gqa_one_kv_head_d256_matches_plain_on_card(cuda_device, dtype,
+                                                    causal):
+    """K = 1 at head dim 256 (recurrentgemma's attention: H 10, K 1),
+    causal with S = T and bidirectional with T ≠ S."""
+    B, S, H = 2, 300, 10
+    T = S if causal else 333
+    rng = np.random.default_rng(int(causal))
+    q = torch.tensor(rng.normal(size=(B, S, H, 256)), dtype=dtype,
+                     device=cuda_device)
+    k, v = (torch.tensor(rng.normal(size=(B, T, 1, 256)), dtype=dtype,
+                         device=cuda_device) for _ in range(2))
+    out = flash_attention_gqa(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _within(out, _gqa_plain(q, k, v, causal), dtype)
+
+
 # ---------------------------------------------------------------------------
 # the preconditioned Krylov path: the MG smoother on the stencil kernel, the
 # AMG V-cycle, GMRES — each on the card against the CPU port (plain

@@ -19,7 +19,7 @@ from repro.configs import get_config as jget_config
 from repro.configs import smoke_variant as jsmoke
 from repro.launch.serve import make_serve_step as jmake_serve_step
 from repro.models import transformer as jT
-from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
 from repro_torch.launch import serve
 from repro_torch.models.convert import model_from_jax
 
@@ -34,14 +34,15 @@ def _pair(arch, seed=0):
         cfg, jax.tree.map(np.asarray, params), device="cpu")
 
 
-def _reference_greedy(jcfg, params, prompts, gen_len):
+def _reference_greedy(jcfg, params, prompts, gen_len, enc_frames=None):
     """The reference CLI's loop (``repro/launch/serve.py::main``), with
     the position as a default-width integer: under the suite's x64 mode the
     reference's ``dynamic_update_slice`` refuses the CLI's int32 position
     beside its int64 zeros."""
     B, P = prompts.shape
     total = P + gen_len
-    state = jT.init_decode_state(params, jcfg, B, total)
+    state = jT.init_decode_state(params, jcfg, B, total,
+                                 enc_frames=enc_frames)
     step = jax.jit(jmake_serve_step(jcfg))
     prompts = jnp.asarray(prompts, jnp.int32)
     tok = prompts[:, :1]
@@ -53,12 +54,18 @@ def _reference_greedy(jcfg, params, prompts, gen_len):
     return np.asarray(jnp.concatenate(out, axis=1))
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2-1.5b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2-1.5b", "qwen3-8b",
+                                  "granite-moe-1b-a400m", "mamba2-780m",
+                                  "recurrentgemma-2b", "whisper-medium"])
 def test_greedy_serving_matches_reference(arch):
+    """whisper attends to the CLI's zero encoder frames."""
     jcfg, params, cfg, model = _pair(arch)
     prompts = np.random.default_rng(11).integers(0, cfg.vocab, (3, 7))
-    want = _reference_greedy(jcfg, params, prompts, 9)
-    got, seconds = serve.greedy_decode(model, torch.tensor(prompts), 9)
+    ef = serve.zero_frames(model, 3)
+    want = _reference_greedy(jcfg, params, prompts, 9, None if ef is None
+                             else jnp.zeros(ef.shape, jnp.float32))
+    got, seconds = serve.greedy_decode(model, torch.tensor(prompts), 9,
+                                       enc_frames=ef)
     assert got.dtype == torch.int32 and got.shape == (3, 16)
     assert seconds > 0
     np.testing.assert_array_equal(got.numpy(), want)
@@ -95,17 +102,18 @@ def test_cli_runs_on_the_cpu(capsys):
     assert seq.shape == (2, 11) and seq.dtype == torch.int32
     assert int(seq.min()) >= 0 and int(seq.max()) < 512
     out = capsys.readouterr().out
-    assert "arch=llama3.2-1b batch=2 steps=10 device=cpu" in out
+    assert "arch=mamba2-780m batch=2 steps=10 device=cpu" in out
 
 
-def test_cli_defaults():
-    seq = serve.main(["--smoke", "--device", "cpu"])
+@pytest.mark.parametrize("arch", (None,) + ARCH_IDS)
+def test_cli_defaults(arch, capsys):
+    """The CLI's defaults (batch 4, prompt 32, 32 generated) for every
+    architecture; without ``--arch`` the reference CLI's mamba2-780m."""
+    seq = serve.main(["--smoke", "--device", "cpu"]
+                     + ([] if arch is None else ["--arch", arch]))
     assert seq.shape == (4, 64)
-
-
-def test_cli_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="SSD"):
-        serve.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu"])
+    assert f"arch={arch or 'mamba2-780m'} batch=4 steps=63" in \
+        capsys.readouterr().out
 
 
 def test_cli_defaults_to_the_card():
@@ -116,6 +124,6 @@ def test_cli_defaults_to_the_card():
 
 
 def test_smoke_config_is_the_reference_smoke_config():
-    for arch in ("llama3.2-1b", "qwen2-vl-72b"):
+    for arch in ARCH_IDS:
         assert dataclasses.asdict(smoke_variant(get_config(arch))) == \
             dataclasses.asdict(jsmoke(jget_config(arch)))
