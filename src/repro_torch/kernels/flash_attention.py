@@ -20,10 +20,22 @@ tiles outside it are never loaded.  Bound: operations — 4·d flops per kept
 (query, key) pair, 4·B·H·S·T·d without a mask (about halved by the causal
 mask at S = T, B·H·d·Σᵢ min(i + 1, window) with a window) — against
 (q + k + v + o) bytes.
+
+Training.  :func:`flash_attention_gqa` is one ``torch.autograd.Function``
+on both devices.  Its forward is the kernel on a CUDA tensor (always: there
+is no switch) and the plain version on a CPU tensor; it saves q, k, v and
+o.  Its backward, :func:`flash_attention_gqa_bwd`, is plain torch and the
+same on both devices, so the CPU tests cover the math the card runs: it
+walks blocks of 512 query rows (the reference model's training chunk),
+recomputes each block's scores and softmax in f32 under the mask and forms
+dq, dk and dv from them.  The reference has no backward kernel either: its
+flash kernel has no VJP, and it trains through jnp attention differentiated
+by XLA, outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -94,7 +106,8 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
     """softmax(q·kᵀ/√d)·v per batch and query head, f32 inside, out in q's
-    dtype, (B, S, H, d) contiguous.
+    dtype, (B, S, H, d) contiguous; differentiable in q, k and v (the
+    backward is :func:`flash_attention_gqa_bwd`).
 
     ``q``: (B, S, H, d); ``k``, ``v``: (B, T, K, d) with K dividing H —
     query head h reads KV head h // (H/K).  ``causal`` keeps key j ≤ query
@@ -102,6 +115,26 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (causal, T ≥ S, so that every query keeps a key) keeps only
     i − window < j ≤ i.  Any S and T ≥ 1; d in :data:`HEAD_DIMS`; float32
     or bfloat16 on the card."""
+    _check_args(q, k, v, causal, int(window))
+    return _FlashGQA.apply(q, k, v, bool(causal), int(window))
+
+
+class _FlashGQA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return (*flash_attention_gqa_bwd(q, k, v, o, do, causal=ctx.causal,
+                                         window=ctx.window), None, None)
+
+
+def _check_args(q, k, v, causal: bool, window: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -110,11 +143,17 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != d or K == 0 or H % K:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} disagree")
-    window = int(window)
     if window < 0 or (window and (not causal or T < S)):
         raise ValueError(f"flash_attention: window {window} needs "
                          f"causal=True and T >= S (got causal={causal}, "
                          f"S={S}, T={T})")
+
+
+def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """The forward: the kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    B, S, H, d = q.shape
+    T, K = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
         return _plain(q, k, v, causal, window)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -146,6 +185,69 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES["flash_attention" if tag == "bf16" else
              "flash_attention_f32"] += 1
     return o
+
+
+#: query rows a block of the backward takes (the reference model's chunk)
+BWD_ROWS = 512
+
+
+def flash_attention_gqa_bwd(q, k, v, o, do, *, causal: bool = True,
+                            window: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention_gqa` for the output gradient
+    ``do``, given its inputs and its output ``o``; plain torch, f32 inside
+    (f64 for f64), each gradient in its input's dtype.
+
+    A block of :data:`BWD_ROWS` query rows at a time: s = q·kᵀ/√d over the
+    keys the mask can reach (up to the block's last row when causal, from
+    its first row's band start with a window), p = softmax(s), then
+    dv += pᵀ·do,
+    ds = p∘(do·vᵀ − rowsum(do∘o)), dq = ds·k/√d, dk += dsᵀ·q/√d.  The H/K
+    query heads of a KV head sum into its dk and dv."""
+    B, S, H, d = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    kf = k.to(acc).permute(0, 2, 1, 3)                    # (B, K, T, d)
+    vf = v.to(acc).permute(0, 2, 1, 3)
+    dk = torch.zeros((B, K, T, d), dtype=acc, device=q.device)
+    dv = torch.zeros_like(dk)
+    dq = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
+    for i0 in range(0, S, BWD_ROWS):
+        i1 = min(S, i0 + BWD_ROWS)
+        n = i1 - i0
+        lo, hi = 0, T
+        if causal:
+            hi = min(T, i1)
+            if window:
+                lo = max(0, i0 - window + 1)
+
+        def heads(t):                                   # (B, K, G, n, d)
+            return t[:, i0:i1].to(acc).reshape(B, n, K, G, d).permute(
+                0, 2, 3, 1, 4)
+
+        qb, ob, dob = heads(q), heads(o), heads(do)
+        kb, vb = kf[:, :, lo:hi], vf[:, :, lo:hi]
+        s = torch.einsum("bkgsd,bktd->bkgst", qb, kb) * scale
+        if causal:
+            i = torch.arange(i0, i1, device=q.device)[:, None]
+            j = torch.arange(lo, hi, device=q.device)[None, :]
+            keep = j <= i
+            if window:
+                keep &= j > i - window
+            s = torch.where(keep, s, _ref.ATTN_NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        del s
+        dv[:, :, lo:hi] += torch.einsum("bkgst,bkgsd->bktd", p, dob)
+        dp = torch.einsum("bkgsd,bktd->bkgst", dob, vb)
+        ds = p * (dp - (dob * ob).sum(-1, keepdim=True))
+        del p, dp
+        dk[:, :, lo:hi] += torch.einsum("bkgst,bkgsd->bktd", ds, qb) * scale
+        dqb = torch.einsum("bkgst,bktd->bkgsd", ds, kb) * scale
+        dq[:, i0:i1] = dqb.permute(0, 3, 1, 2, 4).reshape(B, n, H, d)
+    back = lambda t, like: t.permute(0, 2, 1, 3).to(  # noqa: E731
+        like.dtype, memory_format=torch.contiguous_format)
+    return dq, back(dk, k), back(dv, v)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

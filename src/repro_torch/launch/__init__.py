@@ -1,1 +1,2 @@
-"""Launchers of the LM substrate (the port of ``repro/launch``): ``serve``."""
+"""Launchers of the LM substrate (the port of ``repro/launch``): ``serve``,
+``train`` and ``solve_serve``."""

@@ -14,7 +14,8 @@ the generated tokens follow, as in the reference.  The weights are the
 port's seeded init (``--seed``); prompts come from a ``torch.Generator``
 seeded with 1, so they differ from the reference's ``jax.random`` prompts.
 An encoder-decoder (whisper) takes zero frame embeddings (B, enc_frames,
-d_model), as the reference's CLI builds them.
+d_model), as the reference's CLI builds them.  Serving records no
+gradients: ``prefill`` and ``greedy_decode`` run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from ..models.layers import adtype
 from ..models.transformer import Transformer
 
 
+@torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor, patches=None,
             enc_frames=None) -> torch.Tensor:
     """Logits (B, 1, V) f32 of the last prompt position."""
@@ -58,6 +60,7 @@ def make_serve_step(model: Transformer):
     return serve_step
 
 
+@torch.no_grad()
 def greedy_decode(model: Transformer, prompts: torch.Tensor, gen_len: int,
                   enc_frames=None):
     """Teacher-force ``prompts`` (B, P) through the serve step, then generate

@@ -9,7 +9,8 @@ the remainder under ``params["rem"]``; the port's layer
 remainder follows.  Tied embeddings have no ``unembed`` on either side.
 An encoder-decoder's ``params["encoder"]["stack"]`` is stacked over its
 ``n_enc_layers`` and goes to ``encoder.layers.{n}``, its ``final_norm`` to
-``encoder.final_norm``.
+``encoder.final_norm``.  A training state carries across the same way
+(:func:`state_from_jax`), so a reference checkpoint resumes in the port.
 """
 from __future__ import annotations
 
@@ -66,3 +67,21 @@ def model_from_jax(cfg: ModelConfig, params_np: dict, device=None
     model = Transformer(cfg, device=device)
     model.load_state_dict(params_from_jax(cfg, params_np), strict=True)
     return model
+
+
+def state_from_jax(cfg: ModelConfig, ref_state_np: dict, device=None
+                   ) -> dict:
+    """The port's training state (``launch.train``) for the reference's
+    ``{"params", "opt": {"m", "v", "step"}}`` as numpy (e.g. its
+    checkpoint's arrays unflattened): params, m and v mapped as
+    :func:`params_from_jax` maps params, the step an int32 scalar, all on
+    ``device`` (``None`` → ``"cuda"``)."""
+    from ..core._device import resolve_device
+    dev = resolve_device(device)
+    opt = ref_state_np["opt"]
+    to = lambda tree: {k: t.to(dev)  # noqa: E731
+                       for k, t in params_from_jax(cfg, tree).items()}
+    return {"params": to(ref_state_np["params"]),
+            "opt": {"m": to(opt["m"]), "v": to(opt["v"]),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=dev)}}

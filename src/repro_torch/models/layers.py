@@ -7,7 +7,8 @@ The port of the reference's ``repro/models/layers.py``.  Parameters live in
 reference does.  Init draws from an explicit ``torch.Generator`` with the
 reference's scales (1/√fan_in; 0.02 for the token table); the numbers
 differ from ``jax.random``'s, so parity tests carry the reference's weights
-across (``convert.py``).
+across (``convert.py``).  Parameters are created trainable
+(``requires_grad=True``); serving runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -35,15 +36,15 @@ def at_least_f32(t: torch.Tensor) -> torch.Tensor:
 
 def dense_init(gen: torch.Generator, shape, dtype, device,
                scale: Optional[float] = None) -> nn.Parameter:
-    """N(0, 1)·scale, scale 1/√fan_in by default (fan_in = shape[0])."""
+    """N(0, 1)·scale, scale 1/√fan_in by default (fan_in = shape[0]), a
+    trainable parameter."""
     scale = scale if scale is not None else 1.0 / shape[0] ** 0.5
     w = torch.randn(shape, generator=gen, device=device) * scale
-    return nn.Parameter(w.to(dtype), requires_grad=False)
+    return nn.Parameter(w.to(dtype))
 
 
 def const_param(shape, value: float, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------------------

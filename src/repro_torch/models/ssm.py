@@ -83,13 +83,10 @@ class SSD(nn.Module):
         self.in_proj = dense_init(gen, (d, 2 * d_in + 2 * N + H), dt, device)
         self.conv = Conv1d(gen, d_in + 2 * N, cfg.conv_width, dt, device)
         a_log = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32))
-        self.A_log = nn.Parameter(a_log.to(dt).to(device),
-                                  requires_grad=False)
-        self.D = nn.Parameter(torch.ones((H,), dtype=dt, device=device),
-                              requires_grad=False)
+        self.A_log = nn.Parameter(a_log.to(dt).to(device))
+        self.D = nn.Parameter(torch.ones((H,), dtype=dt, device=device))
         self.dt_bias = nn.Parameter(torch.zeros((H,), dtype=dt,
-                                                device=device),
-                                    requires_grad=False)
+                                                device=device))
         self.norm = RMSNorm(d_in, cfg.norm_eps, dt, device)
         self.out_proj = dense_init(gen, (d_in, d), dt, device)
 
@@ -277,7 +274,7 @@ class RGLRU(nn.Module):
         self.w_i = dense_init(gen, (w, w), dt, device)
         lam = torch.log(torch.expm1(-torch.log(torch.linspace(
             0.9, 0.999, w, dtype=torch.float32)) / 8.0))
-        self.lam = nn.Parameter(lam.to(dt).to(device), requires_grad=False)
+        self.lam = nn.Parameter(lam.to(dt).to(device))
         self.w_out = dense_init(gen, (w, d), dt, device)
 
 

@@ -10,16 +10,24 @@ layer an ``ln_x`` + ``cross`` attention sub-layer over the encoder's output.
 The reference scans a stacked layer period; here the layers are an
 ``nn.ModuleList`` walked by a plain loop, named as the reference's parameter
 keys (``layers.{n}.moe.router``, ``layers.{n}.ssd.conv.w``,
-``encoder.layers.{n}.attn.wq``, ``encoder.final_norm.scale``, …).  The model
-serves: its parameters are frozen (``requires_grad=False``) and remat is not
-ported.
+``encoder.layers.{n}.attn.wq``, ``encoder.final_norm.scale``, …).  The
+parameters are trainable; ``cfg.remat`` is the reference's ``_maybe_remat``
+with the layer as its unit (the reference checkpoints a scanned period; the
+gradients are the same): ``none``, ``full`` (each layer under
+``torch.utils.checkpoint``, only its input saved) or ``dots`` (a selective
+checkpoint that saves the layer's 2-D matrix products and recomputes the
+rest, the reference's ``checkpoint_dots_with_no_batch_dims``).  Decode
+never differentiates: ``init_decode_state`` and ``decode_step`` run under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ModelConfig
 from ..core._device import resolve_device
@@ -27,6 +35,30 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import MLP, Embed, RMSNorm, adtype, pdtype
+
+#: the 2-D matrix products that ``remat="dots"`` keeps (a ``x @ w`` of any
+#: rank lowers to one of them; batched products are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` under the remat policy of ``cfg`` when gradients are being
+    recorded (the reference's ``_maybe_remat``); ``fn`` itself otherwise."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
 
 #: attention mode of each attention-bearing layer kind
 ATTN_MODE = {"attn": "causal", "attn_local": "local", "attn_bidir": "bidir",
@@ -151,7 +183,7 @@ class Encoder(nn.Module):
         B, F = x.shape[:2]
         pos = torch.arange(F, device=x.device)[None].expand(B, F)
         for layer in self.layers:
-            x, _ = layer(x, pos)
+            x, _ = _maybe_remat(layer, self.cfg)(x, pos)
         return self.final_norm(x)
 
 
@@ -159,13 +191,16 @@ class Transformer(nn.Module):
     """The LM of any registry architecture.  ``device=None`` means
     ``"cuda"`` and raises without a card; weights come from a seeded
     ``torch.Generator`` on that device (the reference's scales) or from the
-    reference through ``convert.model_from_jax``."""
+    reference through ``convert.model_from_jax``.  ``device="meta"`` builds
+    a skeleton with no storage (the train step binds its parameters)."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen = None
+        if dev.type != "meta":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
         self.cfg = cfg
         self.embed = Embed(cfg, gen, dev)
         self.layers = nn.ModuleList(
@@ -206,7 +241,7 @@ class Transformer(nn.Module):
         enc_out = self._encode(enc_frames)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
-            x, a = layer(x, positions, enc_out)
+            x, a = _maybe_remat(layer, self.cfg)(x, positions, enc_out)
             if a is not None:
                 aux = aux + a
         x = self.final_norm(x)
@@ -216,6 +251,7 @@ class Transformer(nn.Module):
             x = x[:, -1:]
         return self.embed.logits(x), aux
 
+    @torch.no_grad()
     def init_decode_state(self, batch: int, seq_len: int,
                           enc_frames: Optional[torch.Tensor] = None) -> dict:
         """One entry a layer for a ``seq_len`` context: a KV ring (capped at
@@ -226,6 +262,7 @@ class Transformer(nn.Module):
         return {"layers": [layer.init_state(batch, seq_len, dt, enc_out)
                            for layer in self.layers]}
 
+    @torch.no_grad()
     def decode_step(self, state: dict, token: torch.Tensor, pos):
         """One serve step: ``token`` (B, 1) at absolute position ``pos`` →
         (logits (B, 1, V) as :meth:`forward`'s, state).  The entries of

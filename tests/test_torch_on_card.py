@@ -1288,3 +1288,113 @@ def test_cuda_dist_solve_and_grad_match_cpu(cuda_device, precond):
         out[dev.type] = (x.detach().cpu(), lv.grad.cpu())
     assert rel(out["cuda"][0], out["cpu"][0]) <= 1e-10
     assert rel(out["cuda"][1], out["cpu"][1]) <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# slice 8: training — the differentiable flash kernel, a train step, AdamW
+# ---------------------------------------------------------------------------
+
+#: dq/dk/dv of the autograd Function (the kernel's forward, the blocked
+#: plain backward) against autograd through the plain version on f32 copies
+#: of the same inputs, max |Δ| over max |g_plain|: f32 at the forward's
+#: 1e-5; bf16 at 1e-2 (the kernel's o, which the backward reads, and each
+#: gradient are rounded to bf16: 2^-9 relative each)
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("mode", ["causal", "bidir", "window"])
+def test_flash_autograd_matches_plain_on_card(cuda_device, dtype, d, mode):
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import _plain
+    B, S, H, K = 2, 300, 4, 2              # S not a multiple of any tile
+    causal, window = mode != "bidir", 100 if mode == "window" else 0
+    rng = np.random.default_rng(d)
+    q, k, v, w = (torch.tensor(rng.normal(size=(B, S, h, d)), dtype=dtype,
+                               device=cuda_device)
+                  for h in (H, K, K, H))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    o = flash_attention_gqa(*leaves, causal=causal, window=window)
+    assert type(o.grad_fn).__name__ == "_FlashGQABackward"
+    (o.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[
+        "flash_attention" if dtype == torch.bfloat16
+        else "flash_attention_f32"] == 1
+    plain = [t.float().requires_grad_(True) for t in (q, k, v)]
+    (_plain(*plain, causal, window) * w.float()).sum().backward()
+    for got, want in zip(leaves, plain):
+        assert got.grad.dtype == dtype
+        scale = float(want.grad.abs().max())
+        assert float((got.grad.float() - want.grad).abs().max()) \
+            <= GRAD_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_gradients_on_card(cuda_device, dtype):
+    """One smoke llama train step's loss and gradients on the card: every
+    parameter's gradient present, finite and nonzero, the flash kernel in
+    the forward; the loss within 1e-4 (f32) / 2e-2 (bf16) of the CPU's."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch.train import loss_fn
+    from repro_torch.models.transformer import Transformer
+    cfg = dataclasses.replace(smoke_variant(get_config("llama3.2-1b")),
+                              dtype=dtype, remat="full")
+    batch = synthetic_batch(0, 0, 4, 129, cfg.vocab)
+    weights = Transformer(cfg, seed=0, device="cpu").state_dict()
+    losses = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = Transformer(cfg, seed=0, device=dev)
+        model.load_state_dict(weights)        # the same numbers on both
+        kernels.reset_launch_counts()
+        total, m = loss_fn(model, {k: t.to(dev) for k, t in batch.items()}, 2)
+        total.backward()
+        losses[dev.type] = float(m["loss"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            name = ("flash_attention" if dtype == "bfloat16"
+                    else "flash_attention_f32")
+            # the forward and the remat recompute, per layer
+            assert kernels.launch_counts()[name] == 2 * cfg.n_layers
+            for n, p in model.named_parameters():
+                assert p.grad is not None, n
+                assert bool(torch.isfinite(p.grad).all()), n
+                assert float(p.grad.abs().max()) > 0, n
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert abs(losses["cuda"] - losses["cpu"]) <= tol * losses["cpu"]
+
+
+@pytest.mark.cuda
+def test_adamw_on_card_matches_cpu(cuda_device):
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    rng = np.random.default_rng(2)
+    shapes = {"w": (64, 48), "b": (48,), "e": (4, 8, 16)}
+    mk = lambda f: {k: f(s).astype(np.float32)  # noqa: E731
+                    for k, s in shapes.items()}
+    p, g = mk(lambda s: rng.normal(size=s)), mk(
+        lambda s: 3 * rng.normal(size=s))
+    m, v = mk(lambda s: 0.1 * rng.normal(size=s)), mk(
+        lambda s: 0.01 * rng.uniform(size=s))
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=3, total_steps=20)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        T = lambda d: {k: torch.tensor(a, device=dev)  # noqa: E731
+                       for k, a in d.items()}
+        out[dev.type] = adamw_update(cfg, T(p), T(g), {
+            "m": T(m), "v": T(v),
+            "step": torch.tensor(5, dtype=torch.int32, device=dev)})
+    (cp, cs, cm), (hp, hs, hm) = out["cuda"], out["cpu"]
+    assert abs(float(cm["lr"]) - float(hm["lr"])) <= 1e-6 * cfg.lr
+    for k in shapes:
+        for a, b in ((cp[k], hp[k]), (cs["m"][k], hs["m"][k]),
+                     (cs["v"][k], hs["v"][k])):
+            assert a.device.type == "cuda"
+            assert float((a.cpu() - b).abs().max()) \
+                <= 1e-6 * float(b.abs().max())

@@ -118,7 +118,7 @@ def test_ssd_model_float64_decode_matches_forward():
         return torch.cat([model.decode_step(state, toks[:, t:t + 1], t)[0]
                           for t in range(150)], 1)
 
-    want = m64(toks)[0]
+    want = m64(toks)[0].detach()
     assert want.dtype == torch.float64
     _close(decode(m64), want.numpy(), scale=1e-12)
     _close(m32(toks)[0], want.numpy())
