@@ -274,11 +274,14 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
-# H100 SXM peak rates (NVIDIA data sheet): f32 and f64 outside the tensor
-# cores; bf16 at the dense tensor-core rate, the least time any kernel could
-# take for bf16 attention
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# H100 SXM HBM3 rate and peak rates (NVIDIA data sheet; their one home is
+# the port's launch/mesh.py): f32 and f64 outside the tensor cores, bf16 at
+# the dense tensor-core rate, the least time any kernel could take for bf16
+# attention
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS  # noqa: E402
+from repro_torch.kernels.flash_attention import kept_pairs  # noqa: E402
 TOL_KERNEL = {"float32": 1e-5, "float64": 1e-12}
 REPEATS = 4                          # whole factorizations on the kernels
 TOL_GRAD = 1e-6                      # gradient vs the plain path, relative
@@ -447,6 +450,14 @@ TRAIN_DROP = 0.2                     # nats: last 4 steps' mean below step 1's
 TRAIN_GRAD = (2, 2, 256)             # (c): layers, B, S at full width, f32
 TOL_TRAIN_GRAD = 1e-4                # (c): gradient vs the plain route
 FT_STEPS = (20, 12)                  # (d): steps, the injected failure's step
+# phase 19: the sharded launch path on a (pod, data, model) = (1, 1, 1)
+# mesh over the one-rank NCCL group, baseline rules, llama3.2-1b as
+# registered (full width and depth)
+LAUNCH_STEPS = 2                     # (a): sharded vs unsharded train steps
+TOL_LAUNCH = 1e-6                    # (a): of each state tensor's max |x|
+LAUNCH_DECODE = (4, 8, 9)            # (b): batch, prompt, generated: 16 steps
+DRYRUN_CELL = ("llama3.2-1b", "train_4k", "single")    # (c), on the host
+DRYRUN_TIMEOUT = 120                 # (c): seconds
 TOL_FT = 1e-5                        # (d): resumed vs uninterrupted run,
                                      # of max |x|, where not bit for bit
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
@@ -2918,15 +2929,6 @@ def _attn_work(BH, S, T, d, causal, elem):
     return elem * BH * (2 * S * d + 2 * T * d), 4 * BH * d * pairs
 
 
-def _attn_pairs(S, T, causal, window=0):
-    """(query, key) pairs the mask keeps: key j ≤ i causal, and
-    i − window < j with a window."""
-    i = np.arange(S)
-    hi = np.minimum(i + 1, T) if causal else np.full(S, T)
-    lo = np.maximum(i - window + 1, 0) if window else 0
-    return int((hi - lo).sum())
-
-
 def _flash_plain(q, k, v, causal, round_p=False, window=0):
     """The plain version in f32 on the same inputs, over chunks of bh that
     keep the (chunk, S, T) score block near 1 GB; ``round_p`` rounds the
@@ -3053,7 +3055,7 @@ def flash_phase(dev, seed, out):
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=band, is_causal=causal and not window,
             enable_gqa=True), 10, warmup=2, spin_ms=3.0)
-        pairs = _attn_pairs(S, T, causal, window)
+        pairs = kept_pairs(S, T, causal, window)
         nbytes = q.element_size() * 2 * B * d * (S * H + T * K)
         flops = 4 * B * H * d * pairs
         bms, bby = bound_ms(nbytes, flops, dname)
@@ -3626,10 +3628,10 @@ _GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
 def _train_breakdown(events):
     """Device ms of a traced train step by class, from the profiler's event
     tree: the flash forward kernel (by name), the backward attention math
-    (kernels under the flash Function's backward node), CE (kernels under
-    the ``ce`` range — the forward and its recompute — and under the
-    backward nodes of the ops recorded there), the optimizer (``adamw``
-    range), the remaining GEMMs (by name) and the rest."""
+    (kernels under the flash op's backward, ``flash_attention_gqa_bwd``),
+    CE (kernels under the ``ce`` range — the forward and its recompute —
+    and under the backward nodes of the ops recorded there), the optimizer
+    (``adamw`` range), the remaining GEMMs (by name) and the rest."""
     cls = dict.fromkeys(("flash forward kernel", "backward attention math",
                          "GEMMs", "CE", "optimizer", "rest"), 0.0)
 
@@ -3654,7 +3656,7 @@ def _train_breakdown(events):
             low = kern.name.lower()
             if "tc_kernel" in low or "simt_kernel" in low:
                 cls["flash forward kernel"] += ms
-            elif any("_FlashGQABackward" in n for n in t):
+            elif any("flash_attention_gqa_bwd" in n for n in t):
                 cls["backward attention math"] += ms
             elif "adamw" in t:
                 cls["optimizer"] += ms
@@ -3736,7 +3738,7 @@ def _flash_train(dev, seed, out):
 
         ms, bwd_ms, plain_ms, lib = (_sum_ms(f, reps=3)
                                      for f in (ours, bwd, plain, sdpa))
-        pairs = _attn_pairs(S, S, True)
+        pairs = kept_pairs(S, S, True)
         # forward 4·d flops a kept pair; the backward recomputes s (2·d)
         # and forms dv, dp, dq and dk (2·d each)
         flops = 14 * B * H * d * pairs
@@ -3754,8 +3756,8 @@ def _flash_train(dev, seed, out):
             f"bound {bms:.3f} ms by {bby}); dq/dk/dv "
             f"vs plain autograd " + ", ".join(f"{x:.2e}" for x in rel)
             + f" of max |g| (limit {limit:g}); grad_fn {grad_fn}")
-        check(grad_fn == "_FlashGQABackward" and launched == 1,
-              f"(a) {label}: the autograd Function over one kernel launch")
+        check("repro_torch_flash_attention_gqa" in grad_fn and launched == 1,
+              f"(a) {label}: the flash op's backward over one kernel launch")
         check(max(rel) <= limit, f"(a) {label} {dname}: dq/dk/dv match "
               f"plain autograd ({max(rel):.2e} <= {limit:g} of max |g|)")
         del q, k, v, do, o, grads
@@ -3970,15 +3972,15 @@ def _train_ft(dev, seed, out):
     check(last == n and bool(restarts) and "step 10" in restarts[0],
           f"(d) the loop restarted from step 10 and reached step {n}")
     # bit for bit where every op is deterministic; the embedding's backward
-    # (an index_put with accumulation) is the one op of this model that
-    # may add in another order on the card, so a difference is held to f32
-    # rounding and named
+    # (a scatter-add of the rows' gradients) is the one op of this model
+    # that may add in another order on the card, so a difference is held to
+    # f32 rounding and named
     check(bitwise or diff[worst] <= TOL_FT, f"(d) the resumed run's final "
           f"state equals the uninterrupted run's "
           + ("bit for bit" if bitwise else
              f"within {diff[worst]:.2e} <= {TOL_FT:g} of max |x| (not bit "
-             f"for bit: the embedding's index_put backward adds in an "
-             f"order the card does not fix)"))
+             f"for bit: the embedding's backward adds in an order the "
+             f"card does not fix)"))
     check(on_card and same, "(d) a checkpoint written on the CPU restores "
           "onto the card unchanged")
     check(step_rel <= 1e-4, f"(d) the restored state's next step on the "
@@ -5432,31 +5434,26 @@ def _dist_eigen(dev, mesh, acc, out):
                rel_err=werr)
 
 
-def distributed_path(dev, seed, out):
-    """Phase 16: ``DSparseTensor`` over a one-rank NCCL group — (a) full
-    width, (b) solve + grad, (c) non-symmetric, (d) Schwarz, (e) eigen.
-    Only the distributed runs' launches are counted (the single-device
-    yardsticks and the plain runs are not)."""
-    import torch.distributed as dist
+def distributed_path(dev, seed, out, group):
+    """Phase 16: ``DSparseTensor`` over the one-rank NCCL ``group`` — (a)
+    full width, (b) solve + grad, (c) non-symmetric, (d) Schwarz, (e)
+    eigen.  Only the distributed runs' launches are counted (the
+    single-device yardsticks and the plain runs are not)."""
     from repro_torch.core.distributed import make_mesh
     del seed                       # the problems are deterministic
-    group = _dist_group()
     acc = {}
     res = {}
-    try:
-        mesh = make_mesh(DIST_P, group=group, device=dev)
-        for key, fn, arg in (("a_full_width", _dist_full_width, mesh),
-                             ("b_solve_grad", _dist_solve_grad, mesh),
-                             ("c_nonsymmetric", _dist_nonsymmetric, mesh),
-                             ("d_schwarz", _dist_schwarz, group),
-                             ("e_eigen", _dist_eigen, mesh)):
-            t = time.perf_counter()
-            res[key] = {}
-            fn(dev, arg, acc, res[key])
-            res[key]["phase_s"] = time.perf_counter() - t
-            say(f"  ({key}) {res[key]['phase_s']:.2f} s")
-    finally:
-        dist.destroy_process_group()
+    mesh = make_mesh(DIST_P, group=group, device=dev)
+    for key, fn, arg in (("a_full_width", _dist_full_width, mesh),
+                         ("b_solve_grad", _dist_solve_grad, mesh),
+                         ("c_nonsymmetric", _dist_nonsymmetric, mesh),
+                         ("d_schwarz", _dist_schwarz, group),
+                         ("e_eigen", _dist_eigen, mesh)):
+        t = time.perf_counter()
+        res[key] = {}
+        fn(dev, arg, acc, res[key])
+        res[key]["phase_s"] = time.perf_counter() - t
+        say(f"  ({key}) {res[key]['phase_s']:.2f} s")
     say(f"  launches {json.dumps({k: v for k, v in acc.items() if v})}")
     for k in ("bell_spmv", "fused_dots2_batched"):
         check(acc.get(k, 0) > 0, f"distributed path launched {k} "
@@ -5464,6 +5461,277 @@ def distributed_path(dev, seed, out):
     res["launches"] = acc
     out["distributed_path"] = res
     return acc
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the sharded launch path (slice 9)
+# ---------------------------------------------------------------------------
+
+def _launch_mesh():
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import shardings as sh
+    mesh = init_device_mesh("cuda", (1, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    return sh.baseline_rules(mesh)
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _launch_train(dev, seed, rules, out):
+    """(a) ``jit_train_step`` against ``make_train_step``: LAUNCH_STEPS
+    steps of llama3.2-1b at TRAIN_SHAPE from the same state and batches."""
+    import torch
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import Transformer, param_shapes
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_config(LM_ARCH)
+    B, S = TRAIN_SHAPE
+    opt = AdamWConfig(**TRAIN_OPT)
+    nc = train.ce_chunks(rules, B)
+    batches = [synthetic_batch(seed, s, B, S + 1, cfg.vocab)
+               for s in range(LAUNCH_STEPS)]
+    state0 = train.init_state(Transformer(cfg, seed=seed, device=dev))
+
+    def run(step, state):
+        """(state, a row a step, peak GB above what was resident)."""
+        rows = []
+        _sync(dev)
+        _peak_reset(dev)
+        resident = torch.cuda.memory_allocated() / 1e9
+        for b in batches:
+            t = time.perf_counter()
+            state, m = step(state, b)
+            _sync(dev)
+            rows.append(dict(ms=(time.perf_counter() - t) * 1e3,
+                             loss=float(_local(m["loss"])),
+                             grad_norm=float(_local(m["grad_norm"]))))
+        return state, rows, _peak(dev) - resident
+
+    st, plain_rows, plain_peak = run(train.make_train_step(cfg, opt, nc),
+                                     state0)
+    want = _flatten(st)                     # kept on the card: ~15 GB
+    step, _ = train.jit_train_step(cfg, opt, rules, param_shapes(cfg),
+                                   batches[0])
+    ds = train.distribute_state(state0, rules)
+    del state0, st
+    _counts_reset()
+    ds, rows, peak = run(step, ds)
+    launches = _counts()[0]
+    got = {k: _local(v) for k, v in _flatten(ds).items()}
+    bitwise = all(torch.equal(got[k], want[k]) for k in want)
+    diff = {k: float((got[k].double() - want[k].double()).abs().max())
+            / max(float(want[k].double().abs().max()), 1e-30)
+            for k in want} if not bitwise else dict.fromkeys(want, 0.0)
+    worst = max(diff, key=diff.get)
+    del ds, got, want
+    torch.cuda.empty_cache()
+    same_loss = all(r["loss"] == p["loss"] for r, p in zip(rows, plain_rows))
+    say(f"  (a) {cfg.name} B {B} × S {S}, {nc} CE chunks: sharded "
+        + ", ".join(f"{r['ms']:.1f}" for r in rows) + " ms a step (peak "
+        f"{peak:.2f} GB above the resident state) vs unsharded "
+        + ", ".join(f"{r['ms']:.1f}" for r in plain_rows) + f" ms (peak "
+        f"{plain_peak:.2f} GB above it); losses "
+        + ", ".join(f"{r['loss']:.6f}" for r in rows) + " vs "
+        + ", ".join(f"{r['loss']:.6f}" for r in plain_rows)
+        + f"; state {'bit for bit' if bitwise else 'not bit for bit'}, "
+        f"max |Δ| {diff[worst]:.3e} of max |x| ({worst}); flash_attention "
+        f"launched {launches['flash_attention']} times")
+    check(same_loss or all(abs(r["loss"] - p["loss"]) <= TOL_LAUNCH
+                           * abs(p["loss"])
+                           for r, p in zip(rows, plain_rows)),
+          "(a) the sharded steps' losses equal the unsharded ones")
+    check(bitwise or diff[worst] <= TOL_LAUNCH,
+          "(a) the sharded state equals the unsharded one "
+          + ("bit for bit" if bitwise else
+             f"within {diff[worst]:.2e} <= {TOL_LAUNCH:g} of max |x| (not "
+             f"bit for bit: {worst}, whose sums DTensor orders otherwise)"))
+    want_l = 2 * cfg.n_layers * LAUNCH_STEPS
+    check(launches["flash_attention"] >= want_l,
+          f"(a) flash_attention launched inside the sharded step "
+          f"({launches['flash_attention']} >= {want_l}: forward and remat)")
+    out["train"] = dict(arch=cfg.name, B=B, S=S, ce_chunks=nc,
+                        sharded=rows, unsharded=plain_rows, peak_gb=peak,
+                        unsharded_peak_gb=plain_peak, bitwise=bitwise,
+                        max_rel_diff=diff[worst], worst=worst,
+                        launches=launches)
+    return launches
+
+
+def _launch_serve(dev, seed, rules, out):
+    """(b) sharded prefill against ``serve.prefill``; LAUNCH_DECODE
+    ``jit_serve_step`` decode steps against ``greedy_decode``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.specs import decode_specs
+    from repro_torch.models.transformer import Transformer, param_shapes
+
+    cfg = get_config(LM_ARCH)
+    B, S = LM_PREFILL
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 19)
+    model = Transformer(cfg, seed=seed, device=dev)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    want = serve.prefill(model, toks)
+    prefill, _ = serve.jit_prefill(cfg, rules, param_shapes(cfg))
+    params = serve.distribute_params(model, rules)
+    prefill(params, toks)                                   # warm-up
+    _sync(dev)
+    _counts_reset()
+    t = time.perf_counter()
+    got = _local(prefill(params, toks))
+    _sync(dev)
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    launches = _counts()[0]
+    plain_ms = wall_ms(lambda: serve.prefill(model, toks), 1)
+    rtol, atol = TOL_FLASH["bfloat16"]
+    within = bool(((got - want).abs() <= rtol * want.abs() + atol).all())
+    same = bool(torch.equal(got, want))
+    del got, want
+    Bd, P, G = LAUNCH_DECODE
+    prompts = torch.randint(0, cfg.vocab, (Bd, P), generator=gen,
+                            device=dev).to(torch.int32)
+    ref, ref_s = serve.greedy_decode(model, prompts, G)
+    step, _ = serve.jit_serve_step(
+        cfg, rules, param_shapes(cfg),
+        decode_specs(cfg, ShapeConfig("decode", P + G, Bd, "decode")))
+    state = serve.distribute_decode_state(model.init_decode_state(Bd, P + G),
+                                          rules)
+    tok, seq = prompts[:, :1], [prompts[:, :1]]
+    _sync(dev)
+    t = time.perf_counter()
+    for i in range(P + G - 1):
+        nxt, state = step(params, state, tok, i)
+        tok = prompts[:, i + 1:i + 2] if i + 1 < P else _local(nxt)
+        seq.append(tok)
+    _sync(dev)
+    dec_ms = (time.perf_counter() - t) * 1e3 / (P + G - 1)
+    seq = torch.cat(seq, 1)
+    equal = bool(torch.equal(seq, ref))
+    say(f"  (b) sharded prefill B {B} × S {S}: {prefill_ms:.1f} ms (unsharded"
+        f" {plain_ms:.1f} ms), logits {'bit for bit' if same else 'within'}"
+        f" the bf16 limits ({rtol:g}·|x| + {atol:g}): {within}; "
+        f"flash_attention {launches['flash_attention']} launches; "
+        f"{P + G - 1} sharded decode steps at batch {Bd}: {dec_ms:.2f} ms a "
+        f"step (unsharded {ref_s * 1e3 / (P + G - 1):.2f} ms), greedy "
+        f"tokens equal: {equal}")
+    check(within, "(b) sharded prefill logits within the bf16 limits of "
+          "the unsharded prefill's")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"(b) the sharded prefill launched flash_attention once per layer "
+          f"({launches['flash_attention']} == {cfg.n_layers})")
+    check(equal, f"(b) {P + G - 1} sharded decode steps give the unsharded "
+          "greedy tokens")
+    out["serve"] = dict(prefill_ms=prefill_ms, unsharded_prefill_ms=plain_ms,
+                        prefill_bitwise=same, decode_ms=dec_ms,
+                        unsharded_decode_ms=ref_s * 1e3 / (P + G - 1),
+                        tokens_equal=equal, launches=launches)
+    del model, params, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _start_dryrun():
+    """(c) one full-size dry-run cell, started in a subprocess on the host
+    (a fake 256-rank group, meta shards) before the kernels build, so that
+    it runs while nvcc does; a thread waits for it, DRYRUN_TIMEOUT seconds
+    at most from its start, and notes its log and seconds (the process,
+    its ledger, the thread, what the thread notes)."""
+    import atexit
+    import threading
+    arch, shape, mesh = DRYRUN_CELL
+    ledger = os.path.join(OUT, "dryrun.jsonl")
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--ledger", ledger, "--force"],
+        cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    done = {}
+
+    def wait():
+        try:
+            done["log"], _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            done["log"], _ = proc.communicate()
+            done["timed_out"] = True
+        done["seconds"] = time.perf_counter() - t0
+
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    # a run that fails before phase 19 leaves no cell running
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, ledger, waiter, done
+
+
+def _finish_dryrun(started, out):
+    """(c) the cell's record: per-rank bytes, FLOPs, collectives and the
+    dominant term; the peak must fit the card's memory.  A cell that ran
+    past DRYRUN_TIMEOUT seconds from its start fails the run."""
+    from repro_torch.launch.mesh import HBM_BYTES
+    proc, ledger, waiter, done = started
+    waiter.join()
+    secs = done["seconds"]
+    log = done["log"]
+    with open(os.path.join(OUT, "dryrun.log"), "w") as fh:
+        fh.write(log)
+    if done.get("timed_out"):
+        raise subprocess.TimeoutExpired(proc.args, DRYRUN_TIMEOUT, log)
+    check(proc.returncode == 0 and os.path.exists(ledger),
+          f"(c) the dry-run cell ran (exit {proc.returncode})")
+    with open(ledger) as fh:
+        rec = json.loads(fh.read().splitlines()[-1])
+    check(rec["status"] == "ok", f"(c) the dry-run cell: {rec['status']}")
+    say(f"  (c) dry run {rec['arch']} × {rec['shape']} × {rec['mesh']} "
+        f"({secs:.1f} s from its start, traced {rec['trace_s']} s): per "
+        f"rank arguments {rec['argument_bytes'] / 1e9:.3f} GB, peak "
+        f"{rec['peak_bytes'] / 1e9:.3f} GB, {rec['flops_per_chip']:.4e} "
+        f"FLOPs, {rec['n_collectives']} collectives "
+        + json.dumps({k: f"{v / 1e9:.3f} GB"
+                      for k, v in rec["collectives"].items()})
+        + f"; t_compute {rec['t_compute_s'] * 1e3:.2f} ms, t_memory "
+        f"{rec['t_memory_s'] * 1e3:.2f} ms, t_collective "
+        f"{rec['t_collective_s'] * 1e3:.2f} ms → {rec['dominant']}; useful "
+        f"{rec['useful_ratio']:.3f}")
+    check(rec["peak_bytes"] < HBM_BYTES, f"(c) the rank's peak "
+          f"{rec['peak_bytes'] / 1e9:.2f} GB fits the card's "
+          f"{HBM_BYTES / 1e9:.0f} GB")
+    check(0 < rec["useful_ratio"] <= 1,
+          f"(c) useful_ratio {rec['useful_ratio']:.3f} in (0, 1]")
+    out["dryrun"] = dict(rec, seconds=secs)
+
+
+def launch_phase(dev, seed, out, started):
+    """Phase 19: the sharded launch layer on a (1, 1, 1) pod/data/model
+    mesh over the one-rank NCCL group — (a) the sharded train step, (b)
+    sharded prefill and decode, (c) one full-size dry-run cell, the one
+    ``_start_dryrun`` started (``started``)."""
+    rules = _launch_mesh()
+    res, total = {}, {}
+    for name, fn in (("a", _launch_train), ("b", _launch_serve)):
+        t = time.perf_counter()
+        for k, v in fn(dev, seed, rules, res).items():
+            total[k] = total.get(k, 0) + v
+        say(f"  (19{name}) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _finish_dryrun(started, res)
+    say(f"  (19c) waited {time.perf_counter() - t:.1f} s")
+    out["launch_phase"] = res
+    return total
 
 
 def on_card_tests(out):
@@ -5575,7 +5843,6 @@ def main():
         print("chip_smoke: no CUDA device is available; this run needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5586,6 +5853,7 @@ def main():
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
+    dryrun = _start_dryrun()           # phase 19 (c), on the host
     t0 = time.perf_counter()
     _build.lib()
     build_s = time.perf_counter() - t0
@@ -5703,12 +5971,19 @@ def main():
     kres.update(bres)
     for k, v in blaunch.items():
         path_launches[k] = path_launches.get(k, 0) + v
+    # one NCCL group serves phases 16 and 19 (its first collective is slow)
+    import torch.distributed as dist
+    group = _dist_group()
     for k, v in phase("distributed path", distributed_path, dev, SEED,
-                      out).items():
+                      out, group).items():
         path_launches[k] = path_launches.get(k, 0) + v
     for k, v in phase("LM training path (18)", train_phase, dev, SEED,
                       out).items():
         path_launches[k] = path_launches.get(k, 0) + v
+    for k, v in phase("sharded launch path (19)", launch_phase, dev, SEED,
+                      out, dryrun).items():
+        path_launches[k] = path_launches.get(k, 0) + v
+    dist.destroy_process_group()
     for k, v in path_launches.items():
         check(v > 0, f"{k} launched on the paths ({v} times)")
     phase("on-card tests", on_card_tests, out)
@@ -5730,6 +6005,7 @@ def main():
         json.dump(out, fh, indent=1, default=str)
     say("phases: " + ", ".join(f"{n} {s:.1f} s" for n, s in phases)
         + f"; total {out['total_s']:.1f} s")
+    say(card)                          # again, beside the totals
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,11 @@ finds a whole step.  A state is a nested dict of tensors (or numbers); its
 keys are ``/``-joined paths (``params/layers.0.attn.wq``,
 ``opt/step``).  ``restore`` loads on the host and
 places each array on the device asked for, or on its template leaf's —
-the one-card counterpart of the reference's reshard-on-load.
+the one-card counterpart of the reference's reshard-on-load.  numpy has
+no bfloat16: a bf16 tensor is stored as its ``int16`` bit pattern, its
+key listed under ``"bfloat16"`` in the manifest, and viewed back on
+restore (the reference's npz holds bf16 as raw void and cannot restore
+it).
 """
 from __future__ import annotations
 
@@ -36,9 +40,20 @@ def _flatten(tree, prefix: str = "", out: Optional[dict] = None) -> dict:
     return out
 
 
-def _to_host(flat: dict) -> dict:
-    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-            else np.asarray(v) for k, v in flat.items()}
+def _to_host(flat: dict):
+    """(numpy arrays, the keys of the bf16 tensors among them, stored as
+    their int16 bit patterns)."""
+    arrays, bf16 = {}, []
+    for k, v in flat.items():
+        if not isinstance(v, torch.Tensor):
+            arrays[k] = np.asarray(v)
+            continue
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            v = v.view(torch.int16)
+            bf16.append(k)
+        arrays[k] = v.numpy()
+    return arrays, bf16
 
 
 def _unflatten_into(template, flat: dict, device, prefix: str = ""):
@@ -76,8 +91,8 @@ class CheckpointManager:
         """Save ``tree`` as step ``step``.  The copy to the host happens
         here, before returning (a consistent state); with ``async_save``
         the files are written on a thread (:meth:`wait` joins it)."""
-        arrays = _to_host(_flatten(tree))
-        extra = extra or {}
+        arrays, bf16 = _to_host(_flatten(tree))
+        extra = dict(extra or {}, bfloat16=bf16)
         if self.async_save:
             self.wait()
             self._thread = threading.Thread(
@@ -130,8 +145,11 @@ class CheckpointManager:
         ``template``, each tensor on ``device`` (None: its template leaf's
         device)."""
         path = os.path.join(self.dir, f"step_{step}", "arrays.npz")
+        bf16 = set(self.manifest(step).get("bfloat16", ()))
         with np.load(path) as z:
             flat = {k: torch.from_numpy(z[k]) for k in z.files}
+        for k in bf16:
+            flat[k] = flat[k].view(torch.bfloat16)
         return _unflatten_into(template, flat,
                                None if device is None else torch.device(device))
 

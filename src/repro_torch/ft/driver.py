@@ -13,6 +13,8 @@ to ``torch.cuda.synchronize`` of the state's device when it is a card.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 import time
 from typing import Callable, Optional
 
@@ -23,7 +25,8 @@ from ..checkpoint.manager import CheckpointManager, _flatten
 
 @dataclasses.dataclass
 class FTConfig:
-    ckpt_dir: str = "repro_ckpt"
+    ckpt_dir: str = dataclasses.field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "repro_ckpt"))
     ckpt_every: int = 50
     keep: int = 3
     async_save: bool = True
@@ -58,7 +61,11 @@ class TrainLoop:
     def run(self, state, num_steps: int, start_step: int = 0,
             fail_at: Optional[int] = None, log_every: int = 10,
             logger=print):
-        """Returns (state, last step).  ``fail_at`` injects one failure."""
+        """Returns (state, last step).  ``fail_at`` injects one failure.
+        A failure before the first checkpoint restarts from ``state`` as
+        given (the reference keeps the advanced state there and so applies
+        the steps already taken twice)."""
+        initial = state
         step = start_step
         restarts = 0
         failed_once = False
@@ -99,7 +106,7 @@ class TrainLoop:
                     state = self.mgr.restore(latest, state, self.device)
                     step = latest
                 else:
-                    step = start_step
+                    state, step = initial, start_step
         self.mgr.wait()
         return state, step
 

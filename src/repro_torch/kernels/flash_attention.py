@@ -21,8 +21,10 @@ tiles outside it are never loaded.  Bound: operations — 4·d flops per kept
 mask at S = T, B·H·d·Σᵢ min(i + 1, window) with a window) — against
 (q + k + v + o) bytes.
 
-Training.  :func:`flash_attention_gqa` is one ``torch.autograd.Function``
-on both devices.  Its forward is the kernel on a CUDA tensor (always: there
+Training.  :func:`flash_attention_gqa` is one custom operator
+(``torch.ops.repro_torch.flash_attention_gqa``, with a fake implementation
+for tracers and a FLOP formula) on both devices, differentiable through its
+registered backward.  Its forward is the kernel on a CUDA tensor (always: there
 is no switch) and the plain version on a CPU tensor; it saves q, k, v and
 o.  Its backward, :func:`flash_attention_gqa_bwd`, is plain torch and the
 same on both devices, so the CPU tests cover the math the card runs: it
@@ -34,10 +36,14 @@ by XLA, outside any Pallas kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from . import ref as _ref
@@ -116,22 +122,114 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     i − window < j ≤ i.  Any S and T ≥ 1; d in :data:`HEAD_DIMS`; float32
     or bfloat16 on the card."""
     _check_args(q, k, v, causal, int(window))
-    return _FlashGQA.apply(q, k, v, bool(causal), int(window))
+    return torch.ops.repro_torch.flash_attention_gqa(q, k, v, bool(causal),
+                                                     int(window))
 
 
-class _FlashGQA(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o = _forward(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, o)
-        ctx.causal, ctx.window = causal, window
-        return o
+# The forward and the backward are custom operators: one op each to the
+# dispatcher, so that a shape-only trace (``FakeTensorMode``, or meta
+# tensors inside :func:`shape_only` — the dry run) takes their shapes from
+# the fake implementations without building or launching the kernel, and a
+# FLOP counter counts each once by its formula below.  Elsewhere a
+# ``device="meta"`` tensor is refused, as any device but the CPU and a card
+# is: a storage-free tensor reaching the kernel outside such a trace is a
+# fault (a parameter of a skeleton left unbound).
+_TRACE = threading.local()
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        return (*flash_attention_gqa_bwd(q, k, v, o, do, causal=ctx.causal,
-                                         window=ctx.window), None, None)
+
+@contextlib.contextmanager
+def shape_only():
+    """Let meta tensors through the kernel's fake implementation (its
+    output's shape, no values) while the block runs."""
+    prev = getattr(_TRACE, "on", False)
+    _TRACE.on = True
+    try:
+        yield
+    finally:
+        _TRACE.on = prev
+
+
+@torch.library.custom_op("repro_torch::flash_attention_gqa", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int) -> torch.Tensor:
+    return _forward(q, k, v, causal, window)
+
+
+def _tracer_only(*ts) -> None:
+    if getattr(_TRACE, "on", False) and all(t.device.type == "meta"
+                                            for t in ts):
+        return
+    if not all(isinstance(t, FakeTensor) for t in ts):
+        raise ValueError("flash_attention: tensors on "
+                         f"{' / '.join(str(t.device) for t in ts)}")
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window):
+    _tracer_only(q, k, v)
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_gqa_bwd",
+                         mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor, causal: bool,
+                  window: int) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    return flash_attention_gqa_bwd(q, k, v, o, do, causal=causal,
+                                   window=window)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, do, causal, window):
+    _tracer_only(q, k, v, o, do)
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, window = inputs
+    ctx.save_for_backward(q, k, v, output)
+    ctx.causal, ctx.window = causal, window
+
+
+def _flash_backward(ctx, do):
+    q, k, v, o = ctx.saved_tensors
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_gqa_bwd(
+        q, k, v, o, do, ctx.causal, ctx.window)
+    return dq, dk, dv, None, None
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+def kept_pairs(S: int, T: int, causal: bool, window: int = 0) -> int:
+    """(query, key) pairs the mask keeps for one batch row and head."""
+    if not causal:
+        return S * T
+    cap = min(T, window) if window else T
+    # Σ_{i<S} min(i + 1, cap)
+    m = min(S, cap)
+    return m * (m + 1) // 2 + (S - m) * cap
+
+
+def _pairs(q_shape, k_shape, causal, window) -> int:
+    B, S, H, d = q_shape
+    return B * H * kept_pairs(S, k_shape[1], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_gqa)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                 **kwargs) -> int:
+    """4·d a kept pair: q·kᵀ and p·v."""
+    return 4 * q_shape[3] * _pairs(q_shape, k_shape, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_gqa_bwd)
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, do_shape, causal,
+                     window, *args, **kwargs) -> int:
+    """10·d a kept pair: q·kᵀ again, dv, dp, dk and dq (14·d with the
+    forward)."""
+    return 10 * q_shape[3] * _pairs(q_shape, k_shape, causal, window)
 
 
 def _check_args(q, k, v, causal: bool, window: int) -> None:

@@ -237,3 +237,10 @@ def fused_bicg_tail(x, s, t, phat, shat, rhat, alpha, omega, *, out=None,
 
 
 fused_bicg_tail.passes = (6, 2)
+
+
+def traffic_bytes(kernel, n: int, itemsize: int = 8) -> int:
+    """Modeled HBM traffic of one fused pass: (reads + writes) · n · itemsize,
+    from the kernel's declared ``passes`` attribute (dots are O(1))."""
+    reads, writes = kernel.passes
+    return (reads + writes) * n * itemsize

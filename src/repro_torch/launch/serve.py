@@ -16,6 +16,11 @@ seeded with 1, so they differ from the reference's ``jax.random`` prompts.
 An encoder-decoder (whisper) takes zero frame embeddings (B, enc_frames,
 d_model), as the reference's CLI builds them.  Serving records no
 gradients: ``prefill`` and ``greedy_decode`` run under ``torch.no_grad()``.
+
+:func:`jit_serve_step` is the sharded serve step: parameters, decode state
+and token as ``DTensor``\\ s placed by the logical-axis rules
+(``models.transformer.param_axes`` / ``cache_axes``, ``launch.shardings``)
+over a ``DeviceMesh``.
 """
 from __future__ import annotations
 
@@ -24,10 +29,14 @@ import time
 
 import torch
 
+from torch.distributed.tensor.experimental import implicit_replication
+
 from ..configs import get_config, smoke_variant
 from ..core._device import resolve_device
 from ..models.layers import adtype
-from ..models.transformer import Transformer
+from ..models.transformer import Transformer, cache_axes, param_axes
+from . import shardings as sh
+from .train import _place, _tree_place, bind_params
 
 
 @torch.no_grad()
@@ -58,6 +67,85 @@ def make_serve_step(model: Transformer):
         return next_tok[:, None], state
 
     return serve_step
+
+
+def jit_serve_step(model_or_cfg, rules: sh.Rules, params_shapes: dict,
+                   decode_specs: dict):
+    """(step, (parameter placements, state placements)) for the model (or
+    config) ``model_or_cfg`` under ``rules``: ``step(params, state, token,
+    pos) -> (next token (B, 1) int32, state)``, the greedy serve step on
+    parameters placed by :func:`~repro_torch.models.transformer.param_axes`,
+    a decode state by :func:`~repro_torch.models.transformer.cache_axes`
+    and a token by ``("batch", None)``; the state is updated in place.
+    Whole tensors handed in are cut into the rank's shards with no
+    communication (:func:`distribute_params` / :func:`distribute_decode_state`
+    place them once); the step binds ``params`` into a storage-free
+    skeleton."""
+    cfg = model_or_cfg.cfg if isinstance(model_or_cfg, Transformer) \
+        else model_or_cfg
+    p_pl = sh.make_specs(rules, param_axes(params_shapes), params_shapes)
+    c_pl = sh.make_specs(rules, cache_axes(decode_specs["state"]),
+                         decode_specs["state"])
+    tok_pl = rules.placements(("batch", None), decode_specs["token"].shape)
+    mesh = rules.mesh
+    model = Transformer(cfg, device="meta")
+
+    @torch.no_grad()
+    def step(params, state, token, pos):
+        bind_params(model, sh.gather_params(
+            _tree_place(params, mesh, p_pl), rules))
+        token = _place(token, mesh, tok_pl)
+        with sh.use_rules(rules), implicit_replication():
+            logits, state = model.decode_step(state, token, pos)
+            # the vocabulary whole before the argmax (one token a row)
+            nxt = torch.argmax(sh.unshard(logits[:, -1], -1), dim=-1).to(
+                torch.int32)
+        return _place(nxt[:, None], mesh, tok_pl), state
+
+    return step, (p_pl, c_pl)
+
+
+def jit_prefill(model_or_cfg, rules: sh.Rules, params_shapes: dict):
+    """(prefill, parameter placements): ``prefill(params, tokens,
+    patches=None, enc_frames=None) -> logits`` (B, 1, V) of the last
+    position, :func:`prefill` on parameters placed by ``param_axes`` and
+    inputs placed by ``train.BATCH_AXES`` under ``rules`` (whole tensors
+    are cut into the rank's shards with no communication)."""
+    from .train import BATCH_AXES
+    cfg = model_or_cfg.cfg if isinstance(model_or_cfg, Transformer) \
+        else model_or_cfg
+    p_pl = sh.make_specs(rules, param_axes(params_shapes), params_shapes)
+    mesh = rules.mesh
+    model = Transformer(cfg, device="meta")
+
+    @torch.no_grad()
+    def run(params, tokens, patches=None, enc_frames=None):
+        bind_params(model, sh.gather_params(
+            _tree_place(params, mesh, p_pl), rules))
+        inputs = {k: _place(v, mesh, rules.placements(BATCH_AXES[k], v.shape))
+                  for k, v in (("tokens", tokens), ("patches", patches),
+                               ("enc_frames", enc_frames)) if v is not None}
+        with sh.use_rules(rules), implicit_replication():
+            logits, _ = model(inputs["tokens"], patches=inputs.get("patches"),
+                              enc_frames=inputs.get("enc_frames"),
+                              last_only=True)
+        return logits
+
+    return run, p_pl
+
+
+def distribute_params(model: Transformer, rules: sh.Rules) -> dict:
+    """``model``'s parameters as ``DTensor``\\ s placed by ``param_axes``."""
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    return _tree_place(params, rules.mesh, sh.make_specs(
+        rules, param_axes(params), params))
+
+
+def distribute_decode_state(state: dict, rules: sh.Rules) -> dict:
+    """A decode state (``init_decode_state``) as ``DTensor``\\ s placed by
+    ``cache_axes``."""
+    return _tree_place(state, rules.mesh, sh.make_specs(
+        rules, cache_axes(state), state))
 
 
 @torch.no_grad()

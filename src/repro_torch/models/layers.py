@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..launch.shardings import logical, unshard
 
 
 def adtype(cfg: ModelConfig) -> torch.dtype:
@@ -37,7 +38,10 @@ def at_least_f32(t: torch.Tensor) -> torch.Tensor:
 def dense_init(gen: torch.Generator, shape, dtype, device,
                scale: Optional[float] = None) -> nn.Parameter:
     """N(0, 1)·scale, scale 1/√fan_in by default (fan_in = shape[0]), a
-    trainable parameter."""
+    trainable parameter; on the meta device a storage-free one of that
+    shape (a skeleton draws nothing)."""
+    if torch.device(device).type == "meta":
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
     scale = scale if scale is not None else 1.0 / shape[0] ** 0.5
     w = torch.randn(shape, generator=gen, device=device) * scale
     return nn.Parameter(w.to(dtype))
@@ -96,12 +100,12 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
-        up = x @ self.up.to(dt)
+        up = logical(x @ self.up.to(dt), "batch", "seq", "ff")
         if self.gate is not None:
             h = _act(self.act, x @ self.gate.to(dt)) * up
         else:
             h = _act(self.act, up)
-        return h @ self.down.to(dt)
+        return logical(h @ self.down.to(dt), "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -164,19 +168,24 @@ class Embed(nn.Module):
             self.unembed = None
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.tok[tokens].to(adtype(self.cfg))
+        x = torch.nn.functional.embedding(tokens, self.tok)
+        return logical(x.to(adtype(self.cfg)), "batch", "seq", "embed")
 
     def logits(self, x: torch.Tensor, *, sliced: bool = True) -> torch.Tensor:
-        """Vocabulary logits in f32 (f64 for f64).  The vocab axis is padded
-        to a multiple of 256 with −1e30 columns (the reference's shardable
-        layout); ``sliced=False`` keeps the padding."""
+        """Vocabulary logits in f32 (f64 for f64).  ``sliced=False`` keeps
+        the reference's shardable layout: the vocab axis padded to a
+        multiple of 256 (zero columns of the unembedding, their logits
+        −1e30)."""
         w = self.unembed if self.unembed is not None else self.tok.T
         V = self.cfg.vocab
         Vp = -(-V // 256) * 256
-        x = at_least_f32(x)
-        logits = x @ w.to(x.dtype)
+        x = at_least_f32(unshard(x, 1))
+        w = w.to(x.dtype)
         if Vp != V and not sliced:
-            pad = torch.full(logits.shape[:-1] + (Vp - V,), -1e30,
-                             dtype=logits.dtype, device=logits.device)
-            logits = torch.cat([logits, pad], dim=-1)
-        return logits
+            w = torch.cat([w, torch.zeros((w.shape[0], Vp - V), dtype=x.dtype,
+                                          device=x.device)], dim=1)
+        logits = x @ w
+        if Vp != V and not sliced:
+            keep = torch.arange(Vp, device=x.device) < V
+            logits = torch.where(keep, logits, -1e30)
+        return logical(logits, "batch", "seq", "vocab")

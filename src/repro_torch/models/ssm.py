@@ -21,8 +21,11 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
+from ..launch.shardings import logical, unshard
 from .layers import RMSNorm, at_least_f32, dense_init, pdtype
 
 # ---------------------------------------------------------------------------
@@ -155,6 +158,35 @@ def _ssd_scan(Xd, a, Bm, Cm, chunk: int, h0=None):
     return Y[:, :S_orig], h
 
 
+def _scan(Xd, a, Bm, Cm, chunk: int, lead: int = 1):
+    """:func:`_ssd_scan` over ``lead`` leading batch-like dimensions
+    (flattened into its batch).  On ``DTensor``\\ s it runs on each rank's
+    own rows and heads (``local_map``): those dimensions keep their shards,
+    every other is made whole, and B/C — shared by all heads — take a summed
+    (``Partial``) gradient where the heads are split.  The chunk products
+    would otherwise batch over (rows, heads) together, a strided shard whose
+    redistribution plans take a minute an op on a 3-D mesh."""
+    def fn(X, a_, B_, C_):
+        flat = lambda t: t.reshape(-1, *t.shape[lead:])  # noqa: E731
+        Y, h = _ssd_scan(flat(X), flat(a_), flat(B_), flat(C_), chunk)
+        return (Y.reshape(*X.shape[:lead], *Y.shape[1:]),
+                h.reshape(*X.shape[:lead], *h.shape[1:]))
+
+    if not isinstance(Xd, DTensor):
+        return fn(Xd, a, Bm, Cm)
+    heads = Shard(lead + 1)
+    xp = tuple(p if isinstance(p, Shard) and (p.dim < lead or p == heads)
+               else Replicate() for p in Xd.placements)
+    bp = tuple(Replicate() if p == heads else p for p in xp)
+    bg = tuple(Partial() if p == heads else p for p in xp)
+    hp = tuple(Shard(lead) if p == heads else p for p in xp)
+    return local_map(fn, out_placements=(xp, hp),
+                     in_placements=(xp, xp, bp, bp),
+                     in_grad_placements=(xp, xp, bg, bg),
+                     device_mesh=Xd.device_mesh,
+                     redistribute_inputs=True)(Xd, a, Bm, Cm)
+
+
 def _ssd_seq_parallel(Xd, a, Bm, Cm, chunk: int, n_sp: int):
     """Sequence-decomposed SSD: each of ``n_sp`` segments runs SSD with zero
     initial state (the segments ride the batch axis of one
@@ -166,13 +198,12 @@ def _ssd_seq_parallel(Xd, a, Bm, Cm, chunk: int, n_sp: int):
     Sl = S // n_sp
     r3 = lambda t: t.reshape(B, n_sp, Sl, *t.shape[2:])
     Xs, as_, Bs, Cs = r3(Xd), r3(a), r3(Bm), r3(Cm)
-    flat = lambda t: t.reshape(B * n_sp, *t.shape[2:])
-    Yl, hf = _ssd_scan(flat(Xs), flat(as_), flat(Bs), flat(Cs), chunk)
-    Yl = Yl.reshape(B, n_sp, Sl, H, Pd)
-    hf = hf.reshape(B, n_sp, H, N, Pd)
+    Xs = logical(Xs, "batch", "seq_mixer", None, "heads", "head_dim")
+    Yl, hf = _scan(Xs, as_, Bs, Cs, chunk, lead=2)
 
     cum_seg = torch.cumsum(at_least_f32(as_), dim=2)         # (B, n_sp, Sl, H)
     seg_decay = torch.exp(cum_seg[:, :, -1])                  # (B, n_sp, H)
+    hf = unshard(hf, 1)       # every segment's boundary state on every rank
     h = torch.zeros_like(hf[:, 0])
     h_ins = []                                               # state entering j
     for j in range(n_sp):
@@ -182,6 +213,11 @@ def _ssd_seq_parallel(Xd, a, Bm, Cm, chunk: int, n_sp: int):
 
     Y_extra = torch.einsum("bjtn,bjth,bjhnp->bjthp", Cs,
                            torch.exp(cum_seg).to(Cs.dtype), h_ins)
+    # laid out as the segments are before the sum (an explicit
+    # redistribution: its backward hands the product a gradient whole over
+    # the segments, not a (batch, segment)-sharded one)
+    Y_extra = logical(Y_extra, "batch", "seq_mixer", None, "heads",
+                      "head_dim")
     return (Yl + Y_extra).reshape(B, S, H, Pd)
 
 
@@ -211,14 +247,15 @@ def ssd_forward(p: SSD, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     Xd = Xh * dth[..., None].to(dt_)
     n_sp = cfg.seq_shards_mixer
     if n_sp > 1 and S % n_sp == 0 and (S // n_sp) >= 2:
-        Y = _ssd_seq_parallel(Xd, a, Bm, Cm, min(cfg.ssm_chunk, S // n_sp),
-                              n_sp)
+        Y = unshard(_ssd_seq_parallel(Xd, a, Bm, Cm,
+                                      min(cfg.ssm_chunk, S // n_sp), n_sp), 1)
     else:
-        Y, _ = _ssd_scan(Xd, a, Bm, Cm, cfg.ssm_chunk)
+        Xd = logical(Xd, "batch", "seq", "heads", "head_dim")
+        Y, _ = _scan(Xd, a, Bm, Cm, cfg.ssm_chunk)
     Y = Y + Xh * p.D.to(dt_)[None, None, :, None]
     Y = Y.reshape(B, S, d_in)
     Y = p.norm(Y * F.silu(z))
-    return Y @ p.out_proj.to(dt_)
+    return logical(Y @ p.out_proj.to(dt_), "batch", "seq", "embed")
 
 
 def init_ssd_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
@@ -312,10 +349,10 @@ def rglru_forward(p: RGLRU, x: torch.Tensor, cfg: ModelConfig
     (conv → RG-LRU)."""
     dt_ = x.dtype
     gate = _gelu(x @ p.w_gate_br.to(dt_))
-    u = conv1d(p.conv, x @ p.w_main.to(dt_))
+    u = logical(conv1d(p.conv, x @ p.w_main.to(dt_)), "batch", "seq", "ff")
     a, b = _rglru_gates(p, u)
     h = linear_scan(a, b).to(dt_)
-    return (gate * h) @ p.w_out.to(dt_)
+    return logical((gate * h) @ p.w_out.to(dt_), "batch", "seq", "embed")
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:

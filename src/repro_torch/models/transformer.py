@@ -19,6 +19,12 @@ checkpoint that saves the layer's 2-D matrix products and recomputes the
 rest, the reference's ``checkpoint_dots_with_no_batch_dims``).  Decode
 never differentiates: ``init_decode_state`` and ``decode_step`` run under
 ``torch.no_grad()``.
+
+Sharding is name-based, as in the reference: :func:`param_axes` and
+:func:`cache_axes` give each parameter and decode-state entry its logical
+axes from the last component of its name, and the residual stream is
+constrained between blocks (``launch.shardings.logical``; a no-op on plain
+tensors).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ModelConfig
 from ..core._device import resolve_device
+from ..launch.shardings import logical, unshard
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -58,6 +65,16 @@ def _maybe_remat(fn, cfg: ModelConfig):
         kw["context_fn"] = functools.partial(
             _ckpt.create_selective_checkpoint_contexts, _save_dots)
     return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _residual(y):
+    """``y`` placed as the residual stream (``seq_res``).  Applied to each
+    block's output before it is added, so the sum's placement is decided
+    here — an explicit redistribution, whose backward hands the block's
+    products a gradient whole on the sequence — and not by the addition
+    (whose own redistribution would hand them a (batch, sequence)-sharded
+    one: a strided shard in the products' backward)."""
+    return logical(y, "batch", "seq_res", "embed")
 
 
 #: attention mode of each attention-bearing layer kind
@@ -97,31 +114,44 @@ class DecoderLayer(nn.Module):
             self.ln_x = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
             self.cross = attn.Attention(cfg, gen, device, cross=True)
 
-    def _ffn(self, x):
-        """(x + the MLP or MoE of ln2(x), MoE aux or None)."""
+    def _ffn(self, x, full_seq: bool = False):
+        """(x + the MLP or MoE of ln2(x), MoE aux or None).  ``full_seq``
+        (the full-sequence forward): ln2(x) pinned by ``seq_norm`` and made
+        whole on the sequence for the products, their output placed as the
+        residual stream (:func:`_residual`)."""
+        if self.ln2 is None:
+            return x, None
+        h = self.ln2(x)
+        if full_seq:
+            h = unshard(logical(h, "batch", "seq_norm", "embed"), 1)
         if self.mlp is not None:
-            return x + self.mlp(self.ln2(x)), None
-        if self.moe is not None:
-            y, aux = moe_mod.moe_mlp(self.moe, self.ln2(x), self.cfg)
-            return x + y, aux
-        return x, None
+            y, aux = self.mlp(h), None
+        else:
+            y, aux = moe_mod.moe_mlp(self.moe, h, self.cfg)
+        return x + (_residual(y) if full_seq else y), aux
 
     def forward(self, x, positions, enc_out=None):
-        """(x, MoE aux or None) over the whole sequence."""
+        """(x, MoE aux or None) over the whole sequence; the residual stream
+        is held sequence-sharded between blocks (``seq_res``), each block's
+        normed input made whole on the sequence for its products."""
         cfg = self.cfg
-        h = self.ln1(x)
+        x = _residual(x)
+        h = unshard(logical(self.ln1(x), "batch", "seq_norm", "embed"), 1)
         if self.attn is not None:
-            x = x + attn.attention(self.attn, h, cfg, positions=positions,
-                                   mode=ATTN_MODE[self.kind])
+            y = attn.attention(self.attn, h, cfg, positions=positions,
+                               mode=ATTN_MODE[self.kind])
         elif self.rec is not None:
-            x = x + ssm_mod.rglru_forward(self.rec, h, cfg)
+            y = ssm_mod.rglru_forward(self.rec, h, cfg)
         else:
-            x = x + ssm_mod.ssd_forward(self.ssd, h, cfg)
+            y = ssm_mod.ssd_forward(self.ssd, h, cfg)
+        x = x + _residual(y)
         if self.cross is not None:
-            x = x + attn.attention(self.cross, self.ln_x(x), cfg,
-                                   positions=positions, mode="cross",
-                                   enc_out=enc_out)
-        return self._ffn(x)
+            x = x + _residual(attn.attention(
+                self.cross, unshard(self.ln_x(x), 1), cfg,
+                positions=positions, mode="cross",
+                enc_out=unshard(enc_out, 1)))
+        x, aux = self._ffn(x, full_seq=True)
+        return _residual(x), aux
 
     def init_state(self, batch: int, seq_len: int, dtype, enc_out=None
                    ) -> dict:
@@ -272,3 +302,78 @@ class Transformer(nn.Module):
         for i, layer in enumerate(self.layers):
             x, caches[i] = layer.decode(x, caches[i], pos)
         return self.embed.logits(self.final_norm(x)), state
+
+
+# ---------------------------------------------------------------------------
+# shapes and name-based sharding axes
+# ---------------------------------------------------------------------------
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """{parameter name: shape} of ``cfg``'s model, from a storage-free
+    ``device="meta"`` skeleton."""
+    return {k: p.shape for k, p in
+            Transformer(cfg, device="meta").named_parameters()}
+
+
+_AXES_TABLE = {
+    "wq": ("p_embed", "p_heads"), "wk": ("p_embed", "p_kv_heads"),
+    "wv": ("p_embed", "p_kv_heads"), "wo": ("p_heads", "p_embed"),
+    "bq": ("p_heads",), "bk": ("p_kv_heads",), "bv": ("p_kv_heads",),
+    "up": ("p_embed", "p_ff"), "gate": ("p_embed", "p_ff"),
+    "down": ("p_ff", "p_embed"),
+    "tok": ("p_vocab", "p_embed"), "unembed": ("p_embed", "p_vocab"),
+    "router": ("p_embed", None),
+    "w_gate": ("p_experts", "p_embed", "p_expert_ff"),
+    "w_up": ("p_experts", "p_embed", "p_expert_ff"),
+    "w_down": ("p_experts", "p_expert_ff", "p_embed"),
+    "in_proj": ("p_embed", "p_ff"), "out_proj": ("p_ff", "p_embed"),
+    "w_main": ("p_embed", "p_ff"), "w_gate_br": ("p_embed", "p_ff"),
+    "w_r": ("p_ff", None), "w_i": ("p_ff", None), "w_out": ("p_ff", "p_embed"),
+    "w": (None, "p_ff"),                       # conv kernels
+    "scale": (None,), "lam": ("p_ff",),
+    "A_log": (None,), "D": (None,), "dt_bias": (None,),
+}
+
+# KV caches shard on the SEQUENCE dim over the model axis ("seq_kv"):
+# kv_heads (often 8) rarely divide a 16-way model axis, and the
+# divisibility fallback would replicate the dominant decode buffer
+_CACHE_AXES_TABLE = {
+    "k": ("batch", "seq_kv", "kv_heads_cache", None),
+    "v": ("batch", "seq_kv", "kv_heads_cache", None),
+    "pos": ("seq_kv",),
+    "cross_k": ("batch", "seq_kv", "kv_heads_cache", None),
+    "cross_v": ("batch", "seq_kv", "kv_heads_cache", None),
+    "conv": ("batch", None, "ff"),
+}
+
+
+def _axes(table: dict, name: str, ndim: int) -> tuple:
+    """The reference's ``_axes_by_name`` rule for one leaf: the table's axes
+    of the name's last component; one short, a leading ``"layers"`` axis
+    (the reference's stacked period dimension, replicated by every rule
+    set); any other length, or no entry, replicated."""
+    ax = table.get(name.rpartition(".")[2])
+    if ax is None:
+        return (None,) * ndim
+    if len(ax) == ndim - 1:
+        ax = ("layers",) + tuple(ax)
+    return tuple(ax) if len(ax) == ndim else (None,) * ndim
+
+
+def param_axes(shapes: dict) -> dict:
+    """{parameter name: logical axes} for {name: shape} (or tensors)."""
+    return {k: _axes(_AXES_TABLE, k, len(s)) for k, s in
+            ((k, getattr(v, "shape", v)) for k, v in shapes.items())}
+
+
+def cache_axes(state: dict) -> dict:
+    """Logical axes parallel to a decode state (``init_decode_state``):
+    KV rings by :data:`_CACHE_AXES_TABLE`, an SSD state ``h`` (B, H, N, P)
+    by batch and heads, an RG-LRU ``h`` (B, w) by batch and ff."""
+    def one(name, t):
+        if name == "h":
+            return (("batch", "heads", None, None) if t.dim() >= 4
+                    else ("batch", "ff"))
+        return _axes(_CACHE_AXES_TABLE, name, t.dim())
+    return {"layers": [{k: one(k, t) for k, t in c.items()}
+                       for c in state["layers"]]}

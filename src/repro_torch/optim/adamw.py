@@ -70,8 +70,15 @@ def global_norm(tree: dict) -> torch.Tensor:
 def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
     """One AdamW step.  Returns (new params, new state, metrics
     ``{"grad_norm", "lr"}``)."""
+    return adamw_apply(cfg, params, grads, state, global_norm(grads))
+
+
+def adamw_apply(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
+                gnorm: torch.Tensor):
+    """:func:`adamw_update` with the gradients' global norm given: the rest
+    is elementwise, so it runs as well on a rank's shards of params, grads
+    and moments placed alike."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip > 0 else 1.0)
     lr = schedule_lr(cfg, step)

@@ -6,6 +6,8 @@ reference tensor crosses to the port as numpy arrays through
 Nothing here imports the reference: ``test_torch_on_card.py`` uses these
 helpers on a card machine that has no jax.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -251,3 +253,40 @@ def sweep_bucket_on(tb, device):
                      rvec=t(tb["r"]), bkm=t(tb["bkm"], torch.bool))
     tsn.check_sweep_bucket(bk, device)
     return bk
+
+
+@contextlib.contextmanager
+def two_ranks(target, tmp_path, out_name, timeout, args=()):
+    """Spawn two processes ``target(rank, store_path, out_path, *args)``
+    that meet in a gloo group over a ``FileStore`` under ``tmp_path``, and
+    yield ``out_path`` (``tmp_path / out_name``), where the ranks write
+    what they found; the body of the ``with`` runs in this process while
+    they run.  On leaving it, each rank is joined within ``timeout``
+    seconds, what is left is killed, and both must have exited 0."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    out_path = str(tmp_path / out_name)
+    procs = [ctx.Process(target=target,
+                         args=(rank, str(tmp_path / "store"), out_path,
+                               *args))
+             for rank in range(2)]
+    for pr in procs:
+        pr.start()
+    try:
+        yield out_path
+    finally:
+        for pr in procs:
+            pr.join(timeout)
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    assert [pr.exitcode for pr in procs] == [0, 0]
+
+
+def run_two_ranks(target, tmp_path, out_name, timeout, args=()):
+    """:func:`two_ranks` with nothing to do meanwhile: the out path once
+    both ranks have exited 0."""
+    with two_ranks(target, tmp_path, out_name, timeout, args) as out_path:
+        pass
+    return out_path

@@ -33,6 +33,8 @@ from repro_torch.core.distributed import (DSparseTensor, DSparseTensorList,
 from repro_torch.core.sparse import SparseTensor
 from repro_torch.data.poisson import poisson1d, poisson2d_arrays
 
+from _torch_parity import run_two_ranks
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 192
 B = np.linspace(0.5, 1.5, N)
@@ -664,27 +666,13 @@ def _gloo_rank(rank, store_path, out_path):
 
 
 def test_two_gloo_ranks_bit_equal_to_one_process(tmp_path):
-    import torch.multiprocessing as mp
     threads = torch.get_num_threads()
     torch.set_num_threads(1)            # as the ranks run
     try:
         want = _gloo_case(None)
     finally:
         torch.set_num_threads(threads)
-    ctx = mp.get_context("spawn")
-    out_path = str(tmp_path / "w2.npz")
-    procs = [ctx.Process(target=_gloo_rank,
-                         args=(rank, str(tmp_path / "store"), out_path))
-             for rank in range(2)]
-    for pr in procs:
-        pr.start()
-    for pr in procs:
-        pr.join(RANK_TIMEOUT)
-    for pr in procs:
-        if pr.is_alive():
-            pr.kill()
-            pr.join()
-    assert [pr.exitcode for pr in procs] == [0, 0]
+    out_path = run_two_ranks(_gloo_rank, tmp_path, "w2.npz", RANK_TIMEOUT)
     got = dict(np.load(out_path))
     assert set(got) == set(want)
     for k in want:

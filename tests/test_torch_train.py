@@ -236,7 +236,8 @@ def test_flash_backward_matches_reference_chunked_attention(mode, H, K,
     tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
     o = flash_attention_gqa(tq, tk, tv, causal=mode != "bidir",
                             window=window)
-    assert type(o.grad_fn).__name__ == "_FlashGQABackward"
+    # the flash op's own registered backward, not autograd through plain ops
+    assert "repro_torch_flash_attention_gqa" in type(o.grad_fn).__name__
     (o * torch.tensor(w)).sum().backward()
     for name, got, want in zip("qkv", (tq.grad, tk.grad, tv.grad), jg):
         want = np.asarray(want)

@@ -34,6 +34,8 @@ from repro_torch.models.transformer import Transformer
 from repro_torch.optim import compress
 from repro_torch.optim.adamw import AdamWConfig
 
+from _torch_parity import run_two_ranks
+
 RANK_TIMEOUT = 120
 
 
@@ -133,6 +135,48 @@ def test_checkpoint_keep_k_and_atomicity(tmp_path):
         mgr.restore(4, {"a": torch.zeros(4), "b": tree["b"]})
     with pytest.raises(KeyError, match="missing"):
         mgr.restore(4, {"z": torch.zeros(1)})
+
+
+def test_checkpoint_bf16_roundtrip(tmp_path):
+    """A bf16 tensor is saved as its int16 bit pattern, listed in the
+    manifest, and restored as the same bf16 values."""
+    tree = {"p": torch.randn(3, 5).to(torch.bfloat16),
+            "o": {"m": torch.randn(3, 5), "step": torch.tensor(7)}}
+    mgr = CheckpointManager(str(tmp_path / "bf"), keep=1)
+    mgr.save(1, tree)
+    assert mgr.manifest(1)["bfloat16"] == ["p"]
+    back = mgr.restore(1, tree)
+    assert back["p"].dtype == torch.bfloat16
+    assert torch.equal(back["p"], tree["p"])
+    assert torch.equal(back["o"]["m"], tree["o"]["m"])
+    assert int(back["o"]["step"]) == 7
+
+
+def test_ft_config_default_dir_is_under_the_temp_dir():
+    import tempfile
+    d = FTConfig().ckpt_dir
+    assert os.path.isabs(d)
+    assert os.path.commonpath([d, tempfile.gettempdir()]) == \
+        tempfile.gettempdir()
+
+
+def test_ft_failure_before_first_checkpoint_restarts_from_given_state(
+        tmp_path):
+    """With ``ckpt_every`` past the failure there is no checkpoint to
+    resume: the loop restarts from the state ``run`` was given, so its
+    final state equals an uninterrupted run's (no step applied twice)."""
+    cfg, state, step, make_batch = _setup()
+    logs = []
+    loop = TrainLoop(FTConfig(ckpt_dir=str(tmp_path / "a"), ckpt_every=10,
+                              async_save=False), step, make_batch)
+    final, last = loop.run(state, 6, fail_at=3, log_every=0,
+                           logger=logs.append)
+    assert last == 6
+    assert any("checkpoint step None" in m for m in logs)
+    loop2 = TrainLoop(FTConfig(ckpt_dir=str(tmp_path / "b"), ckpt_every=10,
+                               async_save=False), step, make_batch)
+    final2, _ = loop2.run(state, 6, log_every=0, logger=lambda *_: None)
+    _assert_equal(final, final2)
 
 
 def test_data_determinism_and_restart_safety():
@@ -277,21 +321,7 @@ def test_compressed_collectives_one_process():
 
 
 def test_compressed_collectives_on_two_gloo_ranks(tmp_path):
-    import torch.multiprocessing as mp
-    ctx = mp.get_context("spawn")
-    out_path = str(tmp_path / "out")
-    procs = [ctx.Process(target=_gloo_rank,
-                         args=(rank, str(tmp_path / "store"), out_path))
-             for rank in range(2)]
-    for pr in procs:
-        pr.start()
-    for pr in procs:
-        pr.join(RANK_TIMEOUT)
-    for pr in procs:
-        if pr.is_alive():
-            pr.kill()
-            pr.join()
-    assert [pr.exitcode for pr in procs] == [0, 0]
+    out_path = run_two_ranks(_gloo_rank, tmp_path, "out", RANK_TIMEOUT)
     got = [dict(np.load(f"{out_path}.{r}.npz")) for r in range(2)]
     np.testing.assert_array_equal(got[0]["psum"], got[1]["psum"])
     np.testing.assert_array_equal(got[0]["psum"], _collectives(None)["psum"])
